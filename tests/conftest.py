@@ -27,6 +27,12 @@ from repro.core import sanitizer as _sanitizer
 from repro.runtime import rpc as _rpc
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: launches a CUDA kernel of repro_torch; skips "
+        "without an NVIDIA GPU")
+
+
 @pytest.fixture(autouse=True)
 def _pangea_isolation(request):
     """Counter + sanitizer isolation around every test."""
