@@ -26,8 +26,9 @@ ARCH_IDS = [
     "qwen2-vl-72b",
 ]
 
-# dense GQA decoders with RoPE and RMSNorm: what the port's LM runs today
-PORTED_ARCH_IDS = ("glm4-9b", "qwen3-0.6b")
+# what the port's LM runs today: dense GQA decoders with RoPE and RMSNorm,
+# and the attention-free RWKV6 (family "ssm")
+PORTED_ARCH_IDS = ("glm4-9b", "qwen3-0.6b", "rwkv6-3b")
 
 
 def _module_name(arch_id: str) -> str:
@@ -60,6 +61,8 @@ def smoke_config(arch_id: str) -> ArchConfig:
     )
     if cfg.n_heads:
         kw.update(n_heads=4, kv_heads=min(cfg.kv_heads, 2), head_dim=16)
+    if cfg.family == "ssm":
+        kw.update(rwkv_head_dim=16)
     if cfg.window:
         kw.update(window=16)
     kw["page_size"] = 8

@@ -1,0 +1,110 @@
+"""Public wrapper for the GLA scan (the RWKV6 wkv core).
+
+Dispatches between the hand-written CUDA kernel (``impl="kernel"``), the
+chunk-parallel plain-PyTorch path (``impl="xla_chunked"``, the mirror of the
+reference's ``_gla_chunked_xla``: a loop over chunks with products within)
+and the sequential oracle (``impl="xla"``, ``ref.gla_scan_ref``).
+
+Kernel source note. The kernel (``csrc/linear_scan.cu``, launched by
+``kernel.gla_scan_kernel``) replaces the Pallas TPU kernel ``gla_scan_kernel``
+in ``repro/kernels/linear_scan/kernel.py``. At the served prefill shape
+(B·H = 128 rows, T = 512, Dk = Dv = 80, chunk 64, bf16 in) its floor on the
+H100 is the fp32 flops of the chunked products (about 2.4 GFLOP, A and A v
+strictly lower triangular, over 67 TFLOP/s: 0.035 ms), not its ~56 MB of
+traffic (0.017 ms). The TPU kernel carries the state in
+VMEM scratch across a sequential grid axis; on Hopper blocks run in no
+order, so one block per (row, Dv tile) keeps its fp32 state tile in shared
+memory and walks the chunks itself. The Dv tiles are sized to give every SM
+a block (128 rows are under the 132 SMs). Chunks are staged in shared memory
+with 16-byte loads, the cumulative decays run as warp scans, and the three
+products take fp32 FMAs from 4x4 register tiles; tensor cores are later work.
+
+``impl="kernel"`` takes the plain version (``"xla_chunked"``, the function
+the TPU kernel computes) only when the tensors lie on the CPU. On CUDA
+tensors it pads T to a chunk multiple, launches the kernel or raises; it
+never falls back. ``gla_scan.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .kernel import gla_scan_kernel
+from .ref import gla_scan_ref
+
+
+def _pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zeros after the last token: log-decay 0 is no decay, k = 0 no update."""
+    return F.pad(x, (0, 0, 0, pad)) if pad else x
+
+
+def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, *, impl: str = "xla",
+             chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 wkv core from a zero state. w = LOG decays. r, k, w: [B, T, Dk];
+    v: [B, T, Dv]; u: [B, Dk]. Returns (o [B, T, Dv] in v's dtype, S_T
+    [B, Dk, Dv] in fp32).
+
+    impl: "kernel" (CUDA kernel; "xla_chunked" on CPU tensors),
+    "xla_chunked" (chunked plain PyTorch) or "xla" (sequential oracle).
+    """
+    if impl == "kernel":
+        if r.device.type == "cpu":
+            return _gla_chunked(r, k, v, w, u, chunk=chunk)
+        T = r.shape[1]
+        c = min(chunk, T)
+        pad = (-T) % c
+        o, S = gla_scan_kernel(*(_pad_time(x, pad).contiguous()
+                                 for x in (r, k, v, w)),
+                               u.contiguous(), chunk=c)
+        gla_scan.launches += 1
+        return (o[:, :T] if pad else o), S
+    if impl == "xla":
+        return gla_scan_ref(r, k, v, w, u)
+    if impl == "xla_chunked":
+        return _gla_chunked(r, k, v, w, u, chunk=chunk)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+gla_scan.launches = 0
+
+
+def _gla_chunked(r, k, v, w, u, *, chunk: int = 64):
+    """Chunk-parallel GLA in plain PyTorch, fp32 throughout: the same
+    telescoped factorisation as the kernel, chunk by chunk,
+
+        q_inter = r e^{c - w},  q_intra = r e^{c - w - c_L},
+        k_intra = k e^{c_L - c},  c = cumsum(w) within the chunk,
+
+    o = q_inter S + tril(q_intra k_intra^T, -1) v + (Σ r u k) v and
+    S <- e^{c_L} S + k_intra^T v."""
+    B, T, Dk = r.shape
+    Dv, out_dtype = v.shape[-1], v.dtype
+    c = min(chunk, T)
+    pad = (-T) % c
+    r, k, v, w = (_pad_time(x, pad).float() for x in (r, k, v, w))
+    uf = u.float()
+    strict = torch.tril(torch.ones(c, c, dtype=torch.bool, device=r.device),
+                        diagonal=-1)
+    S = torch.zeros((B, Dk, Dv), dtype=torch.float32, device=r.device)
+    outs = []
+    for s in range(0, r.shape[1], c):
+        rc, kc, vc, wc = (x[:, s:s + c] for x in (r, k, v, w))
+        cum = torch.cumsum(wc, dim=1)
+        ex_cum = cum - wc
+        c_last = cum[:, -1:, :]
+        q_inter = rc * torch.exp(ex_cum)
+        q_intra = rc * torch.exp(ex_cum - c_last)
+        k_intra = kc * torch.exp(c_last - cum)
+        o = torch.einsum("blk,bkv->blv", q_inter, S)
+        A = torch.einsum("bik,bjk->bij", q_intra, k_intra)
+        A = torch.where(strict, A, torch.zeros((), device=A.device))
+        bonus = torch.einsum("blk,bk,blk->bl", rc, uf, kc)
+        o = o + torch.einsum("bij,bjv->biv", A, vc) + bonus[..., None] * vc
+        S = torch.exp(c_last).transpose(1, 2) * S + torch.einsum(
+            "blk,blv->bkv", k_intra, vc)
+        outs.append(o)
+    o = torch.cat(outs, dim=1)[:, :T]
+    return o.to(out_dtype), S

@@ -1,0 +1,39 @@
+"""Plain PyTorch oracle for the GLA scan (the RWKV6 wkv core):
+
+    S_t = diag(e^{w_t}) S_{t-1} + k_t v_t^T,
+    o_t = r_t (S_{t-1} + diag(u) k_t v_t^T),
+
+with w the LOG decays (w <= 0) and S in fp32 (fp64 for fp64 inputs, the
+exact answer that fp32 paths are measured against).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def gla_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor,
+                 s0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 wkv, one token at a time.
+
+    r, k, w: [B, T, Dk]; v: [B, T, Dv]; u: [B, Dk] (per-row bonus);
+    s0: [B, Dk, Dv]. Returns (o [B, T, Dv] in v's dtype, s_final [B, Dk, Dv]
+    in fp32, or fp64 when r is fp64).
+    """
+    B, T, Dk = r.shape
+    Dv = v.shape[-1]
+    acc = torch.float64 if r.dtype == torch.float64 else torch.float32
+    S = (torch.zeros((B, Dk, Dv), dtype=acc, device=r.device)
+         if s0 is None else s0.to(acc))
+    rf, kf, vf, wf, uf = (x.to(acc) for x in (r, k, v, w, u))
+    os = []
+    for t in range(T):
+        kv = kf[:, t, :, None] * vf[:, t, None, :]            # [B, Dk, Dv]
+        os.append(torch.einsum("bk,bkv->bv", rf[:, t],
+                               S + uf[:, :, None] * kv))
+        S = torch.exp(wf[:, t])[:, :, None] * S + kv
+    o = torch.stack(os, dim=1) if os else vf[:, :0]
+    return o.to(v.dtype), S

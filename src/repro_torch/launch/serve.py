@@ -5,10 +5,14 @@ priority (finished/cold sequences evicted first). As in the JAX package, the
 decode step attends over the model's dense cache per batch while the page
 manager runs the paging policy on every step; ``kernels/paged_attention`` is
 the device read of the pool. Prefill goes through the flash-attention kernel
-(``LM(attn_impl="kernel")``).
+(``LM(attn_impl="kernel")``) for the dense archs and through the GLA-scan
+kernel (``LM(scan_impl="kernel")``) for rwkv6-3b, whose decode carries its
+recurrent state in the model's cache. For rwkv6-3b the pool keeps the
+reference's geometry (one "kv head" of d_model wide) and is bookkeeping
+only, as in the JAX package: it holds no RWKV state.
 
-Run: ``python -m repro_torch.launch.serve --arch qwen3-0.6b`` (on the card;
-``--device cpu --smoke`` for a small CPU run).
+Run: ``python -m repro_torch.launch.serve --arch qwen3-0.6b`` or ``--arch
+rwkv6-3b`` (on the card; ``--device cpu --smoke`` for a small CPU run).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Dense decoder LM of the port: blocks, LM and the model registry."""
+"""The port's decoder LMs (dense, RWKV6): blocks, LM and the model registry."""
 from .lm import LM
 from .model import build_model
 

@@ -1,11 +1,11 @@
-"""Per-layer blocks of the dense decoder: GQA attention (with qwen3's
-qk_norm) and the SwiGLU FFN.
+"""Per-layer blocks: GQA attention (with qwen3's qk_norm), the SwiGLU FFN,
+and RWKV6's time mix (wkv) and channel mix.
 
 Every ``*_init`` builds the params of all layers at once, stacked on a
 leading ``layers`` dim (``lead``), with the JAX reference's names and
 layouts. Every ``*_apply`` takes one layer's params. ``attn_apply`` handles
 both full-sequence (prefill) and single-token decode (``cache`` + ``pos``)
-modes.
+modes, ``rwkv_apply`` full-sequence and single-token decode (``state``).
 """
 from __future__ import annotations
 
@@ -18,8 +18,9 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
+from ..kernels.linear_scan.ops import gla_scan
 from .common import (apply_rope, dense_init, layer_norm, normal, rms_norm,
-                     silu)
+                     sigmoid, silu)
 
 
 def _norm_init(cfg: ArchConfig, d: int, gen: torch.Generator,
@@ -170,3 +171,127 @@ def ffn_apply(p, x, *, cfg: ArchConfig, act: str = "silu"):
     g = silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
     y = torch.einsum("btf,fd->btd", g * u, p["w2"])
     return x + y
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): time mix (wkv) + channel mix
+# ---------------------------------------------------------------------------
+def _uniform(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.rand(shape, generator=gen, device=gen.device)
+
+
+def rwkv_init(gen: torch.Generator, cfg: ArchConfig,
+              lead: Tuple[int, ...] = ()) -> Dict:
+    """The reference's params and layouts. Its init draws all five ``mu_*``
+    from one key (and ``cmu_k``/``cmu_r`` from another); here each is drawn
+    anew. Parity tests bridge the reference's own params."""
+    d, ff, lora = cfg.d_model, cfg.d_ff, 64
+    p = {nm: _uniform(gen, (*lead, d))
+         for nm in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g")}
+    p["w0"] = -2.0 + normal(gen, (*lead, d)) * 0.1
+    p["wA"] = dense_init(gen, d, lora, lead=lead)
+    p["wB"] = dense_init(gen, lora, d, lead=lead)
+    for nm in ("w_r", "w_k", "w_v", "w_g"):
+        p[nm] = dense_init(gen, d, d, lead=lead)
+    p["u"] = normal(gen, (*lead, d)) * 0.1
+    p["ln_x"] = torch.ones((*lead, d), device=gen.device)
+    p["w_o"] = dense_init(gen, d, d, lead=lead)
+    p["norm1"] = _norm_init(cfg, d, gen, lead)
+    p["cmu_k"] = _uniform(gen, (*lead, d))
+    p["cmu_r"] = _uniform(gen, (*lead, d))
+    p["cw_k"] = dense_init(gen, d, ff, lead=lead)
+    p["cw_v"] = dense_init(gen, ff, d, lead=lead)
+    p["cw_r"] = dense_init(gen, d, d, lead=lead)
+    p["norm2"] = _norm_init(cfg, d, gen, lead)
+    return p
+
+
+def _token_shift(x, prev):
+    """[B, T, d] -> the previous token's activations; ``prev`` ([B, d]) is
+    the one before t = 0 (zeros without it)."""
+    if x.shape[1] == 1:
+        return prev[:, None] if prev.dim() == 2 else prev
+    shifted = torch.cat([x[:, :1] * 0, x[:, :-1]], dim=1)
+    if prev is not None:
+        shifted[:, 0] = prev if prev.dim() == 2 else prev[:, 0]
+    return shifted
+
+
+def rwkv_apply(p, x, *, cfg: ArchConfig, state: Optional[Dict] = None,
+               scan_impl: str = "kernel"):
+    """Returns (y, new_state). state: {"tm_x", "cm_x": [B, d], "S":
+    [B, H, dk, dv]}. With T > 1 the wkv runs from a zero state (any incoming
+    ``S`` is ignored, as in the reference); with ``state`` and T == 1 it is
+    one decode step. dtypes follow the reference's promotions: with bf16
+    weights the time mix runs in bf16, the decode state in fp32."""
+    B, T, d = x.shape
+    hd = cfg.rwkv_head_dim
+    H = d // hd
+    decode = state is not None and T == 1
+
+    # ---- time mix ----
+    h = apply_norm(cfg, p.get("norm1"), x)
+    prev = state["tm_x"] if state is not None else None
+    hs = _token_shift(h, prev)
+
+    def mix(mu):
+        return h + (hs - h) * mu
+    xr, xk, xv, xw, xg = (mix(p[m]) for m in
+                          ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"))
+    w_log = -torch.exp(p["w0"] + torch.tanh(
+        torch.einsum("btd,dl->btl", xw, p["wA"])) @ p["wB"])   # [B,T,d] <= 0
+    r = torch.einsum("btd,de->bte", xr, p["w_r"])
+    k = torch.einsum("btd,de->bte", xk, p["w_k"])
+    v = torch.einsum("btd,de->bte", xv, p["w_v"])
+    g = torch.einsum("btd,de->bte", xg, p["w_g"])
+
+    def heads(t):  # [B, T, d] -> [B*H, T, hd]
+        return (t.reshape(B, T, H, hd).transpose(1, 2)
+                .reshape(B * H, T, hd))
+    rh, kh, vh, wh = heads(r), heads(k), heads(v), heads(w_log)
+    u = p["u"].reshape(H, hd)[None].expand(B, H, hd).reshape(B * H, hd)
+    if decode:
+        S = state["S"].reshape(B * H, hd, hd)
+        kv = kh[:, 0, :, None] * vh[:, 0, None, :]
+        Su = S + u[:, :, None] * kv                    # fp32, as jax promotes
+        o = torch.einsum("bk,bkv->bv", rh[:, 0].to(Su.dtype), Su)[:, None]
+        S = torch.exp(wh[:, 0])[:, :, None] * S + kv
+        new_S = S.reshape(B, H, hd, hd)
+    else:
+        o, Sf = gla_scan(rh, kh, vh, wh, u, impl=scan_impl)
+        new_S = Sf.reshape(B, H, hd, hd)
+    o = o.reshape(B, H, T, hd).transpose(1, 2).reshape(B, T, d)
+    # per-head group norm: an rms norm (eps 1e-6) scaled by ln_x
+    og = o.reshape(B, T, H, hd)
+    og = rms_norm(og, None) * p["ln_x"].reshape(H, hd)
+    o = og.reshape(B, T, d).to(x.dtype)
+    o = o * silu(g)
+    x = x + torch.einsum("btd,de->bte", o, p["w_o"])
+
+    # ---- channel mix ----
+    h2 = apply_norm(cfg, p.get("norm2"), x)
+    prev2 = state["cm_x"] if state is not None else None
+    hs2 = _token_shift(h2, prev2)
+    ck = h2 + (hs2 - h2) * p["cmu_k"]
+    cr = h2 + (hs2 - h2) * p["cmu_r"]
+    kk = torch.einsum("btd,df->btf", ck, p["cw_k"])
+    kk = torch.clamp_min(kk, 0.0) ** 2
+    out = sigmoid(torch.einsum("btd,de->bte", cr, p["cw_r"])) * \
+        torch.einsum("btf,fd->btd", kk, p["cw_v"])
+    x = x + out
+
+    new_state = None
+    if state is not None:
+        new_state = {"tm_x": h[:, -1], "cm_x": h2[:, -1], "S": new_S}
+    return x, new_state
+
+
+def rwkv_state_init(cfg: ArchConfig, batch: int, dtype,
+                    device) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    H = d // hd
+    return {"tm_x": torch.zeros((batch, d), dtype=dtype, device=device),
+            "cm_x": torch.zeros((batch, d), dtype=dtype, device=device),
+            "S": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
+                             device=device)}

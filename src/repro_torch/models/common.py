@@ -64,6 +64,13 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Sigmoid as the reference computes ``jax.nn.sigmoid`` (``lax.logistic``)
+    in bf16: 1 / (1 + exp(-x)), each op rounded to x's dtype.
+    ``torch.sigmoid`` rounds once and differs by an ulp."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def rope_freqs(head_dim: int, theta: float = 10000.0,
                device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,

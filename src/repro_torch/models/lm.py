@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense family.
+"""Decoder-only LM: the dense family and the attention-free RWKV6 ("ssm").
 
 Params keep the JAX reference's layout: a nested dict with the stacked
 ``layers`` dim first, so the bridge to the reference is a map over names and
@@ -43,16 +43,23 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _stack(states):
+    """Per-layer state dicts -> one dict of [L, ...] tensors."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
 class LM:
-    """Config-driven dense language model. All state is explicit: params and
-    caches are passed in and returned."""
+    """Config-driven language model (dense or RWKV6). All state is explicit:
+    params and caches are passed in and returned. ``attn_impl`` picks the
+    attention of dense prefill, ``scan_impl`` the wkv of RWKV6 prefill; both
+    default to the CUDA kernel (its plain version on CPU tensors)."""
 
     def __init__(self, cfg: ArchConfig, attn_impl: str = "kernel",
-                 device: DeviceLike = "cuda"):
-        if cfg.family != "dense" or cfg.n_experts or cfg.kv_lora:
+                 scan_impl: str = "kernel", device: DeviceLike = "cuda"):
+        if cfg.family not in ("dense", "ssm") or cfg.n_experts or cfg.kv_lora:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family is ported (family="
-                f"{cfg.family!r})")
+                f"{cfg.name}: only the dense and ssm (RWKV6) families are "
+                f"ported (family={cfg.family!r})")
         if cfg.window is not None or cfg.rope not in ("rope", "none") \
                 or cfg.embed_inputs:
             raise NotImplementedError(
@@ -60,6 +67,7 @@ class LM:
                 f"are not ported yet")
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.scan_impl = scan_impl
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
@@ -71,13 +79,17 @@ class LM:
                              f"{self.device}")
         cfg = self.cfg
         L = cfg.n_layers
+        if cfg.family == "ssm":
+            layers = {"rwkv": blocks.rwkv_init(gen, cfg, lead=(L,))}
+        else:
+            layers = {"attn": blocks.attn_init(gen, cfg, lead=(L,)),
+                      "ffn": blocks.ffn_init(gen, cfg, lead=(L,))}
         return {
             "embed": normal(gen, (cfg.vocab, cfg.d_model)) * 0.02,
             "unembed": normal(gen, (cfg.d_model, cfg.vocab))
             * (1.0 / math.sqrt(cfg.d_model)),
             "final_norm": blocks._norm_init(cfg, cfg.d_model, gen),
-            "layers": {"attn": blocks.attn_init(gen, cfg, lead=(L,)),
-                       "ffn": blocks.ffn_init(gen, cfg, lead=(L,))},
+            "layers": layers,
         }
 
     # ------------------------------------------------------------- forward
@@ -104,11 +116,24 @@ class LM:
         return torch.arange(T, device=self.device) + offset
 
     def _layer_apply(self, p, x, positions, cache=None, pos=None):
+        if self.cfg.family == "ssm":
+            return blocks.rwkv_apply(p["rwkv"], x, cfg=self.cfg, state=cache,
+                                     scan_impl=self.scan_impl)
         x, c = blocks.attn_apply(p["attn"], x, cfg=self.cfg,
                                  positions=positions, cache=cache, pos=pos,
                                  attn_impl=self.attn_impl)
         x = blocks.ffn_apply(p["ffn"], x, cfg=self.cfg)
         return x, c
+
+    def _rwkv_layers(self, params, x, states):
+        """RWKV6 layers over ``x``, layer i from ``states[i]``. Returns
+        (logits, the new per-layer states stacked on a leading layer dim)."""
+        new = []
+        for i, st in enumerate(states):
+            x, st = self._layer_apply(_layer(params["layers"], i), x, None,
+                                      cache=st)
+            new.append(st)
+        return self._logits(params, x), _stack(new)
 
     def _logits(self, params, x):
         x = blocks.apply_norm(self.cfg, params.get("final_norm"), x)
@@ -128,6 +153,11 @@ class LM:
     # ------------------------------------------------------------- serving
     def decode_cache_init(self, batch: int, max_len: int) -> Pytree:
         cfg = self.cfg
+        if cfg.family == "ssm":
+            st = blocks.rwkv_state_init(cfg, batch,
+                                        torch_dtype(cfg.kv_cache_dtype),
+                                        self.device)
+            return _stack([st] * cfg.n_layers)
         c = blocks.attn_cache_init(cfg, batch, max_len,
                                    torch_dtype(cfg.kv_cache_dtype),
                                    self.device)
@@ -136,9 +166,14 @@ class LM:
 
     def decode_step(self, params, batch, cache, pos: int):
         """One-token decode. batch: {"tokens": [B, 1]}. Returns (logits
-        [B, 1, V], cache); the cache is updated in place."""
+        [B, 1, V], cache). An attention cache is updated in place; RWKV6
+        states come back as a new dict, as the reference's scan returns
+        them."""
         params = self._compute_cast(params)
         x = self._embed(params, batch)
+        if self.cfg.family == "ssm":
+            return self._rwkv_layers(
+                params, x, [_layer(cache, i) for i in range(self.cfg.n_layers)])
         positions = self._positions(1, offset=int(pos))
         for i in range(self.cfg.n_layers):
             x, _ = self._layer_apply(_layer(params["layers"], i), x,
@@ -148,10 +183,16 @@ class LM:
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
         """Prompt processing; returns (logits, decode-ready cache).
-        ``max_len`` sizes the kv cache (default: prompt length)."""
+        ``max_len`` sizes the kv cache (default: prompt length); RWKV6
+        returns the stacked per-layer states instead (``max_len`` unused)."""
         cfg = self.cfg
         params = self._compute_cast(params)
         x = self._embed(params, batch)
+        if cfg.family == "ssm":
+            st0 = blocks.rwkv_state_init(cfg, x.shape[0],
+                                         torch_dtype(cfg.kv_cache_dtype),
+                                         self.device)
+            return self._rwkv_layers(params, x, [st0] * cfg.n_layers)
         T = x.shape[1]
         max_len = max_len or T
         dt = torch_dtype(cfg.kv_cache_dtype)

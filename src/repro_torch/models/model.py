@@ -6,8 +6,9 @@ from .lm import LM
 
 
 def build_model(cfg: ArchConfig, **kw) -> LM:
-    """The dense LM; other families raise ``NotImplementedError``."""
-    if cfg.family != "dense":
+    """The LM of the dense and ssm (RWKV6) families; the others raise
+    ``NotImplementedError``."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet")
     return LM(cfg, **kw)

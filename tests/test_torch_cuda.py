@@ -7,7 +7,8 @@ on a machine that has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the same inputs at
-the JAX package's tolerances (3e-5 fp32, 2e-2 bf16, 2e-5 over the pool).
+the JAX package's tolerances (3e-5 fp32, 2e-2 bf16, 2e-5 over the pool, 2e-4
+for the GLA scan in fp32).
 """
 import numpy as np
 import pytest
@@ -17,6 +18,8 @@ from repro_torch.configs import smoke_config
 from repro_torch.core import PagedKVCache
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.linear_scan.ops import gla_scan
+from repro_torch.kernels.linear_scan.ref import gla_scan_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.launch.serve import Request, ServeLoop
 from repro_torch.models.model import build_model
@@ -37,6 +40,19 @@ PAGED_CASES = [
     (2, 4, 2, 32, 16, 8, 4),
     (1, 8, 8, 16, 8, 16, 3),
     (3, 4, 1, 64, 32, 8, 6),
+]
+# the JAX package's test_gla_scan_sweep cases and more (chip_smoke.py's
+# GLA_CASES says why each)
+GLA_CASES = [
+    # B, T, Dk, Dv, chunk, w0
+    (2, 32, 16, 16, 16, 0.0),
+    (1, 64, 32, 16, 16, 0.0),
+    (2, 48, 8, 24, 16, 0.0),
+    (2, 50, 8, 24, 16, 0.0),
+    (1, 37, 80, 80, 64, -2.0),
+    (1, 100, 80, 80, 64, -2.0),
+    (3, 45, 10, 6, 16, 0.0),        # widths that are not whole 16-byte rows
+    (2, 130, 128, 128, 64, -2.0),   # the kernel's widest head
 ]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -158,3 +174,97 @@ def test_lm_kernel_path_matches_plain_path(cuda_device):
     lk, _ = kern.forward(params, {"tokens": toks})
     lp, _ = plain.forward(params, {"tokens": toks})
     _close(lk, lp, rtol=1e-4, atol=1e-4)
+
+
+def _gla_inputs(rng, B, T, Dk, Dv, w0, dtype, device, rk_scale=1.0):
+    def t(a):
+        return torch.from_numpy(a).to(device, dtype)
+    r = t(rng.normal(size=(B, T, Dk)) * rk_scale)
+    k = t(rng.normal(size=(B, T, Dk)) * rk_scale)
+    v = t(rng.normal(size=(B, T, Dv)))
+    w = t(-np.exp(w0 + rng.normal(size=(B, T, Dk)) * 0.5))
+    u = t(rng.normal(size=(B, Dk)))
+    return r, k, v, w, u
+
+
+def _check_gla(case, dtype, device, rk_scale=1.0):
+    B, T, Dk, Dv, chunk, w0 = case
+    inputs = _gla_inputs(np.random.default_rng(11), B, T, Dk, Dv, w0,
+                         DTYPES[dtype], device, rk_scale)
+    before = gla_scan.launches
+    o, S = gla_scan(*inputs, impl="kernel", chunk=chunk)
+    torch.cuda.synchronize()
+    assert gla_scan.launches == before + 1
+    assert o.dtype == DTYPES[dtype] and S.dtype == torch.float32
+    ro, rS = gla_scan(*inputs, impl="xla_chunked", chunk=chunk)
+    assert torch.isfinite(o).all() and torch.isfinite(S).all()
+    t = 2e-2 if dtype == "bfloat16" else 2e-4
+    _close(o, ro, rtol=t, atol=t)
+    _close(S, rS, rtol=t, atol=t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GLA_CASES)
+def test_gla_kernel_matches_plain(case, dtype, cuda_device):
+    """o and S_T against the chunked plain version at 2e-4 (fp32) / 2e-2
+    (bf16)."""
+    _check_gla(case, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gla_kernel_matches_plain_at_the_served_shape(dtype, cuda_device):
+    """B*H = 128 rows, T = 512, head 80, chunk 64, the served decays. r and
+    k are scaled by Dk^-1/2 so that o stays O(1) and the fixed tolerance
+    applies; the next test takes unit-scale r and k."""
+    _check_gla((128, 512, 80, 80, 64, -2.0), dtype, cuda_device,
+               rk_scale=80 ** -0.5)
+
+
+def _rel_gap(out, exact):
+    return float(((out.double() - exact).abs() / (1 + exact.abs())).max())
+
+
+@pytest.mark.cuda
+def test_gla_kernel_at_the_served_shape_against_the_exact_scan(cuda_device):
+    """Unit-scale r and k in fp32 at the served shape (the inputs that
+    _check_gla draws from its seed): o reaches ~170 and its terms cancel.
+    The fp64 oracle is the exact answer; the kernel must come as close to it
+    as twice the chunked plain version does."""
+    inputs = _gla_inputs(np.random.default_rng(11), 128, 512, 80, 80, -2.0,
+                         torch.float32, cuda_device)
+    exact_o, exact_S = gla_scan_ref(*(x.double() for x in inputs))
+    o, S = gla_scan(*inputs, impl="kernel", chunk=64)
+    po, pS = gla_scan(*inputs, impl="xla_chunked", chunk=64)
+    assert torch.isfinite(o).all() and torch.isfinite(S).all()
+    plain = max(_rel_gap(po, exact_o), _rel_gap(pS, exact_S))
+    kernel = max(_rel_gap(o, exact_o), _rel_gap(S, exact_S))
+    assert kernel <= 2 * plain, (kernel, plain)
+
+
+@pytest.mark.cuda
+def test_rwkv_serve_loop_prefills_through_the_scan_kernel(cuda_device):
+    cfg = smoke_config("rwkv6-3b")
+    loop = ServeLoop(cfg, batch_slots=2, max_len=40, hbm_pages=4)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, 24, dtype=np.int32),
+                    max_new_tokens=4) for i in range(4)]
+    before = gla_scan.launches
+    out = loop.run(reqs)
+    assert gla_scan.launches - before == cfg.n_layers * 2
+    assert all(len(v) == 4 for v in out.values())
+
+
+@pytest.mark.cuda
+def test_rwkv_kernel_path_matches_plain_path(cuda_device):
+    cfg = smoke_config("rwkv6-3b").with_(compute_dtype="float32",
+                                         kv_cache_dtype="float32")
+    kern = build_model(cfg)
+    plain = build_model(cfg, scan_impl="xla_chunked")
+    params = kern.init(torch.Generator("cuda").manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 70)))
+    lk, sk = kern.prefill(params, {"tokens": toks})
+    lp, sp = plain.prefill(params, {"tokens": toks})
+    _close(lk, lp, rtol=1e-4, atol=1e-4)
+    _close(sk["S"], sp["S"], rtol=2e-4, atol=2e-4)

@@ -1,5 +1,5 @@
-"""The port's dense LM against the JAX package's on bridged params: forward,
-prefill and three decode steps of smoke qwen3-0.6b and glm4-9b.
+"""The port's LM against the JAX package's on bridged params: forward,
+prefill and three decode steps of smoke qwen3-0.6b, glm4-9b and rwkv6-3b.
 
 fp32 is held at 1e-4 (two layers of fp32 sums taken in another order). bf16
 is held at 2e-2 against the reference run op by op (``jax.disable_jit``):
@@ -26,7 +26,8 @@ from repro_torch.models.model import build_model
 
 torch.set_num_threads(2)
 
-ARCHS = ["qwen3-0.6b", "glm4-9b"]
+ARCHS = ["qwen3-0.6b", "glm4-9b", "rwkv6-3b"]
+STATE_KEYS = ("tm_x", "cm_x", "S")         # RWKV6's per-layer decode state
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -66,8 +67,10 @@ def test_logits_match_jax(arch, dtype):
     assert tl.shape == (2, 12, 256) and float(aux) == 0.0
     _close(tl, jl, tol, "forward")
     _close(tpl, jpl, tol, "prefill")
-    assert tc["k"].shape == tuple(jc["k"].shape)
-    _close(tc["k"], jc["k"], tol, "prefill cache k")
+    for key in (STATE_KEYS if tm.cfg.family == "ssm" else ("k",)):
+        assert tc[key].shape == tuple(jc[key].shape), key
+        assert str(tc[key].dtype).split(".")[-1] == jc[key].dtype.name, key
+        _close(tc[key], jc[key], tol, f"prefill cache {key}")
     # three greedy decode steps, each side feeding its own argmax
     jlast = np.asarray(jnp.argmax(jpl[:, -1], -1))[:, None].astype(np.int32)
     tlast = tpl[:, -1].argmax(-1)[:, None]
@@ -78,6 +81,9 @@ def test_logits_match_jax(arch, dtype):
         td, tc = tm.decode_step(tp, {"tokens": tlast}, tc, 12 + step)
         assert np.array_equal(tlast.numpy(), jlast)
         _close(td, jd, tol, f"decode step {step}")
+        if tm.cfg.family == "ssm":
+            for key in STATE_KEYS:
+                _close(tc[key], jc[key], tol, f"decode step {step} {key}")
         jlast = np.asarray(jnp.argmax(jd[:, 0], -1))[:, None].astype(np.int32)
         tlast = td[:, 0].argmax(-1)[:, None]
 
@@ -160,7 +166,7 @@ def test_unported_archs_raise():
     assert len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         if arch in ARCHS:
-            assert get_config(arch).family == "dense"
+            assert get_config(arch).family in ("dense", "ssm")
         else:
             with pytest.raises(NotImplementedError):
                 get_config(arch)
@@ -169,6 +175,9 @@ def test_unported_archs_raise():
     with pytest.raises(NotImplementedError):
         LM(smoke_config("glm4-9b").with_(family="moe", n_experts=4),
            device="cpu")
+    with pytest.raises(NotImplementedError):
+        build_model(smoke_config("rwkv6-3b").with_(family="hybrid"),
+                    device="cpu")
 
 
 def test_generator_must_live_on_the_model_device():
@@ -176,3 +185,94 @@ def test_generator_must_live_on_the_model_device():
     meta = type("G", (), {"device": torch.device("meta")})()
     with pytest.raises(ValueError):
         model.init(meta)
+
+
+# -- RWKV6 ---------------------------------------------------------------------------
+def test_rwkv_decode_matches_full_forward_and_the_reference():
+    """Mirror of tests/test_models.py::test_decode_matches_full_forward for
+    rwkv6-3b in fp32: prefill of 10 tokens, then 4 decode steps, each held
+    against ``forward`` and against the reference's logits and states."""
+    jm, jp, tm, tp = _pair("rwkv6-3b", "float32")
+    B, T0, T = 2, 10, 14
+    toks = np.random.default_rng(4).integers(0, 256, (B, T)).astype(np.int32)
+    full, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    jfull, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    _close(full, jfull, 1e-4, "forward")
+    pre, cache = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :T0])},
+                            max_len=T)
+    jpre, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :T0])},
+                              max_len=T)
+    np.testing.assert_allclose(pre.numpy(), full[:, :T0].numpy(), rtol=1e-4,
+                               atol=1e-4)
+    _close(pre, jpre, 1e-4, "prefill")
+    for t in range(T0, T):
+        lg, cache = tm.decode_step(
+            tp, {"tokens": torch.from_numpy(toks[:, t:t + 1])}, cache, t)
+        jlg, jcache = jm.decode_step(
+            jp, {"tokens": jnp.asarray(toks[:, t:t + 1])}, jcache, t)
+        np.testing.assert_allclose(lg[:, 0].numpy(), full[:, t].numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        _close(lg, jlg, 1e-4, f"decode {t}")
+        for key in STATE_KEYS:
+            _close(cache[key], jcache[key], 1e-4, f"decode {t} {key}")
+
+
+def test_rwkv_bridge_round_trip_and_reference_layout():
+    """The reference's RWKV6 tree crosses the bridge byte-identically, and
+    the port's own init has the reference's names, shapes and fp32."""
+    cfg = jax_smoke_config("rwkv6-3b")
+    jp = jax.tree.map(np.asarray, jax_build_model(cfg).init(
+        jax.random.PRNGKey(3)))
+    flat = _flatten(jp)
+    back = _flatten(params_to_numpy(params_from_numpy(jp, device="cpu")))
+    assert sorted(flat) == sorted(back)
+    for key in flat:
+        assert back[key].tobytes() == flat[key].tobytes(), key
+    ours = _flatten(params_to_numpy(LM(smoke_config("rwkv6-3b"),
+                                       device="cpu").init(
+        torch.Generator().manual_seed(0))))
+    assert {k: v.shape for k, v in ours.items()} == \
+        {k: v.shape for k, v in flat.items()}
+    assert all(v.dtype == np.float32 for v in ours.values())
+
+
+def test_rwkv_compute_cast_and_decode_cache_match_the_reference():
+    """The stacked [L, d] vectors go to bf16 with the matrices, as in the
+    reference; the decode cache keeps tm_x/cm_x in kv_cache_dtype and S in
+    fp32."""
+    jcfg = jax_smoke_config("rwkv6-3b")
+    jm = jax_build_model(jcfg)
+    jc = jm._compute_cast(jm.init(jax.random.PRNGKey(0)))
+    model = LM(smoke_config("rwkv6-3b"), device="cpu")
+    once = model._compute_cast(model.init(torch.Generator().manual_seed(0)))
+    for name, leaf in once["layers"]["rwkv"].items():
+        assert str(leaf.dtype).split(".")[-1] == \
+            jc["layers"]["rwkv"][name].dtype.name, name
+    assert once["layers"]["rwkv"]["u"].dtype == torch.bfloat16      # [L, d]
+    cache = model.decode_cache_init(3, 16)
+    jcache = jm.decode_cache_init(3, 16)
+    for key in STATE_KEYS:
+        assert tuple(cache[key].shape) == jcache[key].shape, key
+        assert str(cache[key].dtype).split(".")[-1] == \
+            jcache[key].dtype.name, key
+        assert not cache[key].any()
+
+
+def test_rwkv_kernel_and_plain_scans_give_the_same_logits():
+    """On the CPU "kernel" is "xla_chunked" exactly; the sequential oracle
+    sums in another order (fp32 model tolerance, 1e-4)."""
+    _, _, tm, tp = _pair("rwkv6-3b", "float32")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 9)))
+    outs = [build_model(tm.cfg, scan_impl=impl, device="cpu").forward(
+        tp, {"tokens": toks})[0] for impl in ("kernel", "xla_chunked", "xla")]
+    assert torch.equal(outs[0], outs[1])
+    np.testing.assert_allclose(outs[2].numpy(), outs[0].numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_sigmoid_rounds_like_the_reference_in_bf16():
+    x = np.random.default_rng(0).normal(size=4096).astype(np.float32) * 4
+    jx = jnp.asarray(x, jnp.bfloat16)
+    ref = np.asarray(jax.nn.sigmoid(jx), np.float32)
+    tx = torch.from_numpy(np.asarray(jx, np.float32)).bfloat16()
+    assert np.array_equal(common.sigmoid(tx).float().numpy(), ref)

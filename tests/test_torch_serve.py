@@ -13,6 +13,7 @@ from repro.launch.serve import ServeLoop as JaxServeLoop
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.linear_scan.ops import gla_scan
 from repro_torch.launch import serve
 from repro_torch.launch.serve import Request, ServeLoop
 
@@ -52,6 +53,33 @@ def test_serve_loop_matches_jax_tokens_and_pager_stats():
     assert flash_attention.launches == before  # CPU: the plain version
 
 
+def test_rwkv_serve_loop_matches_jax_tokens_and_pager_stats():
+    """Smoke rwkv6-3b in the same case (fp32, 6 requests, 2 slots, max_len
+    32, 3 pool pages): identical token ids and pager stats. The pool is
+    bookkeeping only here, as in the reference; it still offloads."""
+    jcfg = jax_smoke_config("rwkv6-3b").with_(**FP32)
+    jloop = JaxServeLoop(jcfg, batch_slots=2, max_len=32, hbm_pages=3)
+    jout = jloop.run([JaxRequest(i, p, max_new_tokens=4)
+                      for i, p in enumerate(_prompts(jcfg.vocab))])
+
+    params = params_from_numpy(jax.tree.map(np.asarray, jloop.params),
+                               device="cpu")
+    cfg = smoke_config("rwkv6-3b").with_(**FP32)
+    loop = ServeLoop(cfg, batch_slots=2, max_len=32, hbm_pages=3,
+                     params=params, device="cpu")
+    assert loop.pager.kv.shape[-2:] == (1, cfg.d_model)   # reference geometry
+    before = gla_scan.launches
+    out = loop.run([Request(i, p, max_new_tokens=4)
+                    for i, p in enumerate(_prompts(cfg.vocab))])
+
+    assert len(out) == 6 and all(len(v) == 4 for v in out.values())
+    assert out == jout
+    assert loop.stats["offloads"] > 0
+    for key in PAGER_KEYS:
+        assert loop.stats[key] == jloop.stats[key], key
+    assert gla_scan.launches == before         # CPU: the plain version
+
+
 def test_serve_loop_default_params_and_bf16_run():
     cfg = smoke_config("qwen3-0.6b")
     loop = ServeLoop(cfg, batch_slots=2, max_len=24, hbm_pages=2,
@@ -73,6 +101,14 @@ def test_main_runs_on_the_cpu(capsys, monkeypatch):
     monkeypatch.setattr("sys.argv", ["serve", "--smoke", "--device", "cpu",
                                      "--requests", "2", "--prompt-len", "6",
                                      "--new-tokens", "2"])
+    serve.main()
+    assert "served 2 requests" in capsys.readouterr().out
+
+
+def test_main_serves_rwkv_on_the_cpu(capsys, monkeypatch):
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", "rwkv6-3b", "--smoke",
+                                     "--device", "cpu", "--requests", "2",
+                                     "--prompt-len", "6", "--new-tokens", "2"])
     serve.main()
     assert "served 2 requests" in capsys.readouterr().out
 
