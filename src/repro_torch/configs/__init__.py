@@ -27,8 +27,9 @@ ARCH_IDS = [
 ]
 
 # what the port's LM runs today: dense GQA decoders with RoPE and RMSNorm,
-# and the attention-free RWKV6 (family "ssm")
-PORTED_ARCH_IDS = ("glm4-9b", "qwen3-0.6b", "rwkv6-3b")
+# the attention-free RWKV6 (family "ssm") and RG-LRU with local attention
+# (family "hybrid")
+PORTED_ARCH_IDS = ("glm4-9b", "qwen3-0.6b", "rwkv6-3b", "recurrentgemma-9b")
 
 
 def _module_name(arch_id: str) -> str:

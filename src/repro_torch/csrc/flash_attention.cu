@@ -5,13 +5,18 @@
 // softmax attention with GQA (query head h reads kv head h / G), causal,
 // sliding-window, q_offset and kv_len masks, out = acc / max(l, 1e-20).
 //
-// Layout: q, o [B, H, Tq, D]; k, v [B, KH, Tk, D]; all contiguous.
+// Layout: q, o [B, H, Tq, D]; k, v [B, KH, Tk, D]; all contiguous; D <= 256.
 // Grid: (ceil(Tq / 64), H, B); one block of 256 threads per 64-row q tile.
 // The block walks 64-key tiles of k and v staged in shared memory as fp32
 // and keeps m, l and the output accumulator in registers (fp32). Thread
 // (ty, tx) of a 16 x 16 grid owns rows 4*ty .. 4*ty+3 of the tile, score
 // columns tx + 16*j and output columns tx + 16*j; a row's 16 threads sit in
-// one half-warp, so row max and row sum are half-warp shuffles.
+// one half-warp, so row max and row sum are half-warp shuffles. The kernel
+// is compiled twice, for D <= 128 and for D <= 256 (recurrentgemma's heads):
+// the accumulator holds 4 x DJ floats a thread, DJ = 8 or 16, so the
+// narrow heads keep their registers. At D = 256 the staged q, k, v and the
+// probabilities take 214 KB of shared memory (one block per SM), under the
+// 227 KB a block may opt into.
 //
 // Masked blocks are skipped through the loop bounds (causal end, window
 // start). Masked scores are filled with -1e30 as on the TPU, and their
@@ -19,9 +24,13 @@
 // is fully masked adds nothing (the TPU kernel relies on a later live
 // block's correction factor to wipe that contribution).
 //
-// What bounds it on the H100: at the slice's shapes (T = 512, D = 128) the
+// What bounds it on the H100: at qwen3-0.6b's prefill (T = 512, D = 128) the
 // bytes are ~25 MB against ~4 GFLOP of causal attention, so the floor is
-// memory (~7.5 us at 3.35 TB/s). This first version does its products as
+// memory (~7.5 us at 3.35 TB/s); at recurrentgemma-9b's (B = 4, 16 heads
+// over 1 kv head, T = 2100, D = 256, window 2048) ~146 MB against 0.145
+// TFLOP, so the floor is the bf16 tensor-core rate (0.146 ms), and the
+// fp32 FMA rate this kernel uses puts its own floor at ~2.2 ms. This first
+// version does its products as
 // scalar fp32 FMAs from shared memory, so in practice it is bound by shared
 // memory loads and FMA throughput, far above that floor; tensor-core tiles
 // (mma.sync / wgmma) and TMA staging are later work.
@@ -33,8 +42,8 @@ namespace {
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 256;
-constexpr int D_MAX = 128;
-constexpr int DJ = D_MAX / 16;
+constexpr int D_NARROW = 128;      // DJ = 8
+constexpr int D_MAX = 256;         // DJ = 16
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -58,7 +67,7 @@ size_t smem_bytes(int D) {
   return sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + 1) + (size_t)BQ * (BK + 1));
 }
 
-template <typename T>
+template <typename T, int DJ>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int H, int KH,
@@ -193,21 +202,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int DJ>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int KH, int Tq, int Tk, int D, float scale, int causal,
            int has_window, int window, int q_offset, int kv_len,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<T, DJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, DJ><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, KH, Tq, Tk, D, scale,
       causal, has_window, window, q_offset, kv_len);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_for_width(const void* q, const void* k, const void* v, void* o,
+                     int B, int H, int KH, int Tq, int Tk, int D, float scale,
+                     int causal, int has_window, int window, int q_offset,
+                     int kv_len, cudaStream_t stream) {
+  if (D <= D_NARROW)
+    return launch<T, D_NARROW / 16>(q, k, v, o, B, H, KH, Tq, Tk, D, scale,
+                                    causal, has_window, window, q_offset,
+                                    kv_len, stream);
+  return launch<T, D_MAX / 16>(q, k, v, o, B, H, KH, Tq, Tk, D, scale, causal,
+                               has_window, window, q_offset, kv_len, stream);
 }
 
 }  // namespace
@@ -223,11 +246,13 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
   if (B == 0 || Tq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, B, H, KH, Tq, Tk, D, scale, causal,
-                         has_window, window, q_offset, kv_len, s);
+    return launch_for_width<float>(q, k, v, o, B, H, KH, Tq, Tk, D, scale,
+                                   causal, has_window, window, q_offset,
+                                   kv_len, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, H, KH, Tq, Tk, D, scale,
-                                 causal, has_window, window, q_offset, kv_len, s);
+    return launch_for_width<__nv_bfloat16>(q, k, v, o, B, H, KH, Tq, Tk, D,
+                                           scale, causal, has_window, window,
+                                           q_offset, kv_len, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,7 +22,7 @@ _SIGNATURES = {
     "flash_attention_fwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                              _I, _I, _I, _I, _I, _P], _I),
 }
-D_MAX = 128            # csrc/flash_attention.cu D_MAX
+D_MAX = 256            # csrc/flash_attention.cu D_MAX
 
 
 def _lib():

@@ -9,10 +9,12 @@ reference does.
 Kernel source note. The kernel (``csrc/flash_attention.cu``, launched by
 ``kernel.flash_attention_kernel``) replaces the Pallas TPU kernel
 ``flash_attention_kernel`` in ``repro/kernels/flash_attention/kernel.py``.
-At the slice's prefill shapes its floor on the H100 is memory (q, k, v and
-out once over 3.35 TB/s; ~25 MB at B=4, H=16, T=512, D=128 in bf16), but
-this first version computes with scalar fp32 FMAs out of shared memory, so
-it is bound by shared-memory loads and FMA throughput. Its design keeps the
+At qwen3-0.6b's prefill its floor on the H100 is memory (q, k, v and out
+once over 3.35 TB/s; ~25 MB at B=4, H=16, T=512, D=128 in bf16); at
+recurrentgemma-9b's (B=4, H=16, KH=1, T=2100, D=256, window 2048) it is the
+0.145 TFLOP of causal products at the bf16 tensor-core rate (0.146 ms). This
+first version computes with scalar fp32 FMAs out of shared memory, so it is
+bound by shared-memory loads and FMA throughput. Head dims up to 256. Its design keeps the
 online-softmax state in registers, stages one 64-key tile of k and v in
 shared memory per step and skips masked tiles through the loop bounds;
 tensor-core tiles are later work.

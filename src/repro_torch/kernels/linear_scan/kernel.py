@@ -1,15 +1,18 @@
-"""Launcher of the hand-written CUDA chunked GLA scan (``csrc/linear_scan.cu``).
+"""Launchers of the hand-written CUDA linear scans: the diagonal scan of
+RG-LRU (``csrc/diag_scan.cu``) and the chunked GLA scan of RWKV6
+(``csrc/linear_scan.cu``).
 
-The kernel replaces the Pallas TPU kernel ``gla_scan_kernel``
-(``repro/kernels/linear_scan/kernel.py``). The source note in the ``.cu`` file
-says what bounds it on the H100 and how its design deals with that.
-``ops.gla_scan`` is the wrapper that pads, dispatches and counts launches.
+They replace the Pallas TPU kernels ``diag_scan_kernel`` and
+``gla_scan_kernel`` (``repro/kernels/linear_scan/kernel.py``). The source
+note in each ``.cu`` file says what bounds it on the H100 and how its design
+deals with that. ``ops.diag_scan`` and ``ops.gla_scan`` are the wrappers
+that dispatch and count launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,12 +23,91 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gla_scan_fwd": ([_I] + [_P] * 7 + [_I] * 8 + [_P], _I),
 }
+_DIAG_SIGNATURES = {
+    "diag_scan_fwd": ([_I] + [_P] * 5 + [_I] * 4 + [_P], _I),
+}
 D_MAX = 128            # csrc/linear_scan.cu D_MAX (Dk and Dv)
 CHUNK_MAX = 64         # csrc/linear_scan.cu L_MAX
+SEGMENTS_MAX = 16      # csrc/diag_scan.cu SEG_MAX (warps of a block)
 
 
 def _lib():
     return _build.load("linear_scan", _SIGNATURES)
+
+
+# ---------------------------------------------------------------------------
+# Diagonal scan (RG-LRU): h_t = a_t * h_{t-1} + b_t
+# ---------------------------------------------------------------------------
+def check_diag_inputs(a: torch.Tensor, b: torch.Tensor,
+                      h0: Optional[torch.Tensor]) -> None:
+    """Raise on anything the CUDA kernel does not take."""
+    named = [("a", a), ("b", b)] + ([] if h0 is None else [("h0", h0)])
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"diag_scan kernel: {name} is on {t.device}, "
+                             f"not a CUDA device")
+        if t.device != a.device:
+            raise ValueError("diag_scan kernel: inputs on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"diag_scan kernel: {name} must be contiguous")
+    if a.dtype not in _DTYPE_CODE:
+        raise TypeError(f"diag_scan kernel: a is {a.dtype}, not float32 or "
+                        f"bfloat16")
+    if h0 is not None and not h0.is_floating_point():
+        raise TypeError(f"diag_scan kernel: h0 is {h0.dtype}, not a float "
+                        f"type")
+    if b.dtype != a.dtype:
+        raise TypeError(f"diag_scan kernel: a is {a.dtype} but b is "
+                        f"{b.dtype}")
+    if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
+        raise ValueError(f"diag_scan kernel: a {tuple(a.shape)} and b "
+                         f"{tuple(b.shape)} must be one [B, T, D] shape")
+    B, T, D = a.shape
+    if T < 1 or D < 1:
+        raise ValueError(f"diag_scan kernel: T ({T}) and D ({D}) must be "
+                         f">= 1")
+    if h0 is not None and tuple(h0.shape) != (B, D):
+        raise ValueError(f"diag_scan kernel: h0 {tuple(h0.shape)} is not "
+                         f"[B, D] = {(B, D)}")
+
+
+def segment_steps(T: int, chunk: int) -> int:
+    """Time steps per warp: ``chunk``, or more where T would need more
+    warps than a block holds."""
+    return max(chunk, -(-T // SEGMENTS_MAX))
+
+
+def diag_scan_kernel(a: torch.Tensor, b: torch.Tensor,
+                     h0: Optional[torch.Tensor] = None, *, chunk: int = 256
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel. a, b: [B, T, D], contiguous CUDA tensors of
+    one dtype (float32 or bfloat16), any T >= 1; h0: [B, D] in either dtype
+    or None (zeros), handed to the kernel in fp32 (exact from bf16).
+    ``chunk``: time steps per warp. Returns (h [B, T, D], h_T [B, D]), both
+    in a's dtype."""
+    check_diag_inputs(a, b, h0)
+    B, T, D = a.shape
+    if chunk < 1:
+        raise ValueError(f"diag_scan kernel: chunk {chunk} must be >= 1")
+    if h0 is not None:
+        h0 = h0.float()
+    h = torch.empty_like(a)
+    hT = torch.empty((B, D), dtype=a.dtype, device=a.device)
+    lib = _build.load("diag_scan", _DIAG_SIGNATURES)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = lib.diag_scan_fwd(
+            _DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(),
+            None if h0 is None else h0.data_ptr(),
+            h.data_ptr(), hT.data_ptr(), B, T, D, segment_steps(T, chunk),
+            stream)
+    _build.check(lib, err, "diag_scan_fwd")
+    return h, hT
+
+
+# ---------------------------------------------------------------------------
+# Chunked GLA (the RWKV6 wkv core)
+# ---------------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,11 +1,29 @@
-"""Public wrapper for the GLA scan (the RWKV6 wkv core).
+"""Public wrappers for the linear scans: ``diag_scan`` (RG-LRU) and
+``gla_scan`` (the RWKV6 wkv core).
 
-Dispatches between the hand-written CUDA kernel (``impl="kernel"``), the
-chunk-parallel plain-PyTorch path (``impl="xla_chunked"``, the mirror of the
-reference's ``_gla_chunked_xla``: a loop over chunks with products within)
-and the sequential oracle (``impl="xla"``, ``ref.gla_scan_ref``).
+``diag_scan`` dispatches between the hand-written CUDA kernel
+(``impl="kernel"``) and the sequential oracle (``impl="xla"``,
+``ref.diag_scan_ref``). Kernel source note. The kernel (``csrc/diag_scan.cu``,
+launched by ``kernel.diag_scan_kernel``) replaces the Pallas TPU kernel
+``diag_scan_kernel`` in ``repro/kernels/linear_scan/kernel.py``. It moves 3
+elements per multiply-add, so its floor on the H100 is memory: at the served
+prefill shape ([4, 2100, 4096] bf16) 206 MB over 3.35 TB/s, 0.062 ms. The TPU
+kernel walks T in chunks over a sequential grid axis with the state in VMEM;
+on Hopper the 16,384 channels alone are too few threads to keep enough loads
+in flight, so a block cuts T into segments, one warp each, scans every
+segment from zero, chains the segments' (product, end state) pairs in shared
+memory and walks each segment again from its true start. The kernel takes
+any T >= 1, so the wrapper skips the reference's padding of T to a chunk
+multiple (the padded steps come after the last real one and change no
+output); ``chunk`` is the segment length. ``impl="kernel"`` takes the plain
+version only when the tensors lie on the CPU; on CUDA tensors it launches the
+kernel or raises. ``diag_scan.launches`` counts kernel launches.
 
-Kernel source note. The kernel (``csrc/linear_scan.cu``, launched by
+``gla_scan`` dispatches between the hand-written CUDA kernel
+(``impl="kernel"``), the chunk-parallel plain-PyTorch path
+(``impl="xla_chunked"``, the mirror of the reference's ``_gla_chunked_xla``:
+a loop over chunks with products within) and the sequential oracle
+(``impl="xla"``, ``ref.gla_scan_ref``). Kernel source note. The kernel (``csrc/linear_scan.cu``, launched by
 ``kernel.gla_scan_kernel``) replaces the Pallas TPU kernel ``gla_scan_kernel``
 in ``repro/kernels/linear_scan/kernel.py``. At the served prefill shape
 (B·H = 128 rows, T = 512, Dk = Dv = 80, chunk 64, bf16 in) its floor on the
@@ -26,13 +44,38 @@ never falls back. ``gla_scan.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .kernel import gla_scan_kernel
-from .ref import gla_scan_ref
+from .kernel import diag_scan_kernel, gla_scan_kernel
+from .ref import diag_scan_ref, gla_scan_ref
+
+
+def diag_scan(a: torch.Tensor, b: torch.Tensor,
+              h0: Optional[torch.Tensor] = None, *, impl: str = "xla",
+              chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + b_t with the carry in fp32. a, b: [B, T, D];
+    h0: [B, D] in any float type (zeros without it). Returns (h [B, T, D],
+    h_T [B, D]) in a's dtype.
+
+    impl: "kernel" (CUDA kernel; the oracle on CPU tensors) or "xla" (the
+    sequential oracle)."""
+    if impl == "kernel":
+        if a.device.type == "cpu":
+            return diag_scan_ref(a, b, h0)
+        out = diag_scan_kernel(a.contiguous(), b.contiguous(),
+                               None if h0 is None else h0.contiguous(),
+                               chunk=chunk)
+        diag_scan.launches += 1
+        return out
+    if impl == "xla":
+        return diag_scan_ref(a, b, h0)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+diag_scan.launches = 0
 
 
 def _pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -1,16 +1,45 @@
-"""Plain PyTorch oracle for the GLA scan (the RWKV6 wkv core):
+"""Plain PyTorch oracles for the linear-scan kernels:
+
+* ``diag_scan_ref``: h_t = a_t * h_{t-1} + b_t, a vector state per channel
+  (RG-LRU);
+* ``gla_scan_ref``: the GLA scan (the RWKV6 wkv core),
 
     S_t = diag(e^{w_t}) S_{t-1} + k_t v_t^T,
     o_t = r_t (S_{t-1} + diag(u) k_t v_t^T),
 
-with w the LOG decays (w <= 0) and S in fp32 (fp64 for fp64 inputs, the
-exact answer that fp32 paths are measured against).
+  with w the LOG decays (w <= 0).
+
+Both carry the state in fp32 (fp64 for fp64 inputs, the exact answer that
+fp32 paths are measured against).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def diag_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                  h0: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a, b: [B, T, D]; h0: [B, D] in any float type (zeros without it).
+    Walks T with the carry in fp32 and returns (h [B, T, D], h_T [B, D]),
+    both in a's dtype."""
+    B, T, D = a.shape
+    acc = _acc_dtype(a)
+    h = (torch.zeros((B, D), dtype=acc, device=a.device) if h0 is None
+         else h0.to(acc))
+    af, bf = a.to(acc), b.to(acc)
+    hs = []
+    for t in range(T):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    out = torch.stack(hs, dim=1) if hs else af[:, :0]
+    return out.to(a.dtype), h.to(a.dtype)
 
 
 def gla_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -25,7 +54,7 @@ def gla_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     B, T, Dk = r.shape
     Dv = v.shape[-1]
-    acc = torch.float64 if r.dtype == torch.float64 else torch.float32
+    acc = _acc_dtype(r)
     S = (torch.zeros((B, Dk, Dv), dtype=acc, device=r.device)
          if s0 is None else s0.to(acc))
     rf, kf, vf, wf, uf = (x.to(acc) for x in (r, k, v, w, u))

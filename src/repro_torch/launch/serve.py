@@ -7,12 +7,17 @@ manager runs the paging policy on every step; ``kernels/paged_attention`` is
 the device read of the pool. Prefill goes through the flash-attention kernel
 (``LM(attn_impl="kernel")``) for the dense archs and through the GLA-scan
 kernel (``LM(scan_impl="kernel")``) for rwkv6-3b, whose decode carries its
-recurrent state in the model's cache. For rwkv6-3b the pool keeps the
-reference's geometry (one "kv head" of d_model wide) and is bookkeeping
-only, as in the JAX package: it holds no RWKV state.
+recurrent state in the model's cache. recurrentgemma-9b runs the
+diagonal-scan kernel in every RG-LRU layer, in prefill and in decode, and
+the flash kernel in the prefill of its local-attention layers, whose decode
+reads a ring of ``window`` slots. For rwkv6-3b the pool keeps the
+reference's geometry (one "kv head" of d_model wide), and for
+recurrentgemma-9b its 38 layers of one kv head of 256; either way it is
+bookkeeping only, as in the JAX package: it holds no recurrent state.
 
-Run: ``python -m repro_torch.launch.serve --arch qwen3-0.6b`` or ``--arch
-rwkv6-3b`` (on the card; ``--device cpu --smoke`` for a small CPU run).
+Run: ``python -m repro_torch.launch.serve --arch qwen3-0.6b``, ``--arch
+rwkv6-3b`` or ``--arch recurrentgemma-9b`` (on the card; ``--device cpu
+--smoke`` for a small CPU run).
 """
 from __future__ import annotations
 

@@ -1,11 +1,14 @@
-"""Per-layer blocks: GQA attention (with qwen3's qk_norm), the SwiGLU FFN,
-and RWKV6's time mix (wkv) and channel mix.
+"""Per-layer blocks: GQA attention (with qwen3's qk_norm and local
+attention over a sliding window), the SwiGLU / GeGLU FFN, RWKV6's time mix
+(wkv) and channel mix, and recurrentgemma's RG-LRU block.
 
 Every ``*_init`` builds the params of all layers at once, stacked on a
 leading ``layers`` dim (``lead``), with the JAX reference's names and
 layouts. Every ``*_apply`` takes one layer's params. ``attn_apply`` handles
 both full-sequence (prefill) and single-token decode (``cache`` + ``pos``)
-modes, ``rwkv_apply`` full-sequence and single-token decode (``state``).
+modes, ``rwkv_apply`` and ``rglru_apply`` full-sequence and single-token
+decode (``state``). Products whose operands differ in type go through
+``common.einsum``, which promotes as the reference's ``jnp.einsum`` does.
 """
 from __future__ import annotations
 
@@ -18,9 +21,9 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
-from ..kernels.linear_scan.ops import gla_scan
-from .common import (apply_rope, dense_init, layer_norm, normal, rms_norm,
-                     sigmoid, silu)
+from ..kernels.linear_scan.ops import diag_scan, gla_scan
+from .common import (apply_rope, dense_init, einsum, gelu, layer_norm,
+                     normal, rms_norm, sigmoid, silu, softplus)
 
 
 def _norm_init(cfg: ArchConfig, d: int, gen: torch.Generator,
@@ -92,12 +95,16 @@ def attn_apply(p, x, *, cfg: ArchConfig, positions, causal: bool = True,
     if cache is not None:
         ck, cv = cache["k"], cache["v"]          # [B, KH, Tmax, hd]
         T, Tmax = kh.shape[2], ck.shape[2]
-        start = min(max(int(pos), 0), Tmax - T)  # dynamic_update_slice clamp
-        ck[:, :, start:start + T] = kh.to(ck.dtype)
-        cv[:, :, start:start + T] = vh.to(cv.dtype)
         new_cache = cache
-        o = attention_ref(qh, ck.to(qh.dtype), cv.to(qh.dtype),
-                          causal=True, window=cfg.window, q_offset=int(pos))
+        if cfg.window is not None and Tmax == cfg.window:
+            o = _window_ring_decode(cfg, qh, kh, vh, ck, cv, int(pos))
+        else:
+            start = min(max(int(pos), 0), Tmax - T)  # dynamic_update_slice
+            ck[:, :, start:start + T] = kh.to(ck.dtype)
+            cv[:, :, start:start + T] = vh.to(cv.dtype)
+            o = attention_ref(qh, ck.to(qh.dtype), cv.to(qh.dtype),
+                              causal=True, window=cfg.window,
+                              q_offset=int(pos))
     else:
         # the kernel takes contiguous head-major tensors
         o = flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
@@ -106,6 +113,28 @@ def attn_apply(p, x, *, cfg: ArchConfig, positions, causal: bool = True,
     o = o.transpose(1, 2)                        # [B, T, H, hd]
     y = torch.einsum("bthk,hkd->btd", o, p["wo"])
     return x + y, new_cache
+
+
+def _window_ring_decode(cfg: ArchConfig, qh, kh, vh, ck, cv, pos: int):
+    """O(window) decode (T = 1) over a ring-buffer cache of ``window`` slots:
+    slot i holds absolute position pos - ((pos - i) mod W). The new k/v go
+    into slot pos mod W in place. Scores, softmax and the weighted sum run
+    in fp32 with GQA as a grouped einsum, as in the reference."""
+    W = cfg.window
+    slot = pos % W
+    ck[:, :, slot] = kh[:, :, 0].to(ck.dtype)
+    cv[:, :, slot] = vh[:, :, 0].to(cv.dtype)
+    B, H, Tq, D = qh.shape
+    KH = ck.shape[1]
+    qg = qh.reshape(B, KH, H // KH, Tq, D).float()
+    s = torch.einsum("bkgqd,bktd->bkgqt", qg, ck.float()) * D ** -0.5
+    idx = torch.arange(W, device=qh.device)
+    valid = pos - torch.remainder(pos - idx, W) >= 0
+    s = s.masked_fill(~valid, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bkgqt,bktd->bkgqd", p, cv.float())
+    o = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    return o.reshape(B, H, Tq, D).to(qh.dtype)
 
 
 def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -132,19 +161,27 @@ def attn_prefill_kv(p, x, *, cfg: ArchConfig, positions):
 
 
 def pack_prefill_cache(cfg: ArchConfig, kv, max_len: int, dtype):
-    """Arrange prompt k/v [B, KH, T, hd] into a dense decode cache of
-    ``max_len`` slots (zero-padded, or cut). The sliding-window ring buffer
-    is not ported yet."""
-    if cfg.window:
-        raise NotImplementedError("sliding-window decode caches are not "
-                                  "ported yet")
+    """Arrange prompt k/v [B, KH, T, hd] into a decode cache.
+
+    Sliding-window archs get a ring buffer of ``window`` slots when the
+    prompt is at least that long (slot i holds absolute position
+    T-1-((T-1-i) mod W)); otherwise a dense cache of min(max_len, window or
+    inf) slots, zero-padded or cut."""
     k, v = kv
-    pad = max_len - k.shape[2]
+    T = k.shape[2]
+    W = cfg.window
+    cache_len = min(max_len, W) if W else max_len
+    if W and cache_len == W and T >= W:
+        idx = torch.arange(W, device=k.device)
+        abs_idx = (T - 1) - torch.remainder((T - 1) - idx, W)
+        return {"k": k[:, :, abs_idx].to(dtype),
+                "v": v[:, :, abs_idx].to(dtype)}
+    pad = cache_len - T
     if pad > 0:
         k = F.pad(k, (0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, pad))
     elif pad < 0:
-        k, v = k[:, :, :max_len], v[:, :, :max_len]
+        k, v = k[:, :, :cache_len], v[:, :, :cache_len]
     return {"k": k.to(dtype), "v": v.to(dtype)}
 
 
@@ -165,11 +202,10 @@ def ffn_init(gen: torch.Generator, cfg: ArchConfig,
 
 def ffn_apply(p, x, *, cfg: ArchConfig, act: str = "silu"):
     h = apply_norm(cfg, p.get("norm"), x)
-    g = torch.einsum("btd,df->btf", h, p["w1"])
-    u = torch.einsum("btd,df->btf", h, p["w3"])
-    # jax.nn.gelu defaults to the tanh approximation
-    g = silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    y = torch.einsum("btf,fd->btd", g * u, p["w2"])
+    g = einsum("btd,df->btf", h, p["w1"])
+    u = einsum("btd,df->btf", h, p["w3"])
+    g = silu(g) if act == "silu" else gelu(g)
+    y = einsum("btf,fd->btd", g * u, p["w2"])
     return x + y
 
 
@@ -295,3 +331,77 @@ def rwkv_state_init(cfg: ArchConfig, batch: int, dtype,
             "cm_x": torch.zeros((batch, d), dtype=dtype, device=device),
             "S": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
                              device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (recurrentgemma)
+# ---------------------------------------------------------------------------
+CONV_W = 4
+LRU_C = 8.0
+
+
+def rglru_init(gen: torch.Generator, cfg: ArchConfig,
+               lead: Tuple[int, ...] = ()) -> Dict:
+    """The reference's params and layouts (lru width = d_model)."""
+    d = w = cfg.d_model
+    return {
+        "w_gate": dense_init(gen, d, w, lead=lead),
+        "w_x": dense_init(gen, d, w, lead=lead),
+        "conv_w": normal(gen, (*lead, CONV_W, w)) * 0.1,
+        "conv_b": torch.zeros((*lead, w), device=gen.device),
+        "w_a": dense_init(gen, w, w, lead=lead),
+        "b_a": torch.zeros((*lead, w), device=gen.device),
+        "w_i": dense_init(gen, w, w, lead=lead),
+        "b_i": torch.zeros((*lead, w), device=gen.device),
+        "lam": 0.5 + 1.5 * _uniform(gen, (*lead, w)),
+        "w_out": dense_init(gen, w, d, lead=lead),
+        "norm": _norm_init(cfg, d, gen, lead),
+    }
+
+
+def rglru_apply(p, x, *, cfg: ArchConfig, state: Optional[Dict] = None,
+                scan_impl: str = "kernel"):
+    """Returns (y, new_state); state: {"conv": [B, CONV_W-1, w], "h": [B, w]}.
+    The diagonal scan goes to ``diag_scan`` (``scan_impl`` "kernel": the
+    CUDA kernel; any other value: the sequential oracle).
+
+    dtypes follow the reference's promotions: with a layer's vectors in
+    fp32 (the unstacked ``rem`` layers, which the compute cast leaves) the
+    conv bias makes the gates, the scan and the residual fp32."""
+    B, T, d = x.shape
+    h0 = apply_norm(cfg, p.get("norm"), x)
+    gate = gelu(einsum("btd,dw->btw", h0, p["w_gate"]))
+    xx = einsum("btd,dw->btw", h0, p["w_x"])
+    # causal depthwise conv, window CONV_W, summed from 0 in the reference's
+    # order
+    prev_conv = (state["conv"] if state is not None
+                 else torch.zeros((B, CONV_W - 1, xx.shape[-1]),
+                                  dtype=xx.dtype, device=xx.device))
+    xcat = torch.cat([prev_conv, xx], dim=1)     # promotes as jnp does
+    conv = 0
+    for k in range(CONV_W):
+        conv = conv + xcat[:, k:k + T] * p["conv_w"][k]
+    conv = conv + p["conv_b"]
+    r = sigmoid(einsum("btw,wv->btv", conv, p["w_a"]) + p["b_a"])
+    i = sigmoid(einsum("btw,wv->btv", conv, p["w_i"]) + p["b_i"])
+    log_a = -LRU_C * softplus(p["lam"]) * r
+    aa = torch.exp(log_a)
+    bb = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
+        * (i * conv)
+    hprev = state["h"] if state is not None else None
+    hs, hT = diag_scan(aa, bb, hprev,
+                       impl="kernel" if scan_impl == "kernel" else "xla")
+    y = einsum("btw,wd->btd", hs * gate, p["w_out"])
+    new_state = None
+    if state is not None:
+        # a copy: a view would keep the whole [B, T + 3, w] xcat alive
+        new_state = {"conv": xcat[:, -(CONV_W - 1):].clone(), "h": hT}
+    return x + y, new_state
+
+
+def rglru_state_init(cfg: ArchConfig, batch: int, dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    w = cfg.d_model
+    return {"conv": torch.zeros((batch, CONV_W - 1, w), dtype=dtype,
+                                device=device),
+            "h": torch.zeros((batch, w), dtype=dtype, device=device)}

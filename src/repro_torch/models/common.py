@@ -1,10 +1,12 @@
-"""Shared model building blocks: norms, RoPE, init helpers.
+"""Shared model building blocks: norms, activations, RoPE, init helpers,
+and an einsum that promotes mixed operand types as ``jnp.einsum`` does.
 
 Params are plain nested dicts of tensors with the JAX reference's names and
 layouts, so the bridge to and from the reference is a map over names.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -69,6 +71,41 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     in bf16: 1 / (1 + exp(-x)), each op rounded to x's dtype.
     ``torch.sigmoid`` rounds once and differs by an ulp."""
     return 1.0 / (1.0 + torch.exp(-x))
+
+
+@functools.lru_cache(maxsize=None)
+def _const(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as JAX rounds a Python scalar (a weak
+    type) to the array's dtype before the op. Torch would keep the scalar
+    in fp32 for a bf16 op and round only the result."""
+    return torch.tensor(value, dtype=torch.float32).to(dtype).item()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU as the reference spells ``jax.nn.gelu`` (the tanh form), each op
+    rounded to x's dtype, its constants too:
+    x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3)))), with x**3
+    as ``lax.integer_pow`` computes it, x * (x * x). ``F.gelu`` rounds once
+    and differs in bf16."""
+    cube = x * (x * x)
+    inner = _const(math.sqrt(2 / math.pi), x.dtype) * (
+        x + _const(0.044715, x.dtype) * cube)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """Softplus as the reference computes ``jax.nn.softplus``
+    (``logaddexp(x, 0)``): max(x, 0) + log1p(exp(-|x|)), each op rounded to
+    x's dtype. ``F.softplus`` rounds once and differs in bf16."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with ``jnp.einsum``'s promotion: operands of two
+    float types meet in the wider one (bf16 x fp32 -> fp32, the bf16 side
+    widened exactly). ``torch.einsum`` raises on mixed types."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,

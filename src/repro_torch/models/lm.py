@@ -1,10 +1,12 @@
-"""Decoder-only LM: the dense family and the attention-free RWKV6 ("ssm").
+"""Decoder-only LM: the dense family, the attention-free RWKV6 ("ssm") and
+recurrentgemma's RG-LRU + local attention ("hybrid").
 
 Params keep the JAX reference's layout: a nested dict with the stacked
-``layers`` dim first, so the bridge to the reference is a map over names and
-checkpoints stay cross-loadable. The reference scans layers with
-``lax.scan``; PyTorch runs eagerly, so here it is a Python loop over the
-stacked dim.
+``layers`` dim first (for the hybrid family: superblocks of
+``block_pattern``, plus a list ``rem`` of the layers left over), so the
+bridge to the reference is a map over names and checkpoints stay
+cross-loadable. The reference scans layers with ``lax.scan``; PyTorch runs
+eagerly, so here it is a Python loop over the stacked dim.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from . import blocks
-from .common import normal
+from .common import einsum, normal
 
 Pytree = Any
 
@@ -49,22 +51,24 @@ def _stack(states):
 
 
 class LM:
-    """Config-driven language model (dense or RWKV6). All state is explicit:
-    params and caches are passed in and returned. ``attn_impl`` picks the
-    attention of dense prefill, ``scan_impl`` the wkv of RWKV6 prefill; both
-    default to the CUDA kernel (its plain version on CPU tensors)."""
+    """Config-driven language model (dense, RWKV6 or RG-LRU hybrid). All
+    state is explicit: params and caches are passed in and returned.
+    ``attn_impl`` picks the attention of prefill, ``scan_impl`` the scan of
+    RWKV6 (the wkv) and of RG-LRU (the diagonal scan: "kernel", or the
+    sequential oracle for any other value); both default to the CUDA kernel
+    (its plain version on CPU tensors)."""
 
     def __init__(self, cfg: ArchConfig, attn_impl: str = "kernel",
                  scan_impl: str = "kernel", device: DeviceLike = "cuda"):
-        if cfg.family not in ("dense", "ssm") or cfg.n_experts or cfg.kv_lora:
+        if cfg.family not in ("dense", "ssm", "hybrid") or cfg.n_experts \
+                or cfg.kv_lora:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense and ssm (RWKV6) families are "
-                f"ported (family={cfg.family!r})")
-        if cfg.window is not None or cfg.rope not in ("rope", "none") \
-                or cfg.embed_inputs:
+                f"{cfg.name}: only the dense, ssm (RWKV6) and hybrid "
+                f"(RG-LRU) families are ported (family={cfg.family!r})")
+        if cfg.rope not in ("rope", "none") or cfg.embed_inputs:
             raise NotImplementedError(
-                f"{cfg.name}: sliding windows, M-RoPE and embedding inputs "
-                f"are not ported yet")
+                f"{cfg.name}: M-RoPE and embedding inputs are not ported "
+                f"yet")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.scan_impl = scan_impl
@@ -79,24 +83,42 @@ class LM:
                              f"{self.device}")
         cfg = self.cfg
         L = cfg.n_layers
-        if cfg.family == "ssm":
-            layers = {"rwkv": blocks.rwkv_init(gen, cfg, lead=(L,))}
-        else:
-            layers = {"attn": blocks.attn_init(gen, cfg, lead=(L,)),
-                      "ffn": blocks.ffn_init(gen, cfg, lead=(L,))}
-        return {
+        params = {
             "embed": normal(gen, (cfg.vocab, cfg.d_model)) * 0.02,
             "unembed": normal(gen, (cfg.d_model, cfg.vocab))
             * (1.0 / math.sqrt(cfg.d_model)),
             "final_norm": blocks._norm_init(cfg, cfg.d_model, gen),
-            "layers": layers,
         }
+        if cfg.family == "hybrid":
+            n_super, n_rem = self._hybrid_split()
+            layers = {}
+            for i, kind in enumerate(cfg.block_pattern):
+                t_init = blocks.rglru_init if kind == "rec" else \
+                    blocks.attn_init
+                layers[f"t{i}"] = t_init(gen, cfg, lead=(n_super,))
+                layers[f"mlp{i}"] = blocks.ffn_init(gen, cfg, lead=(n_super,))
+            params["layers"] = layers
+            params["rem"] = [{"t": blocks.rglru_init(gen, cfg),
+                              "mlp": blocks.ffn_init(gen, cfg)}
+                             for _ in range(n_rem)]
+        elif cfg.family == "ssm":
+            params["layers"] = {"rwkv": blocks.rwkv_init(gen, cfg, lead=(L,))}
+        else:
+            params["layers"] = {"attn": blocks.attn_init(gen, cfg, lead=(L,)),
+                                "ffn": blocks.ffn_init(gen, cfg, lead=(L,))}
+        return params
+
+    def _hybrid_split(self) -> Tuple[int, int]:
+        """(superblocks, layers left over): 38 layers of (rec, rec, attn)
+        are 12 superblocks and 2 RG-LRU layers."""
+        return divmod(self.cfg.n_layers, len(self.cfg.block_pattern))
 
     # ------------------------------------------------------------- forward
     def _compute_cast(self, params):
         """Weights of rank >= 2 in fp32 go to ``compute_dtype`` (the stacked
-        layer norms included, as in the reference). Idempotent: params that
-        were cast already come back as they are."""
+        layer norms included, as in the reference; the vectors of the
+        unstacked ``rem`` layers stay fp32). Idempotent: params that were
+        cast already come back as they are."""
         dt = torch_dtype(self.cfg.compute_dtype)
 
         def cast(w):
@@ -135,24 +157,92 @@ class LM:
             new.append(st)
         return self._logits(params, x), _stack(new)
 
+    def _superblock_apply(self, p, x, positions, cache=None, pos=None,
+                          max_len: Optional[int] = None):
+        """One hybrid superblock: each temporal block of ``block_pattern``
+        (RG-LRU or local attention), each followed by a GeGLU FFN. With
+        ``cache`` (decode), attention caches are updated in place and the
+        RG-LRU states come back new. With ``max_len`` (prefill), the RG-LRU
+        blocks start from the zero state and the decode caches, attention's
+        sized by ``max_len``, come back."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.kv_cache_dtype)
+        new_cache = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            c = cache[f"t{i}"] if cache is not None else None
+            if kind == "rec":
+                if max_len is not None:
+                    c = blocks.rglru_state_init(cfg, x.shape[0], dt,
+                                                self.device)
+                x, c = blocks.rglru_apply(p[f"t{i}"], x, cfg=cfg, state=c,
+                                          scan_impl=self.scan_impl)
+            else:
+                if max_len is not None:
+                    kv = blocks.attn_prefill_kv(p[f"t{i}"], x, cfg=cfg,
+                                                positions=positions)
+                x, c = blocks.attn_apply(p[f"t{i}"], x, cfg=cfg,
+                                         positions=positions, cache=c,
+                                         pos=pos, attn_impl=self.attn_impl)
+                if max_len is not None:
+                    c = blocks.pack_prefill_cache(cfg, kv, max_len, dt)
+            new_cache[f"t{i}"] = c
+            x = blocks.ffn_apply(p[f"mlp{i}"], x, cfg=cfg, act="gelu")
+        keep = cache is not None or max_len is not None
+        return x, (new_cache if keep else None)
+
+    def _rem_apply(self, params, x, states):
+        """The RG-LRU layers left over after the superblocks, layer i from
+        ``states[i]`` (None: no state). Returns (x, the new states)."""
+        new = []
+        for rp, st in zip(params["rem"], states):
+            x, st = blocks.rglru_apply(rp["t"], x, cfg=self.cfg, state=st,
+                                       scan_impl=self.scan_impl)
+            x = blocks.ffn_apply(rp["mlp"], x, cfg=self.cfg, act="gelu")
+            new.append(st)
+        return x, new
+
     def _logits(self, params, x):
         x = blocks.apply_norm(self.cfg, params.get("final_norm"), x)
-        return torch.einsum("btd,dv->btv", x, params["unembed"])
+        return einsum("btd,dv->btv", x, params["unembed"])
 
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (logits, aux_loss)."""
         params = self._compute_cast(params)
         x = self._embed(params, batch)
         positions = self._positions(x.shape[1])
-        for i in range(self.cfg.n_layers):
-            x, _ = self._layer_apply(_layer(params["layers"], i), x,
-                                     positions)
+        if self.cfg.family == "hybrid":
+            n_super, _ = self._hybrid_split()
+            for j in range(n_super):
+                x, _ = self._superblock_apply(_layer(params["layers"], j), x,
+                                              positions)
+            x, _ = self._rem_apply(params, x, [None] * len(params["rem"]))
+        else:
+            for i in range(self.cfg.n_layers):
+                x, _ = self._layer_apply(_layer(params["layers"], i), x,
+                                         positions)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return self._logits(params, x), aux
 
     # ------------------------------------------------------------- serving
     def decode_cache_init(self, batch: int, max_len: int) -> Pytree:
         cfg = self.cfg
+        if cfg.family == "hybrid":
+            dt = torch_dtype(cfg.kv_cache_dtype)
+            n_super, n_rem = self._hybrid_split()
+            sb = []
+            for kind in cfg.block_pattern:
+                if kind == "rec":
+                    sb.append(blocks.rglru_state_init(cfg, batch, dt,
+                                                      self.device))
+                else:
+                    sb.append(blocks.attn_cache_init(
+                        cfg, batch, min(max_len, cfg.window or max_len), dt,
+                        self.device))
+            return {"super": {f"t{i}": _stack([c] * n_super)
+                              for i, c in enumerate(sb)},
+                    "rem": [blocks.rglru_state_init(cfg, batch, dt,
+                                                    self.device)
+                            for _ in range(n_rem)]}
         if cfg.family == "ssm":
             st = blocks.rwkv_state_init(cfg, batch,
                                         torch_dtype(cfg.kv_cache_dtype),
@@ -166,11 +256,25 @@ class LM:
 
     def decode_step(self, params, batch, cache, pos: int):
         """One-token decode. batch: {"tokens": [B, 1]}. Returns (logits
-        [B, 1, V], cache). An attention cache is updated in place; RWKV6
-        states come back as a new dict, as the reference's scan returns
-        them."""
+        [B, 1, V], cache). An attention cache is updated in place; RWKV6 and
+        RG-LRU states come back new, as the reference's scan returns them."""
         params = self._compute_cast(params)
         x = self._embed(params, batch)
+        if self.cfg.family == "hybrid":
+            positions = self._positions(1, offset=int(pos))
+            n_super, _ = self._hybrid_split()
+            new = []
+            for j in range(n_super):
+                x, c = self._superblock_apply(
+                    _layer(params["layers"], j), x, positions,
+                    cache=_layer(cache["super"], j), pos=pos)
+                new.append(c)
+            x, rem = self._rem_apply(params, x, cache["rem"])
+            # attention caches were written in place; RG-LRU states restack
+            sup = {f"t{i}": (_stack([c[f"t{i}"] for c in new])
+                             if kind == "rec" else cache["super"][f"t{i}"])
+                   for i, kind in enumerate(self.cfg.block_pattern)}
+            return self._logits(params, x), {"super": sup, "rem": rem}
         if self.cfg.family == "ssm":
             return self._rwkv_layers(
                 params, x, [_layer(cache, i) for i in range(self.cfg.n_layers)])
@@ -183,11 +287,28 @@ class LM:
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
         """Prompt processing; returns (logits, decode-ready cache).
-        ``max_len`` sizes the kv cache (default: prompt length); RWKV6
-        returns the stacked per-layer states instead (``max_len`` unused)."""
+        ``max_len`` sizes the kv cache (default: prompt length; local
+        attention keeps at most ``window`` slots); RWKV6 returns the stacked
+        per-layer states instead (``max_len`` unused), the hybrid family
+        {"super": stacked superblock caches, "rem": [RG-LRU states]}."""
         cfg = self.cfg
         params = self._compute_cast(params)
         x = self._embed(params, batch)
+        if cfg.family == "hybrid":
+            T = x.shape[1]
+            positions = self._positions(T)
+            n_super, n_rem = self._hybrid_split()
+            caches = []
+            for j in range(n_super):
+                x, c = self._superblock_apply(_layer(params["layers"], j), x,
+                                              positions, max_len=max_len or T)
+                caches.append(c)
+            st0 = blocks.rglru_state_init(cfg, x.shape[0],
+                                          torch_dtype(cfg.kv_cache_dtype),
+                                          self.device)
+            x, rem = self._rem_apply(params, x, [st0] * n_rem)
+            sup = {key: _stack([c[key] for c in caches]) for key in caches[0]}
+            return self._logits(params, x), {"super": sup, "rem": rem}
         if cfg.family == "ssm":
             st0 = blocks.rwkv_state_init(cfg, x.shape[0],
                                          torch_dtype(cfg.kv_cache_dtype),

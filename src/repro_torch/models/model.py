@@ -6,9 +6,9 @@ from .lm import LM
 
 
 def build_model(cfg: ArchConfig, **kw) -> LM:
-    """The LM of the dense and ssm (RWKV6) families; the others raise
-    ``NotImplementedError``."""
-    if cfg.family not in ("dense", "ssm"):
+    """The LM of the dense, ssm (RWKV6) and hybrid (RG-LRU) families; the
+    others raise ``NotImplementedError``."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet")
     return LM(cfg, **kw)

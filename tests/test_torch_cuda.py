@@ -18,7 +18,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.core import PagedKVCache
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.linear_scan.ops import gla_scan
+from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan
 from repro_torch.kernels.linear_scan.ref import gla_scan_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.launch.serve import Request, ServeLoop
@@ -54,6 +54,22 @@ GLA_CASES = [
     (3, 45, 10, 6, 16, 0.0),        # widths that are not whole 16-byte rows
     (2, 130, 128, 128, 64, -2.0),   # the kernel's widest head
 ]
+# the JAX package's test_diag_scan_sweep cases, recurrentgemma-9b's served
+# prefill (B = 4, T = 2100, D = 4096) and decode (T = 1), and a width that is
+# not a whole number of channel pairs. a = sigmoid(N(0, 1)) as the reference's
+# tests draw it, or near 1 (exp(-U(0, 0.02)), as RG-LRU's a is where its gate
+# is small): at the served T only then does the carry across the kernel's
+# 256-step segments survive their product of a's and decide the output
+DIAG_CASES = [
+    # B, T, D, chunk, a near 1
+    (2, 64, 16, 16, False),
+    (1, 100, 8, 32, False),
+    (3, 32, 32, 32, False),
+    (4, 2100, 4096, 256, False),
+    (4, 1, 4096, 256, False),
+    (2, 77, 33, 16, False),
+    (4, 2100, 4096, 256, True),
+]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -78,7 +94,9 @@ def _close(out, ref, **tol):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES + [
     (4, 16, 8, 512, 512, 128, True, None),      # the served prefill
-    (1, 4, 2, 300, 300, 128, True, 100)])
+    (1, 4, 2, 300, 300, 128, True, 100),
+    (1, 16, 1, 300, 300, 256, True, 128),       # recurrentgemma's heads
+    (4, 16, 1, 2100, 2100, 256, True, 2048)])   # and its served prefill
 def test_flash_kernel_matches_plain(case, dtype, cuda_device):
     B, H, KH, Tq, Tk, D, causal, window = case
     rng = np.random.default_rng(42)
@@ -268,3 +286,73 @@ def test_rwkv_kernel_path_matches_plain_path(cuda_device):
     lp, sp = plain.prefill(params, {"tokens": toks})
     _close(lk, lp, rtol=1e-4, atol=1e-4)
     _close(sk["S"], sp["S"], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DIAG_CASES)
+def test_diag_kernel_matches_plain(case, dtype, cuda_device):
+    """The kernel against the sequential oracle; with no h0, with h0 in the
+    inputs' dtype and with a bf16 h0 (recurrentgemma's fp32 layers start
+    from the bf16 zero state of the cache)."""
+    B, T, D, chunk, near_one = case
+    rng = np.random.default_rng(T + D)
+    dt = DTYPES[dtype]
+    if near_one:
+        a = torch.exp(-0.02 * torch.from_numpy(rng.uniform(size=(B, T, D))))
+    else:
+        a = torch.sigmoid(torch.from_numpy(rng.normal(size=(B, T, D))))
+    a = a.to(cuda_device, dt)
+    b = torch.from_numpy(rng.normal(size=(B, T, D))).to(cuda_device, dt)
+    h0 = torch.from_numpy(rng.normal(size=(B, D))).to(cuda_device)
+    for init in (None, h0.to(dt), h0.bfloat16()):
+        before = diag_scan.launches
+        h, hT = diag_scan(a, b, init, impl="kernel", chunk=chunk)
+        torch.cuda.synchronize()
+        assert diag_scan.launches == before + 1
+        rh, rT = diag_scan(a, b, init, impl="xla")
+        assert h.dtype == hT.dtype == dt
+        _close(h, rh, **_tol(dtype))
+        _close(hT, rT, **_tol(dtype))
+        if T <= chunk:
+            # one segment: the kernel rounds as the plain version does
+            assert torch.equal(h, rh) and torch.equal(hT, rT)
+
+
+@pytest.mark.cuda
+def test_hybrid_serve_loop_runs_both_kernels(cuda_device):
+    """Smoke recurrentgemma-9b on the card, prompts longer than its window
+    (16): every RG-LRU layer's prefill and decode go through the diag-scan
+    kernel, every attention layer's prefill through the flash kernel."""
+    cfg = smoke_config("recurrentgemma-9b")
+    loop = ServeLoop(cfg, batch_slots=2, max_len=40, hbm_pages=4)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, 24, dtype=np.int32),
+                    max_new_tokens=4) for i in range(4)]
+    before = (diag_scan.launches, flash_attention.launches)
+    out = loop.run(reqs)
+    rec = sum(k == "rec" for k in cfg.block_pattern) + 1     # 2 + 1 rem
+    steps = 2 * (1 + 4)                  # 2 batches: a prefill, 4 decodes
+    assert diag_scan.launches - before[0] == rec * steps
+    assert flash_attention.launches - before[1] == 1 * 2
+    assert all(len(v) == 4 for v in out.values())
+
+
+@pytest.mark.cuda
+def test_hybrid_kernel_path_matches_plain_path(cuda_device):
+    cfg = smoke_config("recurrentgemma-9b").with_(compute_dtype="float32",
+                                                  kv_cache_dtype="float32")
+    kern = build_model(cfg)
+    plain = build_model(cfg, attn_impl="xla", scan_impl="xla")
+    params = kern.init(torch.Generator("cuda").manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 70)))
+    lk, ck = kern.prefill(params, {"tokens": toks}, max_len=80)
+    lp, cp = plain.prefill(params, {"tokens": toks}, max_len=80)
+    _close(lk, lp, rtol=1e-4, atol=1e-4)
+    for key in ("t0", "t1"):
+        _close(ck["super"][key]["h"], cp["super"][key]["h"], rtol=1e-4,
+               atol=1e-4)
+    nxt = lk[:, -1].argmax(-1)[:, None]
+    dk, _ = kern.decode_step(params, {"tokens": nxt}, ck, 70)
+    dp, _ = plain.decode_step(params, {"tokens": nxt}, cp, 70)
+    _close(dk, dp, rtol=1e-4, atol=1e-4)

@@ -137,8 +137,13 @@ def test_flash_kernel_raises_on_what_it_does_not_take(bad):
     elif bad == "dv":
         v = torch.zeros(1, 1, 8, 32)
     elif bad == "head_dim":
-        q, k, v = (torch.zeros(1, 2, 8, 256), torch.zeros(1, 1, 8, 256),
-                   torch.zeros(1, 1, 8, 256))
+        # recurrentgemma's 256 is the widest head the kernel takes
+        q, k, v = (torch.zeros(1, 2, 8, 512), torch.zeros(1, 1, 8, 512),
+                   torch.zeros(1, 1, 8, 512))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+            flash_kernel.check_kernel_inputs(*(t[..., :256].contiguous()
+                                               for t in (q, k, v)))
     if bad != "device":
         # checks past the device one: pretend the tensors are on the card
         with pytest.MonkeyPatch.context() as mp:

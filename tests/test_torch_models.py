@@ -1,5 +1,6 @@
 """The port's LM against the JAX package's on bridged params: forward,
-prefill and three decode steps of smoke qwen3-0.6b, glm4-9b and rwkv6-3b.
+prefill and three decode steps of smoke qwen3-0.6b, glm4-9b, rwkv6-3b and
+recurrentgemma-9b.
 
 fp32 is held at 1e-4 (two layers of fp32 sums taken in another order). bf16
 is held at 2e-2 against the reference run op by op (``jax.disable_jit``):
@@ -26,9 +27,32 @@ from repro_torch.models.model import build_model
 
 torch.set_num_threads(2)
 
-ARCHS = ["qwen3-0.6b", "glm4-9b", "rwkv6-3b"]
+ARCHS = ["qwen3-0.6b", "glm4-9b", "rwkv6-3b", "recurrentgemma-9b"]
 STATE_KEYS = ("tm_x", "cm_x", "S")         # RWKV6's per-layer decode state
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _leaves(tree, prefix=""):
+    """{path: tensor} of a port cache or params tree (dicts and lists), with
+    the paths the checkpoint manager's ``_flatten`` gives the reference's."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in _leaves(tree[key], f"{prefix}{key}/").items()}
+    if isinstance(tree, list):
+        return {k: v for i, t in enumerate(tree)
+                for k, v in _leaves(t, f"{prefix}{i}/").items()}
+    return {} if tree is None else {prefix.rstrip("/"): tree}
+
+
+def _close_trees(t_tree, j_tree, tol, what):
+    """Same paths, shapes and dtypes, and values within ``tol``."""
+    ours, ref = _leaves(t_tree), _flatten(jax.tree.map(np.asarray, j_tree))
+    assert sorted(ours) == sorted(ref), what
+    for key, j in ref.items():
+        t = ours[key]
+        assert tuple(t.shape) == j.shape, f"{what} {key}"
+        assert str(t.dtype).split(".")[-1] == j.dtype.name, f"{what} {key}"
+        _close(t, j, tol, f"{what} {key}")
 
 
 def _pair(arch, dtype):
@@ -65,12 +89,11 @@ def test_logits_match_jax(arch, dtype):
     tl, aux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
     tpl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, max_len=20)
     assert tl.shape == (2, 12, 256) and float(aux) == 0.0
+    assert tl.dtype == torch.float32 if arch == "recurrentgemma-9b" else \
+        str(tl.dtype).split(".")[-1] == jl.dtype.name
     _close(tl, jl, tol, "forward")
     _close(tpl, jpl, tol, "prefill")
-    for key in (STATE_KEYS if tm.cfg.family == "ssm" else ("k",)):
-        assert tc[key].shape == tuple(jc[key].shape), key
-        assert str(tc[key].dtype).split(".")[-1] == jc[key].dtype.name, key
-        _close(tc[key], jc[key], tol, f"prefill cache {key}")
+    _close_trees(tc, jc, tol, "prefill cache")
     # three greedy decode steps, each side feeding its own argmax
     jlast = np.asarray(jnp.argmax(jpl[:, -1], -1))[:, None].astype(np.int32)
     tlast = tpl[:, -1].argmax(-1)[:, None]
@@ -81,9 +104,7 @@ def test_logits_match_jax(arch, dtype):
         td, tc = tm.decode_step(tp, {"tokens": tlast}, tc, 12 + step)
         assert np.array_equal(tlast.numpy(), jlast)
         _close(td, jd, tol, f"decode step {step}")
-        if tm.cfg.family == "ssm":
-            for key in STATE_KEYS:
-                _close(tc[key], jc[key], tol, f"decode step {step} {key}")
+        _close_trees(tc, jc, tol, f"decode step {step} cache")
         jlast = np.asarray(jnp.argmax(jd[:, 0], -1))[:, None].astype(np.int32)
         tlast = td[:, 0].argmax(-1)[:, None]
 
@@ -166,7 +187,7 @@ def test_unported_archs_raise():
     assert len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         if arch in ARCHS:
-            assert get_config(arch).family in ("dense", "ssm")
+            assert get_config(arch).family in ("dense", "ssm", "hybrid")
         else:
             with pytest.raises(NotImplementedError):
                 get_config(arch)
@@ -176,7 +197,7 @@ def test_unported_archs_raise():
         LM(smoke_config("glm4-9b").with_(family="moe", n_experts=4),
            device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model(smoke_config("rwkv6-3b").with_(family="hybrid"),
+        build_model(smoke_config("rwkv6-3b").with_(family="moe"),
                     device="cpu")
 
 
@@ -276,3 +297,98 @@ def test_sigmoid_rounds_like_the_reference_in_bf16():
     ref = np.asarray(jax.nn.sigmoid(jx), np.float32)
     tx = torch.from_numpy(np.asarray(jx, np.float32)).bfloat16()
     assert np.array_equal(common.sigmoid(tx).float().numpy(), ref)
+
+
+# -- recurrentgemma (RG-LRU + local attention) ---------------------------------------
+@pytest.mark.parametrize("T0", [20, 10])
+def test_hybrid_decode_matches_full_forward_and_the_reference(T0):
+    """Mirror of tests/test_models.py::test_decode_matches_full_forward for
+    smoke recurrentgemma-9b (window 16) in fp32, to 26 tokens: a prompt of
+    20 (longer than the window: the prefill packs a ring) or of 10 (a
+    padded cache that decode then wraps). Each decode step is held against
+    ``forward`` and against the reference's logits and caches."""
+    jm, jp, tm, tp = _pair("recurrentgemma-9b", "float32")
+    B, T = 2, 26
+    toks = np.random.default_rng(T0).integers(0, 256, (B, T)).astype(np.int32)
+    full, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    jfull, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    _close(full, jfull, 1e-4, "forward")
+    pre, cache = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :T0])},
+                            max_len=T)
+    jpre, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :T0])},
+                              max_len=T)
+    assert cache["super"]["t2"]["k"].shape[3] == 16      # window slots
+    np.testing.assert_allclose(pre.numpy(), full[:, :T0].numpy(), rtol=1e-4,
+                               atol=1e-4)
+    _close(pre, jpre, 1e-4, "prefill")
+    _close_trees(cache, jcache, 1e-4, "prefill cache")
+    for t in range(T0, T):
+        lg, cache = tm.decode_step(
+            tp, {"tokens": torch.from_numpy(toks[:, t:t + 1])}, cache, t)
+        jlg, jcache = jm.decode_step(
+            jp, {"tokens": jnp.asarray(toks[:, t:t + 1])}, jcache, t)
+        np.testing.assert_allclose(lg[:, 0].numpy(), full[:, t].numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        _close(lg, jlg, 1e-4, f"decode {t}")
+        _close_trees(cache, jcache, 1e-4, f"decode {t} cache")
+
+
+def test_hybrid_bridge_round_trip_and_reference_layout():
+    """The reference's hybrid tree (stacked superblocks plus the ``rem``
+    list) crosses the bridge byte-identically, and the port's own init has
+    the reference's names, shapes and fp32."""
+    cfg = jax_smoke_config("recurrentgemma-9b")
+    jp = jax.tree.map(np.asarray, jax_build_model(cfg).init(
+        jax.random.PRNGKey(3)))
+    assert isinstance(jp["rem"], list) and len(jp["rem"]) == 1
+    flat = _flatten(jp)
+    back_tree = params_from_numpy(jp, device="cpu")
+    assert isinstance(back_tree["rem"], list)
+    back = _flatten(params_to_numpy(back_tree))
+    assert sorted(flat) == sorted(back)
+    for key in flat:
+        assert back[key].tobytes() == flat[key].tobytes(), key
+    ours = _flatten(params_to_numpy(LM(smoke_config("recurrentgemma-9b"),
+                                       device="cpu").init(
+        torch.Generator().manual_seed(0))))
+    assert {k: v.shape for k, v in ours.items()} == \
+        {k: v.shape for k, v in flat.items()}
+    assert all(v.dtype == np.float32 for v in ours.values())
+
+
+def test_hybrid_compute_cast_and_decode_cache_match_the_reference():
+    """The stacked superblock vectors go to bf16 with the matrices; the
+    ``rem`` layer's vectors stay fp32, as in the reference. The decode
+    cache keeps the reference's names, shapes and dtypes, with local
+    attention at min(max_len, window) slots."""
+    jcfg = jax_smoke_config("recurrentgemma-9b")
+    jm = jax_build_model(jcfg)
+    jc = jm._compute_cast(jm.init(jax.random.PRNGKey(0)))
+    model = LM(smoke_config("recurrentgemma-9b"), device="cpu")
+    once = model._compute_cast(model.init(torch.Generator().manual_seed(0)))
+    ours, ref = _leaves(once), _flatten(jax.tree.map(np.asarray, jc))
+    assert sorted(ours) == sorted(ref)
+    for key, j in ref.items():
+        assert str(ours[key].dtype).split(".")[-1] == j.dtype.name, key
+    assert once["layers"]["t0"]["lam"].dtype == torch.bfloat16      # [1, w]
+    assert once["rem"][0]["t"]["lam"].dtype == torch.float32        # [w]
+    assert model._compute_cast(once)["rem"][0]["t"]["w_a"] is \
+        once["rem"][0]["t"]["w_a"]
+    for max_len in (12, 40):
+        cache = model.decode_cache_init(3, max_len)
+        jcache = jm.decode_cache_init(3, max_len)
+        ours, ref = _leaves(cache), _flatten(jax.tree.map(np.asarray, jcache))
+        assert sorted(ours) == sorted(ref)
+        for key, j in ref.items():
+            assert tuple(ours[key].shape) == j.shape, key
+            assert str(ours[key].dtype).split(".")[-1] == j.dtype.name, key
+            assert not ours[key].any(), key
+
+
+def test_hybrid_kernel_and_plain_scans_give_the_same_logits():
+    """On the CPU the diag-scan "kernel" is its plain version exactly."""
+    _, _, tm, tp = _pair("recurrentgemma-9b", "float32")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 9)))
+    outs = [build_model(tm.cfg, scan_impl=impl, device="cpu").forward(
+        tp, {"tokens": toks})[0] for impl in ("kernel", "xla")]
+    assert torch.equal(outs[0], outs[1])

@@ -13,7 +13,7 @@ from repro.launch.serve import ServeLoop as JaxServeLoop
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.linear_scan.ops import gla_scan
+from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan
 from repro_torch.launch import serve
 from repro_torch.launch.serve import Request, ServeLoop
 
@@ -80,6 +80,38 @@ def test_rwkv_serve_loop_matches_jax_tokens_and_pager_stats():
     assert gla_scan.launches == before         # CPU: the plain version
 
 
+def test_hybrid_serve_loop_matches_jax_tokens_and_pager_stats():
+    """Smoke recurrentgemma-9b (window 16) in the same case, with prompts of
+    20 tokens: the prefill packs a ring of 16 slots and decode writes into
+    it. Identical token ids and pager stats; the pool (38 layers' geometry
+    cut to the smoke's 4, one kv head of 16) offloads."""
+    jcfg = jax_smoke_config("recurrentgemma-9b").with_(**FP32)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, jcfg.vocab, 20, dtype=np.int32)
+               for _ in range(6)]
+    jloop = JaxServeLoop(jcfg, batch_slots=2, max_len=32, hbm_pages=3)
+    jout = jloop.run([JaxRequest(i, p, max_new_tokens=4)
+                      for i, p in enumerate(prompts)])
+
+    params = params_from_numpy(jax.tree.map(np.asarray, jloop.params),
+                               device="cpu")
+    cfg = smoke_config("recurrentgemma-9b").with_(**FP32)
+    loop = ServeLoop(cfg, batch_slots=2, max_len=32, hbm_pages=3,
+                     params=params, device="cpu")
+    assert loop.pager.kv.shape[-2:] == (1, cfg.resolved_head_dim)
+    before = (diag_scan.launches, flash_attention.launches)
+    out = loop.run([Request(i, p, max_new_tokens=4)
+                    for i, p in enumerate(prompts)])
+
+    assert len(out) == 6 and all(len(v) == 4 for v in out.values())
+    assert out == jout
+    assert loop.stats["offloads"] > 0
+    for key in PAGER_KEYS:
+        assert loop.stats[key] == jloop.stats[key], key
+    # CPU: the plain versions
+    assert (diag_scan.launches, flash_attention.launches) == before
+
+
 def test_serve_loop_default_params_and_bf16_run():
     cfg = smoke_config("qwen3-0.6b")
     loop = ServeLoop(cfg, batch_slots=2, max_len=24, hbm_pages=2,
@@ -109,6 +141,15 @@ def test_main_serves_rwkv_on_the_cpu(capsys, monkeypatch):
     monkeypatch.setattr("sys.argv", ["serve", "--arch", "rwkv6-3b", "--smoke",
                                      "--device", "cpu", "--requests", "2",
                                      "--prompt-len", "6", "--new-tokens", "2"])
+    serve.main()
+    assert "served 2 requests" in capsys.readouterr().out
+
+
+def test_main_serves_recurrentgemma_on_the_cpu(capsys, monkeypatch):
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", "recurrentgemma-9b",
+                                     "--smoke", "--device", "cpu",
+                                     "--requests", "2", "--prompt-len", "18",
+                                     "--new-tokens", "2"])
     serve.main()
     assert "served 2 requests" in capsys.readouterr().out
 
