@@ -8,7 +8,7 @@ Phases, each raising on failure (nothing is caught, so a failed phase is a
 non-zero exit):
 
 1. the card's name and power limit from ``nvidia-smi``;
-2. build the four CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``,
+2. build the five CUDA sources from ``src/repro_torch/csrc`` with ``nvcc``,
    one process per source, all started together;
 3. each kernel against its plain PyTorch version on the card: the reference
    test cases in fp32 and bf16, and the serving paths' own shapes, with
@@ -17,9 +17,13 @@ non-zero exit):
    heads (D = 256, one kv head, window 2048); the GLA scan also at unit
    scale against the exact (fp64) scan, with the tolerance its witness
    gives; the diagonal scan at recurrentgemma-9b's prefill in bf16 and fp32
-   and at its decode; then full-width layers of each model, kernel path
-   against plain path (recurrentgemma-9b: one superblock and one RG-LRU
-   layer over 2100 tokens, and a decode step);
+   and at its decode; the MoE shuffle kernels (dispatch and combine) on the
+   reference's cases with capacity drops, dropped ids and slots, repeated
+   slots that sum, the round trip, and grok-1-314b's served prefill and
+   decode shapes; then full-width layers of each model, kernel path against
+   plain path (recurrentgemma-9b: one superblock and one RG-LRU layer over
+   2100 tokens, and a decode step; grok-1-314b: one layer in fp32, prefill
+   and a decode step);
 4. serve: full-width qwen3-0.6b ``ServeLoop`` answers 8 requests of 512
    prompt tokens and 32 new tokens with a page pool too small to hold them,
    prefill through the flash kernel;
@@ -38,14 +42,25 @@ non-zero exit):
    32 new tokens, prefill through the diag-scan kernel (26 RG-LRU layers)
    and the flash kernel (12 attention layers), decode through the diag-scan
    kernel;
-10. profile: as phase 6, for recurrentgemma-9b.
+10. profile: as phase 6, for recurrentgemma-9b;
+11. serve: grok-1-314b at full width and 4 of its 64 layers (21.3 B
+    params, drawn in bf16 and handed over cast) answers 8 requests of 512
+    prompt tokens and 32 new tokens with the default pool, every MoE layer's
+    dispatch and combine through the shuffle kernels in prefill and in
+    every decode step, prefill attention through the flash kernel;
+12. profile: as phase 6, for grok-1-314b.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5
 (flash and paged attention: the qwen3 path), zeroed again just before phase
-7 and read just after it (the GLA scan: the rwkv6-3b path), and again just
+7 and read just after it (the GLA scan: the rwkv6-3b path), again just
 before phase 9 and read just after it (the diagonal scan and flash: the
-recurrentgemma-9b path). The second-to-last line is ``{"kernels": [...]}``;
-the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
+recurrentgemma-9b path), and again just before phase 11 and read just after
+it (dispatch, combine and flash: the grok-1-314b path). Each serve phase
+fails unless every kernel of its path made exactly the launches its layers
+and batches call for. The script's own seconds are logged on an
+``elapsed`` line; the second-to-last line is ``{"kernels": [...]}``; the
+last line is ``{"ok": true, "device":
+{...}}``. Without CUDA, or without
 the rest of the repo beside it, the script exits non-zero and prints no
 result.
 """
@@ -77,6 +92,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import gla_scan_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_attention  # noqa: E402
+from repro_torch.kernels.shuffle_dispatch.ops import (  # noqa: E402
+    combine, compute_slots, dispatch)
 from repro_torch.launch.serve import Request, ServeLoop  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
@@ -87,6 +104,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 POOL_TOL = 2e-5
 GLA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # the reference's
+SHUFFLE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # the reference's
 
 # the JAX package's kernel test cases (tests/test_kernels.py)
 FLASH_CASES = [  # B, H, KH, Tq, Tk, D, causal, window
@@ -125,6 +143,14 @@ DIAG_CASES = [  # B, T, D, chunk
     (3, 32, 32, 32),
     (2, 77, 33, 16),
     (4, 1, 4096, 256),
+]
+# test_shuffle_dispatch_sweep's cases and a width that is not whole 16-byte
+# rows; grok-1-314b's served shapes are drawn in check_shuffle
+SHUFFLE_CASES = [  # T, D, E, K, C
+    (64, 32, 4, 2, 32),
+    (128, 16, 8, 1, 24),
+    (96, 64, 16, 6, 16),
+    (50, 37, 5, 3, 12),
 ]
 
 
@@ -521,11 +547,158 @@ def check_diag(rng):
                                        "plain_ms", "bound_ms", "bound_by")})
 
 
+def shuffle_inputs(rng, T, D, E, K, C, kind, dtype):
+    """x [T, D], y [E, C, D] and fp32 gates [T, K] on the card, and int32
+    expert ids and slots [T, K]. ``kind``: "slots" (K distinct experts a
+    token, slots from ``compute_slots``, some past C), "drops" (as "slots",
+    then ids of -1 and E and slots of -1 and C + 3 here and there) or
+    "repeats" (ids and slots drawn at random: pairs share rows and sum)."""
+    x, y = rand(rng, (T, D), dtype), rand(rng, (E, C, D), dtype)
+    gates = torch.from_numpy(rng.random((T, K))).to(DEV, torch.float32)
+    if kind == "repeats":
+        eid = rng.integers(0, E, size=(T, K))
+        slot = rng.integers(0, C, size=(T, K))
+    else:
+        eid = np.argsort(rng.random((T, E)), axis=1)[:, :K]
+        slot = compute_slots(torch.from_numpy(eid), E, C).numpy()
+        if kind == "drops":
+            u, v = rng.random((T, K)), rng.random((T, K))
+            eid = np.where(u < 0.1, -1, np.where(u < 0.15, E, eid))
+            slot = np.where(v < 0.05, -1, np.where(v < 0.1, C + 3, slot))
+    ids = [torch.from_numpy(a.astype(np.int32)).to(DEV) for a in (eid, slot)]
+    return x, y, gates, ids[0], ids[1]
+
+
+def shuffle_close(x, y, gates, eid, slot, E, C, what):
+    """dispatch and combine (gates in fp32 and in the data's dtype) against
+    their plain versions. Returns the max abs errors."""
+    dtype = x.dtype
+    out = dispatch(x, eid, slot, E, C, impl="kernel")
+    torch.cuda.synchronize()
+    if out.dtype != dtype:
+        _fail(f"dispatch {what}: dtype {out.dtype}")
+    d_err = close_or_fail(out, dispatch(x, eid, slot, E, C, impl="xla"),
+                          SHUFFLE_TOL[dtype], f"dispatch {what}")
+    c_err = 0.0
+    for g in {gates, gates.to(dtype)}:
+        out = combine(y, eid, slot, g, x.shape[0], impl="kernel")
+        torch.cuda.synchronize()
+        if out.dtype != dtype:
+            _fail(f"combine {what}: dtype {out.dtype}")
+        c_err = max(c_err, close_or_fail(
+            out, combine(y, eid, slot, g, x.shape[0], impl="xla"),
+            SHUFFLE_TOL[dtype], f"combine {what} gates {g.dtype}"))
+    return d_err, c_err
+
+
+def served_routing(rng, B, T, E, K, C):
+    """grok-1-314b's routing as the MoE block hands it to the kernels: K
+    distinct experts of E a token, row b's ids offset by b * E, slots over
+    the B * E buffers from ``compute_slots``."""
+    eid = np.argsort(rng.random((B, T, E)), axis=2)[..., :K]
+    flat = torch.from_numpy(eid + E * np.arange(B)[:, None, None]).reshape(
+        B * T, K)
+    slot = compute_slots(flat, B * E, C)
+    return flat.int().to(DEV), slot.to(DEV)
+
+
+def check_shuffle(rng):
+    """The dispatch and combine kernels against their plain versions, then
+    timed at grok-1-314b's served prefill (4 rows x 512 tokens, top-2 of 8
+    experts, C = 160, D = 6144, bf16) and decode (T = 1, C = 4)."""
+    worst = {"dispatch": {}, "combine": {}}
+
+    def note(key, errs):
+        for name, err in zip(("dispatch", "combine"), errs):
+            worst[name][key] = max(worst[name].get(key, 0.0), err)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SHUFFLE_CASES:
+            for kind in ("slots", "drops", "repeats"):
+                T, D, E, K, C = case
+                note(f"{kind} {dtype}", shuffle_close(
+                    *shuffle_inputs(rng, T, D, E, K, C, kind, dtype), E, C,
+                    f"{case} {kind} {dtype}"))
+    # the reference's round trip: K = 1, no drops, gate 1 gives x back
+    T, D, E, C = 32, 8, 4, 32
+    x = rand(rng, (T, D), torch.float32)
+    eid = torch.from_numpy(rng.integers(0, E, size=(T, 1))).to(DEV)
+    slot = compute_slots(eid, E, C)
+    back = combine(dispatch(x, eid, slot, E, C, impl="kernel"), eid, slot,
+                   torch.ones((T, 1), device=DEV), T, impl="kernel")
+    torch.cuda.synchronize()
+    worst["combine"]["round trip"] = close_or_fail(back, x, 1e-6, "round trip")
+    B, E, K, D = 4, 8, 2, 6144
+    entries = {"dispatch": {}, "combine": {}}
+    work = {}
+    for T, C in ((512, 160), (1, 4)):
+        eid, slot = served_routing(rng, B, T, E, K, C)
+        N, R = B * T, B * E
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y = rand(rng, (N, D), dtype), rand(rng, (R, C, D), dtype)
+            gates = torch.from_numpy(rng.random((N, K))).to(DEV, dtype)
+            errs = shuffle_close(x, y, gates.float(), eid, slot, R, C,
+                                 f"served T={T} {dtype}")
+            note(f"served T={T} {dtype}", errs)
+        # timed in bf16, the served dtype, with bf16 gates as the MoE block
+        # passes them
+        kept = (slot >= 0) & (slot < C)
+        tok = torch.nonzero(kept)[:, 0]
+        rows = (eid.long() * C + slot.long())[kept]
+        sel = torch.unique(rows)
+        elem = x.element_size()
+        ids = 2 * eid.numel() * 4
+        n_kept = int(kept.sum())
+        d_bytes = (int(torch.unique(tok).numel()) + R * C) * D * elem + ids
+        c_bytes = (int(sel.numel()) + N) * D * elem + ids \
+            + gates.numel() * elem
+        work[f"T={T}"] = dict(
+            tokens=N, buffers=R, capacity=C, kept_pairs=n_kept,
+            dispatch_bytes=d_bytes, dispatch_flops=n_kept * D,
+            combine_bytes=c_bytes, combine_flops=2 * n_kept * D)
+        mg = torch.zeros((N, R * C), dtype=dtype, device=DEV)
+        mg.index_put_((tok, rows), gates[kept], accumulate=True)
+        mg = mg.reshape(N, R, C)
+        flat_x = torch.zeros((R * C, D), dtype=dtype, device=DEV)
+        runs = {
+            "dispatch": (lambda: dispatch(x, eid, slot, R, C, impl="kernel"),
+                         lambda: dispatch(x, eid, slot, R, C, impl="xla"),
+                         lambda: flat_x.zero_().index_add_(
+                             0, rows, x.index_select(0, tok)),
+                         d_bytes, n_kept * D),
+            "combine": (lambda: combine(y, eid, slot, gates, N, impl="kernel"),
+                        lambda: combine(y, eid, slot, gates, N, impl="xla"),
+                        lambda: torch.einsum("tec,ecd->td", mg, y),
+                        c_bytes, 2 * n_kept * D),
+        }
+        for name, (kern, plain, lib, nbytes, flops) in runs.items():
+            bound_ms, bound_by = bound(nbytes, flops, dtype)
+            entries[name][f"T={T}"] = dict(
+                max_abs_err=worst[name][f"served T={T} {dtype}"],
+                ms=time_ms(kern), call_ms=time_ms(kern, spin=False),
+                plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib),
+                bound_ms=bound_ms, bound_by=bound_by)
+        del x, y, mg, flat_x
+    log("shuffle_work", json.dumps(work))
+    out = []
+    for name, line in (("dispatch", 51), ("combine", 105)):
+        top = entries[name]["T=512"]
+        out.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/shuffle_dispatch.cu",
+            replaces=f"src/repro/kernels/shuffle_dispatch/kernel.py:{line}",
+            shape=f"N={B}x512 tokens K={K} buffers={B}x{E} C=160 D={D} bf16",
+            tolerance=SHUFFLE_TOL[torch.bfloat16],
+            cases_max_abs_err=worst[name], kernel_ms=top["ms"],
+            served=entries[name], **top))
+    return out
+
+
 def check_model_small(cfg, rng, tol, n_layers=2, T=130, **impls):
     """The LM's kernel path against its plain path on a small input:
     ``n_layers`` full-width layers in fp32, prefill logits over ``T`` tokens
-    and, for the hybrid family, one decode step. ``impls``: the plain
-    path's impls."""
+    and, for the hybrid and MoE families, one decode step. ``impls``: the
+    plain path's impls."""
     small = cfg.with_(n_layers=n_layers, compute_dtype="float32",
                       kv_cache_dtype="float32")
     kern = build_model(small)
@@ -537,7 +710,7 @@ def check_model_small(cfg, rng, tol, n_layers=2, T=130, **impls):
     torch.cuda.synchronize()
     what = f"{cfg.name} {n_layers}-layer"
     err = close_or_fail(lk, lp, tol, f"{what} prefill kernel vs plain")
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "moe"):
         nxt = lp[:, -1:].argmax(dim=-1)
         del lk, lp
         dk, _ = kern.decode_step(params, {"tokens": nxt}, ck, T)
@@ -551,9 +724,9 @@ def check_model_small(cfg, rng, tol, n_layers=2, T=130, **impls):
 # -- phase 4: serve ---------------------------------------------------------------
 def serve(cfg, prompts, expect, hbm_pages=None, max_len=552, params=None):
     """``expect``: {counted wrapper: launches per batch} that the path must
-    reach at least. With ``hbm_pages`` the pool is too small for a batch and
-    must offload; without, it is ServeLoop's default. ``params``: the
-    model's params (else ServeLoop draws its own)."""
+    make exactly. With ``hbm_pages`` the pool is too
+    small for a batch and must offload; without, it is ServeLoop's default.
+    ``params``: the model's params (else ServeLoop draws its own)."""
     loop = ServeLoop(cfg, batch_slots=4, max_len=max_len,
                      hbm_pages=hbm_pages, params=params)
     reqs = [Request(i, p, max_new_tokens=32) for i, p in enumerate(prompts)]
@@ -571,9 +744,10 @@ def serve(cfg, prompts, expect, hbm_pages=None, max_len=552, params=None):
         _fail("the page pool never offloaded")
     n_prefills = -(-len(prompts) // 4)
     for kernel, per_batch in expect.items():
-        if kernel.launches < per_batch * n_prefills:
+        want = per_batch * n_prefills
+        if kernel.launches != want:
             _fail(f"{kernel.__name__} kernel launched {kernel.launches} "
-                  f"times, want >= {per_batch * n_prefills}")
+                  f"times, want {want}")
     report = dict(arch=cfg.name, requests=len(out), wall_s=wall_s,
                   prefill_ms_per_batch=st["prefill_s"] / n_prefills * 1e3,
                   decode_tok_per_s=st["decode_tokens"] / st["decode_s"],
@@ -705,30 +879,37 @@ def main():
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = _build.build()
     log("build", json.dumps(dict(seconds=time.perf_counter() - t0,
                                  per_source=built)))
 
     rng = np.random.default_rng(42)
     kernels = [check_flash(rng), check_paged(rng), check_gla(rng),
-               check_diag(rng)]
+               check_diag(rng), *check_shuffle(rng)]
     cfg = get_config("qwen3-0.6b")
     rcfg = get_config("rwkv6-3b")
     gcfg = get_config("recurrentgemma-9b")
+    # grok-1-314b at full width and 4 of its 64 layers: 316.5 B params
+    # (633 GB in bf16) do not fit one card
+    kcfg = get_config("grok-1-314b").with_(n_layers=4)
     for c, tol, kw in ((cfg, 1e-4, dict(attn_impl="xla")),
                        (rcfg, 2e-4, dict(scan_impl="xla_chunked")),
                        (gcfg, 1e-4, dict(attn_impl="xla", scan_impl="xla",
-                                         n_layers=4, T=2100))):
+                                         n_layers=4, T=2100)),
+                       (kcfg, 1e-4, dict(attn_impl="xla", moe_impl="xla",
+                                         n_layers=1))):
         # fp32 sums of a few layers taken in another order; GLA's own
         # tolerance for the scan. recurrentgemma-9b: one superblock (rec,
-        # rec, attn) and one rem layer, past the window
+        # rec, attn) and one rem layer, past the window. grok-1-314b: one
+        # layer (26 GB in fp32 with the embeddings)
         log("model_small", c.name, json.dumps(dict(
             max_abs_err=check_model_small(c, rng, tol, **kw),
             tolerance=tol)))
     gc.collect()
     torch.cuda.empty_cache()
-    counted = (flash_attention, paged_attention, gla_scan, diag_scan)
+    counted = (flash_attention, paged_attention, gla_scan, diag_scan,
+               dispatch, combine)
 
     def zero_counts():
         for fn in counted:
@@ -783,12 +964,35 @@ def main():
     launches["flash_attention"][gcfg.name] = flash_attention.launches
     del gparams
     profile_steps(gloop, gprompts)
+    del gloop
+    free()
+
+    # grok-1-314b, 4 layers: 21.3 B params drawn straight in bf16 (42.6 GB;
+    # one expert weight alone would be 25.8 GB in fp32)
+    kmodel = build_model(kcfg)
+    kparams = kmodel.init(torch.Generator("cuda").manual_seed(4),
+                          dtype=torch.bfloat16)
+    del kmodel
+    kprompts = [np.random.default_rng(400 + i).integers(0, kcfg.vocab, 512,
+                                                        dtype=np.int32)
+                for i in range(8)]
+    per_batch = kcfg.n_layers * (1 + 32)     # prefill and 32 decode steps
+    zero_counts()
+    kloop = serve(kcfg, kprompts, {dispatch: per_batch, combine: per_batch,
+                                   flash_attention: kcfg.n_layers},
+                  params=kparams)
+    launches["dispatch"] = {kcfg.name: dispatch.launches}
+    launches["combine"] = {kcfg.name: combine.launches}
+    launches["flash_attention"][kcfg.name] = flash_attention.launches
+    del kparams
+    profile_steps(kloop, kprompts)
     for k in kernels:
         k["launches_by_path"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]].values())
         if min(launches[k["name"]].values()) <= 0:
             _fail(f"{k['name']} was never launched on a main path: "
                   f"{launches[k['name']]}")
+    log("elapsed", json.dumps(dict(seconds=time.perf_counter() - t_start)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

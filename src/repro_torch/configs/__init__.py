@@ -27,9 +27,10 @@ ARCH_IDS = [
 ]
 
 # what the port's LM runs today: dense GQA decoders with RoPE and RMSNorm,
-# the attention-free RWKV6 (family "ssm") and RG-LRU with local attention
-# (family "hybrid")
-PORTED_ARCH_IDS = ("glm4-9b", "qwen3-0.6b", "rwkv6-3b", "recurrentgemma-9b")
+# the attention-free RWKV6 (family "ssm"), RG-LRU with local attention
+# (family "hybrid") and MoE over GQA attention (family "moe", without MLA)
+PORTED_ARCH_IDS = ("glm4-9b", "qwen3-0.6b", "rwkv6-3b", "recurrentgemma-9b",
+                   "grok-1-314b")
 
 
 def _module_name(arch_id: str) -> str:
@@ -62,6 +63,9 @@ def smoke_config(arch_id: str) -> ArchConfig:
     )
     if cfg.n_heads:
         kw.update(n_heads=4, kv_heads=min(cfg.kv_heads, 2), head_dim=16)
+    if cfg.n_experts:
+        kw.update(n_experts=4, n_shared_experts=min(cfg.n_shared_experts, 1),
+                  top_k=2, d_expert=64)
     if cfg.family == "ssm":
         kw.update(rwkv_head_dim=16)
     if cfg.window:

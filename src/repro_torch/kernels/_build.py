@@ -27,7 +27,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("flash_attention", "paged_attention", "linear_scan", "diag_scan")
+SOURCES = ("flash_attention", "paged_attention", "linear_scan", "diag_scan",
+           "shuffle_dispatch")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

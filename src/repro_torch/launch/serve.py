@@ -10,14 +10,19 @@ kernel (``LM(scan_impl="kernel")``) for rwkv6-3b, whose decode carries its
 recurrent state in the model's cache. recurrentgemma-9b runs the
 diagonal-scan kernel in every RG-LRU layer, in prefill and in decode, and
 the flash kernel in the prefill of its local-attention layers, whose decode
-reads a ring of ``window`` slots. For rwkv6-3b the pool keeps the
+reads a ring of ``window`` slots. grok-1-314b (MoE over GQA attention)
+dispatches and combines every MoE layer's tokens through the shuffle kernels
+(``LM(moe_impl="kernel")``), in prefill and in every decode step, and runs
+its prefill attention through the flash kernel. For rwkv6-3b the pool keeps the
 reference's geometry (one "kv head" of d_model wide), and for
 recurrentgemma-9b its 38 layers of one kv head of 256; either way it is
 bookkeeping only, as in the JAX package: it holds no recurrent state.
 
 Run: ``python -m repro_torch.launch.serve --arch qwen3-0.6b``, ``--arch
-rwkv6-3b`` or ``--arch recurrentgemma-9b`` (on the card; ``--device cpu
---smoke`` for a small CPU run).
+rwkv6-3b``, ``--arch recurrentgemma-9b`` or ``--arch grok-1-314b`` (on the
+card; ``--device cpu --smoke`` for a small CPU run). Full grok-1-314b (64
+layers, 316.5 B parameters) does not fit one card; ``chip_smoke.py`` serves
+it at full width and 4 layers.
 """
 from __future__ import annotations
 

@@ -1,14 +1,17 @@
 """Per-layer blocks: GQA attention (with qwen3's qk_norm and local
-attention over a sliding window), the SwiGLU / GeGLU FFN, RWKV6's time mix
-(wkv) and channel mix, and recurrentgemma's RG-LRU block.
+attention over a sliding window), the SwiGLU / GeGLU FFN, the MoE block
+(top-k routing, per-row capacity, shared experts), RWKV6's time mix (wkv)
+and channel mix, and recurrentgemma's RG-LRU block.
 
 Every ``*_init`` builds the params of all layers at once, stacked on a
 leading ``layers`` dim (``lead``), with the JAX reference's names and
-layouts. Every ``*_apply`` takes one layer's params. ``attn_apply`` handles
-both full-sequence (prefill) and single-token decode (``cache`` + ``pos``)
-modes, ``rwkv_apply`` and ``rglru_apply`` full-sequence and single-token
-decode (``state``). Products whose operands differ in type go through
-``common.einsum``, which promotes as the reference's ``jnp.einsum`` does.
+layouts, each leaf of rank >= 2 drawn in ``dtype`` (fp32 by default) and
+the others in fp32 (``common.param_dtype``). Every ``*_apply`` takes one
+layer's params. ``attn_apply`` handles both full-sequence (prefill) and
+single-token decode (``cache`` + ``pos``) modes, ``rwkv_apply`` and
+``rglru_apply`` full-sequence and single-token decode (``state``).
+Products whose operands differ in type go through ``common.einsum``, which
+promotes as the reference's ``jnp.einsum`` does.
 """
 from __future__ import annotations
 
@@ -22,15 +25,34 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
 from ..kernels.linear_scan.ops import diag_scan, gla_scan
-from .common import (apply_rope, dense_init, einsum, gelu, layer_norm,
-                     normal, rms_norm, sigmoid, silu, softplus)
+from ..kernels.shuffle_dispatch.ops import combine, compute_slots, dispatch
+from .common import (_const, apply_rope, dense_init, einsum, gelu,
+                     layer_norm, normal, param_dtype, rms_norm, sigmoid,
+                     silu, softplus)
+
+
+def _ones(gen: torch.Generator, shape, dtype=None) -> torch.Tensor:
+    return torch.ones(shape, dtype=param_dtype(shape, dtype),
+                      device=gen.device)
+
+
+def _zeros(gen: torch.Generator, shape, dtype=None) -> torch.Tensor:
+    return torch.zeros(shape, dtype=param_dtype(shape, dtype),
+                       device=gen.device)
+
+
+def _normal(gen: torch.Generator, shape, scale: float,
+            dtype=None) -> torch.Tensor:
+    """N(0, scale^2) drawn in ``param_dtype(shape, dtype)``."""
+    return normal(gen, shape, param_dtype(shape, dtype)).mul_(scale)
 
 
 def _norm_init(cfg: ArchConfig, d: int, gen: torch.Generator,
-               lead: Tuple[int, ...] = ()) -> Optional[torch.Tensor]:
+               lead: Tuple[int, ...] = (), dtype=None
+               ) -> Optional[torch.Tensor]:
     if cfg.norm == "nonparam_ln":
         return None
-    return torch.ones((*lead, d), device=gen.device)
+    return _ones(gen, (*lead, d), dtype)
 
 
 def apply_norm(cfg: ArchConfig, w, x):
@@ -47,18 +69,20 @@ def apply_norm(cfg: ArchConfig, w, x):
 # GQA attention (dense / qwen3 qk_norm)
 # ---------------------------------------------------------------------------
 def attn_init(gen: torch.Generator, cfg: ArchConfig,
-              lead: Tuple[int, ...] = ()) -> Dict:
+              lead: Tuple[int, ...] = (), dtype=None) -> Dict:
+    """``dtype``: the type of the leaves of rank >= 2 (fp32 if None)."""
     d, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
+    wt = dtype or torch.float32
     p = {
-        "wq": dense_init(gen, d, (H, hd), lead=lead),
-        "wk": dense_init(gen, d, (KH, hd), lead=lead),
-        "wv": dense_init(gen, d, (KH, hd), lead=lead),
-        "wo": normal(gen, (*lead, H, hd, d)) * (1.0 / math.sqrt(H * hd)),
-        "norm": _norm_init(cfg, d, gen, lead),
+        "wq": dense_init(gen, d, (H, hd), lead=lead, dtype=wt),
+        "wk": dense_init(gen, d, (KH, hd), lead=lead, dtype=wt),
+        "wv": dense_init(gen, d, (KH, hd), lead=lead, dtype=wt),
+        "wo": _normal(gen, (*lead, H, hd, d), 1.0 / math.sqrt(H * hd), wt),
+        "norm": _norm_init(cfg, d, gen, lead, dtype),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((*lead, hd), device=gen.device)
-        p["k_norm"] = torch.ones((*lead, hd), device=gen.device)
+        p["q_norm"] = _ones(gen, (*lead, hd), dtype)
+        p["k_norm"] = _ones(gen, (*lead, hd), dtype)
     return p
 
 
@@ -189,14 +213,16 @@ def pack_prefill_cache(cfg: ArchConfig, kv, max_len: int, dtype):
 # FFN (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 def ffn_init(gen: torch.Generator, cfg: ArchConfig,
-             d_ff: Optional[int] = None, lead: Tuple[int, ...] = ()) -> Dict:
+             d_ff: Optional[int] = None, lead: Tuple[int, ...] = (),
+             dtype=None) -> Dict:
     d = cfg.d_model
     f = d_ff or cfg.d_ff
+    wt = dtype or torch.float32
     return {
-        "w1": dense_init(gen, d, f, lead=lead),
-        "w3": dense_init(gen, d, f, lead=lead),
-        "w2": dense_init(gen, f, d, lead=lead),
-        "norm": _norm_init(cfg, d, gen, lead),
+        "w1": dense_init(gen, d, f, lead=lead, dtype=wt),
+        "w3": dense_init(gen, d, f, lead=lead, dtype=wt),
+        "w2": dense_init(gen, f, d, lead=lead, dtype=wt),
+        "norm": _norm_init(cfg, d, gen, lead, dtype),
     }
 
 
@@ -210,35 +236,167 @@ def ffn_apply(p, x, *, cfg: ArchConfig, act: str = "silu"):
 
 
 # ---------------------------------------------------------------------------
+# MoE (grok: expert-TP; deepseek: expert-parallel + shared experts)
+# ---------------------------------------------------------------------------
+def moe_init(gen: torch.Generator, cfg: ArchConfig,
+             lead: Tuple[int, ...] = (), dtype=None) -> Dict:
+    """The reference's params and layouts: router [d, E], experts' w1/w3
+    [E, d, f] and w2 [E, f, d], the block norm, and (deepseek) the shared
+    experts as one SwiGLU FFN of n_shared_experts * f without its own norm."""
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.d_expert
+    wt = dtype or torch.float32
+    p = {
+        "w_router": dense_init(gen, d, E, lead=lead, dtype=wt),
+        "w1": _normal(gen, (*lead, E, d, f), 1.0 / math.sqrt(d), wt),
+        "w3": _normal(gen, (*lead, E, d, f), 1.0 / math.sqrt(d), wt),
+        "w2": _normal(gen, (*lead, E, f, d), 1.0 / math.sqrt(f), wt),
+        "norm": _norm_init(cfg, d, gen, lead, dtype),
+    }
+    if cfg.n_shared_experts:
+        shared = ffn_init(gen, cfg, d_ff=cfg.n_shared_experts * f, lead=lead,
+                          dtype=dtype)
+        shared.pop("norm")                   # the block norm is shared
+        p["shared"] = shared
+    return p
+
+
+def _capacity(cfg: ArchConfig, T: int) -> int:
+    c = int(math.ceil(T * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
+    return max(4, -(-c // 4) * 4)
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last dim as ``jax.nn.softmax`` spells it."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def moe_route(w_router, h, top_k: int):
+    """Top-k routing on fp32 probabilities. Returns (probs [B, T, E], gates
+    [B, T, K] renormalised to sum 1, expert ids [B, T, K] int64)."""
+    logits = einsum("btd,de->bte", h, w_router).float()
+    probs = _softmax(logits)
+    gates, eid = torch.topk(probs, top_k, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    return probs, gates, eid
+
+
+def _experts(p, disp):
+    """The experts' SwiGLU on their buffers [..., E, C, d]."""
+    g1 = einsum("becd,edf->becf", disp, p["w1"])
+    u1 = einsum("becd,edf->becf", disp, p["w3"])
+    return einsum("becf,efd->becd", silu(g1) * u1, p["w2"])
+
+
+def shared_experts(sp, h):
+    g = einsum("btd,df->btf", h, sp["w1"])
+    u = einsum("btd,df->btf", h, sp["w3"])
+    return einsum("btf,fd->btd", silu(g) * u, sp["w2"])
+
+
+def _moe_einsum(p, h, eid, gates, E: int, C: int):
+    """The reference's dense dispatch mask [B, T, E, C]: slots from a cumsum
+    over each row's (t, k) pairs, pairs past C dropped. Returns (y, the
+    kept pairs per (row, expert) in h's dtype)."""
+    B, T, K = eid.shape
+    dt = h.dtype
+    onehot = F.one_hot(eid, E)                            # [B, T, K, E]
+    flat = onehot.reshape(B, T * K, E)
+    pos = torch.cumsum(flat, dim=1) - flat                # exclusive
+    slot = (pos * flat).sum(-1).reshape(B, T, K)
+    keep = slot < C
+    slot_oh = F.one_hot(torch.where(keep, slot, C), C + 1).to(dt)[..., :C]
+    oh = onehot.to(dt)
+    mask = torch.einsum("btke,btkc->btec", oh, slot_oh)
+    gmask = torch.einsum("btke,btkc,btk->btec", oh, slot_oh, gates.to(dt))
+    disp = einsum("btec,btd->becd", mask, h)
+    y = einsum("btec,becd->btd", gmask, _experts(p, disp))
+    return y, mask.sum(dim=(1, 3))
+
+
+def _moe_shuffle(p, h, eid, gates, E: int, C: int):
+    """The same function through the shuffle kernels: slots counted per
+    row, then the B rows flattened to N = B*T tokens with row b's expert
+    ids offset by b*E, so that B*E buffers hold each row's experts.
+    Returns (y, the kept pairs per (row, expert) in h's dtype)."""
+    B, T, K = eid.shape
+    d = h.shape[-1]
+    N = B * T
+    slot = compute_slots(eid, E, C).reshape(N, K)
+    offset = E * torch.arange(B, device=eid.device)[:, None, None]
+    flat_eid = (eid + offset).reshape(N, K)
+    disp = dispatch(h.reshape(N, d), flat_eid, slot, B * E, C, impl="kernel")
+    eo = _experts(p, disp.reshape(B, E, C, d))
+    y = combine(eo.reshape(B * E, C, d), flat_eid, slot,
+                gates.reshape(N, K).to(h.dtype), N, impl="kernel")
+    kept = (slot < C).reshape(B, T * K).long()
+    counts = torch.zeros((B, E), dtype=torch.long, device=eid.device)
+    counts.scatter_add_(1, eid.reshape(B, T * K), kept)
+    return y.reshape(B, T, d), counts.to(h.dtype)
+
+
+def moe_apply(p, x, *, cfg: ArchConfig, impl: str = "xla"):
+    """MoE block: the device-side shuffle service. Per-batch-row capacity
+    C = ``_capacity(cfg, T)``. Returns (x + y, switch aux loss).
+
+    impl: "xla" mirrors the reference's dense dispatch mask; "kernel"
+    dispatches and combines through the shuffle kernels (their plain
+    versions on CPU tensors), with the gates in h's dtype as the
+    reference's gated mask has them. The experts' SwiGLU is an einsum over
+    [B, E, C, d] either way."""
+    B, T, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = _capacity(cfg, T)
+    h = apply_norm(cfg, p.get("norm"), x)
+    probs, gates, eid = moe_route(p["w_router"], h, K)
+    if impl == "kernel":
+        y, kept = _moe_shuffle(p, h, eid, gates, E, C)
+    elif impl == "xla":
+        y, kept = _moe_einsum(p, h, eid, gates, E, C)
+    else:
+        raise ValueError(f"unknown impl {impl!r}")
+    if cfg.n_shared_experts:
+        y = y + shared_experts(p["shared"], h)
+    # switch-style load-balance aux loss
+    density = kept / _const(T, kept.dtype)                # [B, E] tokens frac
+    router_prob = probs.mean(dim=1)                       # [B, E]
+    aux = (density * router_prob).sum(-1).mean() * E
+    return x + y, aux
+
+
+# ---------------------------------------------------------------------------
 # RWKV6 (Finch): time mix (wkv) + channel mix
 # ---------------------------------------------------------------------------
-def _uniform(gen: torch.Generator, shape) -> torch.Tensor:
-    return torch.rand(shape, generator=gen, device=gen.device)
+def _uniform(gen: torch.Generator, shape, dtype=None) -> torch.Tensor:
+    return torch.rand(shape, generator=gen, dtype=param_dtype(shape, dtype),
+                      device=gen.device)
 
 
 def rwkv_init(gen: torch.Generator, cfg: ArchConfig,
-              lead: Tuple[int, ...] = ()) -> Dict:
+              lead: Tuple[int, ...] = (), dtype=None) -> Dict:
     """The reference's params and layouts. Its init draws all five ``mu_*``
     from one key (and ``cmu_k``/``cmu_r`` from another); here each is drawn
     anew. Parity tests bridge the reference's own params."""
     d, ff, lora = cfg.d_model, cfg.d_ff, 64
-    p = {nm: _uniform(gen, (*lead, d))
+    wt = dtype or torch.float32
+    vec = (*lead, d)
+    p = {nm: _uniform(gen, vec, dtype)
          for nm in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g")}
-    p["w0"] = -2.0 + normal(gen, (*lead, d)) * 0.1
-    p["wA"] = dense_init(gen, d, lora, lead=lead)
-    p["wB"] = dense_init(gen, lora, d, lead=lead)
+    p["w0"] = _normal(gen, vec, 0.1, dtype).add_(-2.0)
+    p["wA"] = dense_init(gen, d, lora, lead=lead, dtype=wt)
+    p["wB"] = dense_init(gen, lora, d, lead=lead, dtype=wt)
     for nm in ("w_r", "w_k", "w_v", "w_g"):
-        p[nm] = dense_init(gen, d, d, lead=lead)
-    p["u"] = normal(gen, (*lead, d)) * 0.1
-    p["ln_x"] = torch.ones((*lead, d), device=gen.device)
-    p["w_o"] = dense_init(gen, d, d, lead=lead)
-    p["norm1"] = _norm_init(cfg, d, gen, lead)
-    p["cmu_k"] = _uniform(gen, (*lead, d))
-    p["cmu_r"] = _uniform(gen, (*lead, d))
-    p["cw_k"] = dense_init(gen, d, ff, lead=lead)
-    p["cw_v"] = dense_init(gen, ff, d, lead=lead)
-    p["cw_r"] = dense_init(gen, d, d, lead=lead)
-    p["norm2"] = _norm_init(cfg, d, gen, lead)
+        p[nm] = dense_init(gen, d, d, lead=lead, dtype=wt)
+    p["u"] = _normal(gen, vec, 0.1, dtype)
+    p["ln_x"] = _ones(gen, vec, dtype)
+    p["w_o"] = dense_init(gen, d, d, lead=lead, dtype=wt)
+    p["norm1"] = _norm_init(cfg, d, gen, lead, dtype)
+    p["cmu_k"] = _uniform(gen, vec, dtype)
+    p["cmu_r"] = _uniform(gen, vec, dtype)
+    p["cw_k"] = dense_init(gen, d, ff, lead=lead, dtype=wt)
+    p["cw_v"] = dense_init(gen, ff, d, lead=lead, dtype=wt)
+    p["cw_r"] = dense_init(gen, d, d, lead=lead, dtype=wt)
+    p["norm2"] = _norm_init(cfg, d, gen, lead, dtype)
     return p
 
 
@@ -341,21 +499,23 @@ LRU_C = 8.0
 
 
 def rglru_init(gen: torch.Generator, cfg: ArchConfig,
-               lead: Tuple[int, ...] = ()) -> Dict:
+               lead: Tuple[int, ...] = (), dtype=None) -> Dict:
     """The reference's params and layouts (lru width = d_model)."""
     d = w = cfg.d_model
+    wt = dtype or torch.float32
+    vec = (*lead, w)
     return {
-        "w_gate": dense_init(gen, d, w, lead=lead),
-        "w_x": dense_init(gen, d, w, lead=lead),
-        "conv_w": normal(gen, (*lead, CONV_W, w)) * 0.1,
-        "conv_b": torch.zeros((*lead, w), device=gen.device),
-        "w_a": dense_init(gen, w, w, lead=lead),
-        "b_a": torch.zeros((*lead, w), device=gen.device),
-        "w_i": dense_init(gen, w, w, lead=lead),
-        "b_i": torch.zeros((*lead, w), device=gen.device),
-        "lam": 0.5 + 1.5 * _uniform(gen, (*lead, w)),
-        "w_out": dense_init(gen, w, d, lead=lead),
-        "norm": _norm_init(cfg, d, gen, lead),
+        "w_gate": dense_init(gen, d, w, lead=lead, dtype=wt),
+        "w_x": dense_init(gen, d, w, lead=lead, dtype=wt),
+        "conv_w": _normal(gen, (*lead, CONV_W, w), 0.1, dtype),
+        "conv_b": _zeros(gen, vec, dtype),
+        "w_a": dense_init(gen, w, w, lead=lead, dtype=wt),
+        "b_a": _zeros(gen, vec, dtype),
+        "w_i": dense_init(gen, w, w, lead=lead, dtype=wt),
+        "b_i": _zeros(gen, vec, dtype),
+        "lam": _uniform(gen, vec, dtype).mul_(1.5).add_(0.5),
+        "w_out": dense_init(gen, w, d, lead=lead, dtype=wt),
+        "norm": _norm_init(cfg, d, gen, lead, dtype),
     }
 
 

@@ -26,11 +26,18 @@ def dense_init(gen: torch.Generator, in_dim: int,
         out_dims = (out_dims,)
     if scale is None:
         scale = 1.0 / math.sqrt(in_dim)
-    return normal(gen, (*lead, in_dim, *out_dims), dtype) * scale
+    return normal(gen, (*lead, in_dim, *out_dims), dtype).mul_(scale)
 
 
 def normal(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
+
+
+def param_dtype(shape, dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    """The type a param leaf of ``shape`` is drawn in: ``dtype`` where the
+    leaf has rank >= 2 (the leaves the compute cast converts), else fp32.
+    ``dtype=None`` draws every leaf in fp32."""
+    return dtype if dtype is not None and len(shape) >= 2 else torch.float32
 
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor],

@@ -1,5 +1,6 @@
-"""Decoder-only LM: the dense family, the attention-free RWKV6 ("ssm") and
-recurrentgemma's RG-LRU + local attention ("hybrid").
+"""Decoder-only LM: the dense family, MoE over GQA attention ("moe"), the
+attention-free RWKV6 ("ssm") and recurrentgemma's RG-LRU + local attention
+("hybrid").
 
 Params keep the JAX reference's layout: a nested dict with the stacked
 ``layers`` dim first (for the hybrid family: superblocks of
@@ -18,7 +19,8 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from . import blocks
-from .common import einsum, normal
+from .common import einsum, normal, param_dtype
+from .moe_shardmap import moe_shardmap_apply, moe_shardmap_init
 
 Pytree = Any
 
@@ -51,20 +53,24 @@ def _stack(states):
 
 
 class LM:
-    """Config-driven language model (dense, RWKV6 or RG-LRU hybrid). All
-    state is explicit: params and caches are passed in and returned.
+    """Config-driven language model (dense, MoE, RWKV6 or RG-LRU hybrid).
+    All state is explicit: params and caches are passed in and returned.
     ``attn_impl`` picks the attention of prefill, ``scan_impl`` the scan of
     RWKV6 (the wkv) and of RG-LRU (the diagonal scan: "kernel", or the
-    sequential oracle for any other value); both default to the CUDA kernel
-    (its plain version on CPU tensors)."""
+    sequential oracle for any other value), ``moe_impl`` the MoE block's
+    dispatch and combine ("kernel": the shuffle kernels; "xla": the
+    reference's dense dispatch mask); all default to the CUDA kernels
+    (their plain versions on CPU tensors)."""
 
     def __init__(self, cfg: ArchConfig, attn_impl: str = "kernel",
-                 scan_impl: str = "kernel", device: DeviceLike = "cuda"):
-        if cfg.family not in ("dense", "ssm", "hybrid") or cfg.n_experts \
-                or cfg.kv_lora:
+                 scan_impl: str = "kernel", moe_impl: str = "kernel",
+                 device: DeviceLike = "cuda"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
+                or cfg.kv_lora or (cfg.family == "moe") != bool(cfg.n_experts):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense, ssm (RWKV6) and hybrid "
-                f"(RG-LRU) families are ported (family={cfg.family!r})")
+                f"{cfg.name}: only the dense, moe (without MLA), ssm (RWKV6) "
+                f"and hybrid (RG-LRU) families are ported "
+                f"(family={cfg.family!r}, kv_lora={cfg.kv_lora})")
         if cfg.rope not in ("rope", "none") or cfg.embed_inputs:
             raise NotImplementedError(
                 f"{cfg.name}: M-RoPE and embedding inputs are not ported "
@@ -72,22 +78,32 @@ class LM:
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.scan_impl = scan_impl
+        self.moe_impl = moe_impl
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
-    def init(self, gen: torch.Generator) -> Pytree:
+    def init(self, gen: torch.Generator,
+             dtype: Optional[torch.dtype] = None) -> Pytree:
         """Random params drawn from ``gen``, which must live on the model's
-        device. Same names and shapes as the reference's ``LM.init``."""
+        device. Same names and shapes as the reference's ``LM.init``.
+
+        ``dtype`` (e.g. ``torch.bfloat16``): draw every leaf of rank >= 2
+        directly in that type, so that each leaf is born in the type the
+        compute cast would give it and no fp32 copy of a large leaf ever
+        exists (grok-1-314b's expert weights are 25.8 GB a tensor in fp32
+        at 4 layers). The default draws every leaf in fp32."""
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
         cfg = self.cfg
         L = cfg.n_layers
+        emb, unemb = (cfg.vocab, cfg.d_model), (cfg.d_model, cfg.vocab)
         params = {
-            "embed": normal(gen, (cfg.vocab, cfg.d_model)) * 0.02,
-            "unembed": normal(gen, (cfg.d_model, cfg.vocab))
-            * (1.0 / math.sqrt(cfg.d_model)),
-            "final_norm": blocks._norm_init(cfg, cfg.d_model, gen),
+            "embed": normal(gen, emb, param_dtype(emb, dtype)).mul_(0.02),
+            "unembed": normal(gen, unemb, param_dtype(unemb, dtype)).mul_(
+                1.0 / math.sqrt(cfg.d_model)),
+            "final_norm": blocks._norm_init(cfg, cfg.d_model, gen,
+                                            dtype=dtype),
         }
         if cfg.family == "hybrid":
             n_super, n_rem = self._hybrid_split()
@@ -95,18 +111,31 @@ class LM:
             for i, kind in enumerate(cfg.block_pattern):
                 t_init = blocks.rglru_init if kind == "rec" else \
                     blocks.attn_init
-                layers[f"t{i}"] = t_init(gen, cfg, lead=(n_super,))
-                layers[f"mlp{i}"] = blocks.ffn_init(gen, cfg, lead=(n_super,))
+                layers[f"t{i}"] = t_init(gen, cfg, lead=(n_super,),
+                                         dtype=dtype)
+                layers[f"mlp{i}"] = blocks.ffn_init(gen, cfg, lead=(n_super,),
+                                                    dtype=dtype)
             params["layers"] = layers
-            params["rem"] = [{"t": blocks.rglru_init(gen, cfg),
-                              "mlp": blocks.ffn_init(gen, cfg)}
+            params["rem"] = [{"t": blocks.rglru_init(gen, cfg, dtype=dtype),
+                              "mlp": blocks.ffn_init(gen, cfg, dtype=dtype)}
                              for _ in range(n_rem)]
         elif cfg.family == "ssm":
-            params["layers"] = {"rwkv": blocks.rwkv_init(gen, cfg, lead=(L,))}
+            params["layers"] = {"rwkv": blocks.rwkv_init(gen, cfg, lead=(L,),
+                                                         dtype=dtype)}
+        elif cfg.n_experts:
+            moe_init = (moe_shardmap_init if self._shardmap()
+                        else blocks.moe_init)
+            params["layers"] = {
+                "attn": blocks.attn_init(gen, cfg, lead=(L,), dtype=dtype),
+                "moe": moe_init(gen, cfg, lead=(L,), dtype=dtype)}
         else:
-            params["layers"] = {"attn": blocks.attn_init(gen, cfg, lead=(L,)),
-                                "ffn": blocks.ffn_init(gen, cfg, lead=(L,))}
+            params["layers"] = {
+                "attn": blocks.attn_init(gen, cfg, lead=(L,), dtype=dtype),
+                "ffn": blocks.ffn_init(gen, cfg, lead=(L,), dtype=dtype)}
         return params
+
+    def _shardmap(self) -> bool:
+        return self.cfg.moe_strategy == "expert_parallel_shardmap"
 
     def _hybrid_split(self) -> Tuple[int, int]:
         """(superblocks, layers left over): 38 layers of (rec, rec, attn)
@@ -137,23 +166,36 @@ class LM:
     def _positions(self, T: int, offset: int = 0) -> torch.Tensor:
         return torch.arange(T, device=self.device) + offset
 
-    def _layer_apply(self, p, x, positions, cache=None, pos=None):
-        if self.cfg.family == "ssm":
-            return blocks.rwkv_apply(p["rwkv"], x, cfg=self.cfg, state=cache,
-                                     scan_impl=self.scan_impl)
-        x, c = blocks.attn_apply(p["attn"], x, cfg=self.cfg,
+    def _layer_apply(self, p, x, positions, cache=None, pos=None,
+                     prefill: bool = False):
+        """One layer. Returns (x, cache or RWKV6 state, aux): aux is the MoE
+        block's load-balance loss, 0.0 for the other families. As in the
+        reference, ``prefill`` takes ``blocks.moe_apply`` even under
+        ``expert_parallel_shardmap``, which ``forward`` and decode honour."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            x, st = blocks.rwkv_apply(p["rwkv"], x, cfg=cfg, state=cache,
+                                      scan_impl=self.scan_impl)
+            return x, st, 0.0
+        x, c = blocks.attn_apply(p["attn"], x, cfg=cfg,
                                  positions=positions, cache=cache, pos=pos,
                                  attn_impl=self.attn_impl)
-        x = blocks.ffn_apply(p["ffn"], x, cfg=self.cfg)
-        return x, c
+        if not cfg.n_experts:
+            return blocks.ffn_apply(p["ffn"], x, cfg=cfg), c, 0.0
+        if self._shardmap() and not prefill:
+            x, aux = moe_shardmap_apply(p["moe"], x, cfg=cfg)
+        else:
+            x, aux = blocks.moe_apply(p["moe"], x, cfg=cfg,
+                                      impl=self.moe_impl)
+        return x, c, aux
 
     def _rwkv_layers(self, params, x, states):
         """RWKV6 layers over ``x``, layer i from ``states[i]``. Returns
         (logits, the new per-layer states stacked on a leading layer dim)."""
         new = []
         for i, st in enumerate(states):
-            x, st = self._layer_apply(_layer(params["layers"], i), x, None,
-                                      cache=st)
+            x, st, _ = self._layer_apply(_layer(params["layers"], i), x,
+                                         None, cache=st)
             new.append(st)
         return self._logits(params, x), _stack(new)
 
@@ -210,6 +252,7 @@ class LM:
         params = self._compute_cast(params)
         x = self._embed(params, batch)
         positions = self._positions(x.shape[1])
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if self.cfg.family == "hybrid":
             n_super, _ = self._hybrid_split()
             for j in range(n_super):
@@ -218,9 +261,9 @@ class LM:
             x, _ = self._rem_apply(params, x, [None] * len(params["rem"]))
         else:
             for i in range(self.cfg.n_layers):
-                x, _ = self._layer_apply(_layer(params["layers"], i), x,
-                                         positions)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+                x, _, a = self._layer_apply(_layer(params["layers"], i), x,
+                                            positions)
+                aux = aux + a
         return self._logits(params, x), aux
 
     # ------------------------------------------------------------- serving
@@ -280,9 +323,9 @@ class LM:
                 params, x, [_layer(cache, i) for i in range(self.cfg.n_layers)])
         positions = self._positions(1, offset=int(pos))
         for i in range(self.cfg.n_layers):
-            x, _ = self._layer_apply(_layer(params["layers"], i), x,
-                                     positions, cache=_layer(cache, i),
-                                     pos=pos)
+            x, _, _ = self._layer_apply(_layer(params["layers"], i), x,
+                                        positions, cache=_layer(cache, i),
+                                        pos=pos)
         return self._logits(params, x), cache
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
@@ -326,6 +369,6 @@ class LM:
             c = blocks.pack_prefill_cache(cfg, kv, max_len, dt)
             ks.append(c["k"])
             vs.append(c["v"])
-            x, _ = self._layer_apply(lp, x, positions)
+            x, _, _ = self._layer_apply(lp, x, positions, prefill=True)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
         return self._logits(params, x), cache

@@ -8,7 +8,7 @@ on a machine that has only PyTorch and the CUDA toolkit:
 
 Each kernel is held against its plain PyTorch version on the same inputs at
 the JAX package's tolerances (3e-5 fp32, 2e-2 bf16, 2e-5 over the pool, 2e-4
-for the GLA scan in fp32).
+for the GLA scan in fp32, 1e-5 for the MoE shuffle kernels in fp32).
 """
 import numpy as np
 import pytest
@@ -21,8 +21,12 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan
 from repro_torch.kernels.linear_scan.ref import gla_scan_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.shuffle_dispatch.ops import (combine, compute_slots,
+                                                      dispatch)
 from repro_torch.launch.serve import Request, ServeLoop
+from repro_torch.models import blocks
 from repro_torch.models.model import build_model
+from repro_torch.models.moe_shardmap import moe_shardmap_apply
 
 torch.set_num_threads(2)
 
@@ -70,7 +74,49 @@ DIAG_CASES = [
     (2, 77, 33, 16, False),
     (4, 2100, 4096, 256, True),
 ]
+# the JAX package's test_shuffle_dispatch_sweep cases (T, D, E, K, C), a
+# width that is not whole 16-byte rows, and grok-1-314b's served prefill and
+# decode (4 rows x 8 experts = 32 buffers, top-2, C = 160 and 4, D = 6144)
+SHUFFLE_CASES = [
+    (64, 32, 4, 2, 32),
+    (128, 16, 8, 1, 24),
+    (96, 64, 16, 6, 16),
+    (50, 37, 5, 3, 12),
+    (2048, 6144, 32, 2, 160),
+    (4, 6144, 32, 2, 4),
+]
+SHUFFLE_KINDS = ("slots", "drops", "repeats")
+SHUFFLE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # the reference's MoE
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def shuffle_inputs(rng, T, D, E, K, C, kind):
+    """x [T, D], y [E, C, D] and gates [T, K] (float64), expert ids and
+    slots [T, K] (int32), as numpy. ``kind``: "slots" (K distinct experts a
+    token, slots the exclusive count of earlier pairs per expert, as
+    ``compute_slots`` gives them, some past C), "drops" (as "slots", then
+    ids of -1 and E and slots of -1 and C + 3 here and there) or "repeats"
+    (ids and slots drawn at random, so that pairs share rows and add up)."""
+    x = rng.normal(size=(T, D))
+    y = rng.normal(size=(E, C, D))
+    gates = rng.random(size=(T, K))
+    if kind == "repeats":
+        eid = rng.integers(0, E, size=(T, K))
+        slot = rng.integers(0, C, size=(T, K))
+    else:
+        eid = np.argsort(rng.random((T, E)), axis=1)[:, :K]
+        count = np.zeros(E, np.int64)
+        slot = np.zeros_like(eid)
+        for t in range(T):
+            for k in range(K):
+                slot[t, k] = count[eid[t, k]]
+                count[eid[t, k]] += 1
+        if kind == "drops":
+            u = rng.random(size=(T, K))
+            eid = np.where(u < 0.1, -1, np.where(u < 0.15, E, eid))
+            v = rng.random(size=(T, K))
+            slot = np.where(v < 0.05, -1, np.where(v < 0.1, C + 3, slot))
+    return x, y, gates, eid.astype(np.int32), slot.astype(np.int32)
 
 
 def _tol(dtype_name):
@@ -192,6 +238,116 @@ def test_lm_kernel_path_matches_plain_path(cuda_device):
     lk, _ = kern.forward(params, {"tokens": toks})
     lp, _ = plain.forward(params, {"tokens": toks})
     _close(lk, lp, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", SHUFFLE_KINDS)
+@pytest.mark.parametrize("case", SHUFFLE_CASES)
+def test_shuffle_kernels_match_plain(case, kind, dtype, cuda_device):
+    """dispatch and combine against the dense one-hot oracle, gates in fp32
+    and in the data's dtype (the MoE block passes bf16 gates in bf16)."""
+    T, D, E, K, C = case
+    x, y, gates, eid, slot = shuffle_inputs(np.random.default_rng(T + D),
+                                            T, D, E, K, C, kind)
+    dt = DTYPES[dtype]
+    x, y = (torch.from_numpy(a).to(cuda_device, dt) for a in (x, y))
+    eid, slot = (torch.from_numpy(a).to(cuda_device) for a in (eid, slot))
+    tol = dict(rtol=SHUFFLE_TOL[dtype], atol=SHUFFLE_TOL[dtype])
+    before = dispatch.launches
+    out = dispatch(x, eid, slot, E, C, impl="kernel")
+    torch.cuda.synchronize()
+    assert dispatch.launches == before + 1 and out.dtype == dt
+    _close(out, dispatch(x, eid, slot, E, C, impl="xla"), **tol)
+    for g_dt in {torch.float32, dt}:
+        g = torch.from_numpy(gates).to(cuda_device, g_dt)
+        before = combine.launches
+        out = combine(y, eid, slot, g, T, impl="kernel")
+        torch.cuda.synchronize()
+        assert combine.launches == before + 1 and out.dtype == dt
+        _close(out, combine(y, eid, slot, g, T, impl="xla"), **tol)
+
+
+@pytest.mark.cuda
+def test_shuffle_round_trip_is_the_identity(cuda_device):
+    """Mirror of test_dispatch_combine_roundtrip_identity: K = 1, no drops,
+    gate 1: combine(dispatch(x)) is x."""
+    T, D, E, C = 32, 8, 4, 32
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(T, D))).to(cuda_device,
+                                                      torch.float32)
+    eid = torch.from_numpy(rng.integers(0, E, size=(T, 1))).to(cuda_device)
+    slot = compute_slots(eid, E, C)
+    buf = dispatch(x, eid, slot, E, C, impl="kernel")
+    back = combine(buf, eid, slot, torch.ones((T, 1), device=cuda_device), T,
+                   impl="kernel")
+    _close(back, x, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_moe_serve_loop_runs_the_shuffle_kernels(cuda_device):
+    """Smoke grok-1-314b on the card: every MoE layer dispatches and
+    combines through the kernels in prefill and in every decode step, and
+    every attention layer's prefill goes through flash."""
+    cfg = smoke_config("grok-1-314b")
+    loop = ServeLoop(cfg, batch_slots=2, max_len=40, hbm_pages=4)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, 24, dtype=np.int32),
+                    max_new_tokens=4) for i in range(4)]
+    before = (dispatch.launches, combine.launches, flash_attention.launches)
+    out = loop.run(reqs)
+    steps = 2 * (1 + 4)                  # 2 batches: a prefill, 4 decodes
+    assert dispatch.launches - before[0] == cfg.n_layers * steps
+    assert combine.launches - before[1] == cfg.n_layers * steps
+    assert flash_attention.launches - before[2] == cfg.n_layers * 2
+    assert all(len(v) == 4 for v in out.values())
+
+
+@pytest.mark.cuda
+def test_moe_kernel_path_matches_plain_path(cuda_device):
+    cfg = smoke_config("grok-1-314b").with_(compute_dtype="float32",
+                                            kv_cache_dtype="float32",
+                                            capacity_factor=1.0)
+    kern = build_model(cfg)
+    plain = build_model(cfg, attn_impl="xla", moe_impl="xla")
+    params = kern.init(torch.Generator("cuda").manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 70)))
+    (lk, ak), (lp, ap) = (m.forward(params, {"tokens": toks})
+                          for m in (kern, plain))
+    _close(lk, lp, rtol=1e-4, atol=1e-4)
+    _close(ak, ap, rtol=1e-5, atol=1e-5)
+    lk, ck = kern.prefill(params, {"tokens": toks}, max_len=80)
+    lp, cp = plain.prefill(params, {"tokens": toks}, max_len=80)
+    nxt = lk[:, -1].argmax(-1)[:, None]
+    dk, _ = kern.decode_step(params, {"tokens": nxt}, ck, 70)
+    dp, _ = plain.decode_step(params, {"tokens": nxt}, cp, 70)
+    _close(dk, dp, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [1.0, 4.0])
+def test_moe_shardmap_runs_the_shuffle_kernels(cf, cuda_device):
+    """The world-size-1 expert-parallel path (smoke grok with a shared
+    expert, fp32) on the card launches dispatch and combine once each and
+    equals its plain versions on the CPU; at capacity factor 1 the global
+    capacity drops pairs."""
+    cfg = smoke_config("grok-1-314b").with_(
+        compute_dtype="float32", capacity_factor=cf, n_shared_experts=1)
+    p = blocks.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 16, cfg.d_model)).astype(np.float32))
+    yp, ap = moe_shardmap_apply(p, x, cfg=cfg)
+    before = (dispatch.launches, combine.launches)
+    yk, ak = moe_shardmap_apply({k: (v.to(cuda_device) if torch.is_tensor(v)
+                                     else {n: w.to(cuda_device)
+                                           for n, w in v.items()})
+                                 for k, v in p.items()},
+                                x.to(cuda_device), cfg=cfg)
+    torch.cuda.synchronize()
+    assert (dispatch.launches, combine.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    _close(yk, yp, rtol=1e-5, atol=1e-5)
+    _close(ak, ap, rtol=1e-5, atol=1e-5)
 
 
 def _gla_inputs(rng, B, T, Dk, Dv, w0, dtype, device, rk_scale=1.0):

@@ -1,7 +1,8 @@
 """The port's ServeLoop against the JAX package's, in the case of
 tests/test_system.py::test_serve_loop_with_paging (smoke glm4-9b, 6 requests,
 2 slots, max_len 32, 3 pool pages) with fp32 compute and KV so that no greedy
-argmax tie flips: identical token ids and identical pager stats."""
+argmax tie flips: identical token ids and identical pager stats; the same for
+smoke rwkv6-3b, recurrentgemma-9b and grok-1-314b."""
 import jax
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan
+from repro_torch.kernels.shuffle_dispatch.ops import combine, dispatch
 from repro_torch.launch import serve
 from repro_torch.launch.serve import Request, ServeLoop
 
@@ -112,6 +114,35 @@ def test_hybrid_serve_loop_matches_jax_tokens_and_pager_stats():
     assert (diag_scan.launches, flash_attention.launches) == before
 
 
+def test_moe_serve_loop_matches_jax_tokens_and_pager_stats():
+    """Smoke grok-1-314b in the same case (fp32, 6 requests, 2 slots,
+    max_len 32, 3 pool pages): identical token ids and pager stats. The
+    reference's ServeLoop runs its dense dispatch mask; the port's runs the
+    shuffle path (its plain versions on the CPU), at the smoke config's
+    capacity, so prefill drops pairs."""
+    jcfg = jax_smoke_config("grok-1-314b").with_(**FP32)
+    jloop = JaxServeLoop(jcfg, batch_slots=2, max_len=32, hbm_pages=3)
+    jout = jloop.run([JaxRequest(i, p, max_new_tokens=4)
+                      for i, p in enumerate(_prompts(jcfg.vocab))])
+
+    params = params_from_numpy(jax.tree.map(np.asarray, jloop.params),
+                               device="cpu")
+    cfg = smoke_config("grok-1-314b").with_(**FP32)
+    loop = ServeLoop(cfg, batch_slots=2, max_len=32, hbm_pages=3,
+                     params=params, device="cpu")
+    assert loop.model.moe_impl == "kernel"
+    before = (dispatch.launches, combine.launches)
+    out = loop.run([Request(i, p, max_new_tokens=4)
+                    for i, p in enumerate(_prompts(cfg.vocab))])
+
+    assert len(out) == 6 and all(len(v) == 4 for v in out.values())
+    assert out == jout
+    assert loop.stats["offloads"] > 0
+    for key in PAGER_KEYS:
+        assert loop.stats[key] == jloop.stats[key], key
+    assert (dispatch.launches, combine.launches) == before   # CPU: plain
+
+
 def test_serve_loop_default_params_and_bf16_run():
     cfg = smoke_config("qwen3-0.6b")
     loop = ServeLoop(cfg, batch_slots=2, max_len=24, hbm_pages=2,
@@ -149,6 +180,15 @@ def test_main_serves_recurrentgemma_on_the_cpu(capsys, monkeypatch):
     monkeypatch.setattr("sys.argv", ["serve", "--arch", "recurrentgemma-9b",
                                      "--smoke", "--device", "cpu",
                                      "--requests", "2", "--prompt-len", "18",
+                                     "--new-tokens", "2"])
+    serve.main()
+    assert "served 2 requests" in capsys.readouterr().out
+
+
+def test_main_serves_grok_on_the_cpu(capsys, monkeypatch):
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", "grok-1-314b",
+                                     "--smoke", "--device", "cpu",
+                                     "--requests", "2", "--prompt-len", "6",
                                      "--new-tokens", "2"])
     serve.main()
     assert "served 2 requests" in capsys.readouterr().out
