@@ -9,12 +9,17 @@ non-zero exit):
 
 1. the card's name and power limit from ``nvidia-smi``;
 2. build the five CUDA sources from ``src/repro_torch/csrc`` with ``nvcc``,
-   one process per source, all started together;
+   one process per source, all started together; ``ptxas``' registers and
+   spills and, from ``cuobjdump -sass``, the ``HGMMA`` count, the highest
+   register and the local stores of each flash kernel;
 3. each kernel against its plain PyTorch version on the card: the reference
    test cases in fp32 and bf16, and the serving paths' own shapes, with
    CUDA-event timings of the kernel, its plain version and (flash) SDPA as a
-   yardstick that the port never calls; flash also at recurrentgemma-9b's
-   heads (D = 256, one kv head, window 2048); the GLA scan also at unit
+   yardstick that the port never calls; flash on both routes (fp32 and
+   D % 8 != 0 scalar, bf16 wgmma) over the reference's cases and the edges
+   of its tiles and masks, and timed at the prefills of qwen3-0.6b,
+   recurrentgemma-9b (D = 256, one kv head, window 2048) and grok-1-314b
+   (48 heads over 8), each with its route and tiles; the GLA scan also at unit
    scale against the exact (fp64) scan, with the tolerance its witness
    gives; the diagonal scan at recurrentgemma-9b's prefill in bf16 and fp32
    and at its decode; the MoE shuffle kernels (dispatch and combine) on the
@@ -57,7 +62,8 @@ before phase 9 and read just after it (the diagonal scan and flash: the
 recurrentgemma-9b path), and again just before phase 11 and read just after
 it (dispatch, combine and flash: the grok-1-314b path). Each serve phase
 fails unless every kernel of its path made exactly the launches its layers
-and batches call for. The script's own seconds are logged on an
+and batches call for, and every flash launch of a serve phase on the wgmma
+route. The script's own seconds are logged on an
 ``elapsed`` line; the second-to-last line is ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device":
 {...}}``. Without CUDA, or without
@@ -67,6 +73,7 @@ result.
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -87,6 +94,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import PagedKVCache  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    kernel_route, wgmma_tiles)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan  # noqa: E402
@@ -113,6 +122,20 @@ FLASH_CASES = [  # B, H, KH, Tq, Tk, D, causal, window
     (1, 2, 1, 64, 64, 32, False, None),
     (1, 2, 2, 96, 96, 32, True, 32),
     (1, 8, 4, 128, 128, 64, True, None),
+]
+# edges of the flash kernels' tiles and masks (tests/test_torch_cuda.py
+# FLASH_EDGE_CASES): a continued prefill, T and D off the tiles, windows off
+# and under the key tile, groups of 1, 6 and 16, peaked scores, D % 8 != 0
+FLASH_EDGE_CASES = [  # B, H, KH, Tq, Tk, D, causal, window, q_offset, q scale
+    (1, 4, 2, 100, 260, 64, True, None, 160, 1.0),
+    (2, 6, 1, 200, 200, 96, True, None, 0, 1.0),
+    (1, 4, 4, 300, 300, 128, True, 200, 0, 1.0),
+    (1, 2, 1, 257, 257, 256, True, 40, 0, 1.0),
+    (1, 16, 1, 130, 130, 128, True, None, 0, 1.0),
+    (1, 4, 2, 192, 192, 64, True, None, 0, 8.0),
+    (1, 2, 2, 70, 300, 128, False, None, 0, 1.0),
+    (1, 4, 1, 64, 300, 256, True, 100, 236, 1.0),
+    (1, 2, 1, 90, 90, 36, True, None, 0, 1.0),
 ]
 PAGED_CASES = [  # B, H, KH, D, P, page, max_pages
     (2, 4, 2, 32, 16, 8, 4),
@@ -211,20 +234,77 @@ def rand(rng, shape, dtype):
     return torch.from_numpy(rng.normal(size=shape)).to(DEV, dtype)
 
 
+# -- phase 2: what the compiler made of the flash kernels --------------------------
+def flash_build_facts():
+    """Per flash kernel: ``ptxas``' registers and spill bytes (-Xptxas -v;
+    a 384-thread block starts at 168 registers a thread, and the consumer
+    warpgroups' code after ``setmaxnreg.inc`` may use up to 240), and from
+    ``cuobjdump -sass`` the HGMMA instructions, the highest register index
+    and the local-memory stores."""
+    def short(mangled):
+        m = re.search(r"(flash_fwd_\w+?)I(\w+?)EEv", mangled)
+        if not m:
+            return mangled
+        args = ["bf16" if a.group(0)[0] == "1" else "f32" if a.group(0) == "f"
+                else a.group(1)
+                for a in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f(?=Li)",
+                                     m.group(2))]
+        return f"{m.group(1)}<{','.join(args)}>"
+
+    facts = {}
+    fn = None
+    for line in _build.BUILD_LOGS.get("flash_attention", "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = short(m.group(1))
+            facts[fn] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            facts[fn].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            facts[fn]["ptxas_registers"] = int(m.group(1))
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build._lib_path("flash_attention"))],
+                          check=True, capture_output=True, text=True).stdout
+    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+        fn = short(body.split("\n")[0].strip())
+        facts.setdefault(fn, {}).update(
+            hgmma=body.count("HGMMA"), local_stores=body.count("STL"),
+            max_register=max(int(r) for r in re.findall(r"\bR(\d+)\b", body)))
+    if not sum(f.get("hgmma", 0) for f in facts.values()):
+        _fail(f"no HGMMA in the flash library: {facts}")
+    return facts
+
+
 # -- phase 3: kernels against their plain versions ------------------------------
 def check_flash(rng):
     worst = {}
+    # the reference's cases from the shared generator, the edge cases from
+    # their own, so that the later kernels' inputs stay those of the earlier
+    # slices
+    erng = np.random.default_rng(15)
     for dtype in (torch.float32, torch.bfloat16):
-        for case in FLASH_CASES:
-            B, H, KH, Tq, Tk, D, causal, window = case
-            q = rand(rng, (B, H, Tq, D), dtype)
-            k, v = rand(rng, (B, KH, Tk, D), dtype), rand(rng, (B, KH, Tk, D), dtype)
+        for case in FLASH_CASES + FLASH_EDGE_CASES:
+            B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale = \
+                tuple(case) + (0, 1.0)[len(case) - 8:]
+            g = rng if len(case) == 8 else erng
+            q = rand(g, (B, H, Tq, D), dtype) * q_scale
+            k, v = rand(g, (B, KH, Tk, D), dtype), rand(g, (B, KH, Tk, D), dtype)
+            route = kernel_route(dtype, D)
+            before = flash_attention.launches_by_route[route]
             out = flash_attention(q, k, v, causal=causal, window=window,
-                                  impl="kernel", block_q=32, block_k=32)
+                                  q_offset=q_offset, impl="kernel")
             torch.cuda.synchronize()
-            ref = attention_ref(q, k, v, causal=causal, window=window)
+            if flash_attention.launches_by_route[route] != before + 1:
+                _fail(f"flash {case} {dtype}: not on the {route} route")
+            ref = attention_ref(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
             err = close_or_fail(out, ref, TOL[dtype], f"flash {case} {dtype}")
-            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+            worst[f"{route} {dtype}"] = max(worst.get(f"{route} {dtype}", 0.0),
+                                            err)
     # the serving paths' prefills, 4 prompts each: qwen3-0.6b's heads over
     # 512 tokens, and recurrentgemma-9b's over 2100 with its window of 2048
     paths = {"qwen3-0.6b": flash_at(rng, 4, 16, 8, 512, 128, None)}
@@ -242,6 +322,9 @@ def check_flash(rng):
         worst[f"D=256 {dtype}"] = close_or_fail(out, ref, TOL[dtype],
                                                 f"flash D=256 {dtype}")
     paths["recurrentgemma-9b"] = flash_at(grng, 4, 16, 1, 2100, 256, 2048)
+    # grok-1-314b's prefill: 48 query heads over 8 kv heads of 128
+    paths["grok-1-314b"] = flash_at(np.random.default_rng(14), 4, 48, 8, 512,
+                                    128, None)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:84",
@@ -249,9 +332,10 @@ def check_flash(rng):
 
 
 def flash_at(rng, B, H, KH, T, D, window):
-    """The kernel at one serving path's prefill shape (bf16, causal): error
-    against the plain version, times of the kernel, the plain version and
-    SDPA (causal, or with the window as a boolean mask), and the bound."""
+    """The kernel at one serving path's prefill shape (bf16, causal): its
+    route and tiles, error against the plain version, times of the kernel,
+    the plain version and SDPA (causal, or with the window as a boolean
+    mask), and the bound."""
     dtype = torch.bfloat16
     q = rand(rng, (B, H, T, D), dtype)
     k, v = rand(rng, (B, KH, T, D), dtype), rand(rng, (B, KH, T, D), dtype)
@@ -280,8 +364,11 @@ def flash_at(rng, B, H, KH, T, D, window):
     pairs = B * H * int(mask.sum())                  # live (q, k) pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound_ms, bound_by = bound(nbytes, 4 * D * pairs, dtype)
+    route = kernel_route(dtype, D)
     return dict(shape=f"B={B} H={H} KH={KH} T={T} D={D} bf16 causal"
                       + (f" window={window}" if window else ""),
+                kernel_route=route,
+                tiles=wgmma_tiles(D) if route == "wgmma" else None,
                 max_abs_err=err, tolerance=TOL[dtype], ms=kernel_ms,
                 kernel_ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
@@ -748,6 +835,10 @@ def serve(cfg, prompts, expect, hbm_pages=None, max_len=552, params=None):
         if kernel.launches != want:
             _fail(f"{kernel.__name__} kernel launched {kernel.launches} "
                   f"times, want {want}")
+    if flash_attention in expect and (flash_attention.launches_by_route["wgmma"]
+                                      != flash_attention.launches):
+        _fail(f"flash_attention launches by route "
+              f"{flash_attention.launches_by_route}: not all on wgmma")
     report = dict(arch=cfg.name, requests=len(out), wall_s=wall_s,
                   prefill_ms_per_batch=st["prefill_s"] / n_prefills * 1e3,
                   decode_tok_per_s=st["decode_tokens"] / st["decode_s"],
@@ -820,12 +911,19 @@ def kv_pool(loop, cfg, prompts, rng):
     log("kv_pool", json.dumps(dict(max_abs_err=worst, tolerance=POOL_TOL, **st)))
 
 
+# the port's own kernels: every __global__ function of csrc/*.cu
+OUR_KERNELS = re.compile(r"\(anonymous namespace\)::(%s)\b" % "|".join(sorted(
+    {name for src in _build.SOURCES for name in re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+        (_build.CSRC / f"{src}.cu").read_text())})))
+
+
 def profile_steps(loop, prompts):
     """Where a warm prefill (the served batch: 4 x 512 tokens) and one warm
     decode step spend their time: host wall ms without and with
     torch.profiler, device busy ms (sum of kernel times in the profiled run),
-    the device's idle share of the profiled wall time, and the top kernels.
-    Runs after the launch counts are read."""
+    the device's idle share of the profiled wall time, the top kernels and
+    the port's own kernels. Runs after the launch counts are read."""
     from torch.profiler import ProfilerActivity, profile
     model, params = loop.model, loop.params_c
     toks = torch.from_numpy(np.stack(prompts[:4]))
@@ -861,12 +959,15 @@ def profile_steps(loop, prompts):
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        ours = [e for e in kernels if OUR_KERNELS.search(e.key)]
         report[name] = dict(
             wall_ms=plain_wall * 1e3, profiled_wall_ms=wall * 1e3,
             device_busy_ms=busy_ms, idle_share=1 - busy_ms / (wall * 1e3),
             kernel_launches=sum(e.count for e in kernels),
             top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                 for e in top])
+                 for e in top],
+            ours=[[OUR_KERNELS.search(e.key).group(1),
+                   e.self_device_time_total / 1e3, e.count] for e in ours])
         if not bool(state["finite"]):
             _fail(f"{loop.cfg.name} {name}: non-finite logits")
     log("profile", loop.cfg.name, json.dumps(report))
@@ -883,6 +984,8 @@ def main():
     built = _build.build()
     log("build", json.dumps(dict(seconds=time.perf_counter() - t0,
                                  per_source=built)))
+    flash_build = flash_build_facts()
+    log("flash_build", json.dumps(flash_build))
 
     rng = np.random.default_rng(42)
     kernels = [check_flash(rng), check_paged(rng), check_gla(rng),
@@ -914,6 +1017,8 @@ def main():
     def zero_counts():
         for fn in counted:
             fn.launches = 0
+        flash_attention.launches_by_route = dict.fromkeys(
+            flash_attention.launches_by_route, 0)
 
     def free():
         gc.collect()
@@ -928,6 +1033,7 @@ def main():
     kv_pool(loop, cfg, prompts, rng)
     launches = {"flash_attention": {cfg.name: flash_attention.launches},
                 "paged_attention": {cfg.name: paged_attention.launches}}
+    flash_routes = {cfg.name: dict(flash_attention.launches_by_route)}
     profile_steps(loop, prompts)
     del loop
     free()
@@ -962,6 +1068,7 @@ def main():
                   max_len=2140, params=gparams)
     launches["diag_scan"] = {gcfg.name: diag_scan.launches}
     launches["flash_attention"][gcfg.name] = flash_attention.launches
+    flash_routes[gcfg.name] = dict(flash_attention.launches_by_route)
     del gparams
     profile_steps(gloop, gprompts)
     del gloop
@@ -984,8 +1091,11 @@ def main():
     launches["dispatch"] = {kcfg.name: dispatch.launches}
     launches["combine"] = {kcfg.name: combine.launches}
     launches["flash_attention"][kcfg.name] = flash_attention.launches
+    flash_routes[kcfg.name] = dict(flash_attention.launches_by_route)
     del kparams
     profile_steps(kloop, kprompts)
+    next(k for k in kernels if k["name"] == "flash_attention").update(
+        launches_by_route=flash_routes, build=flash_build)
     for k in kernels:
         k["launches_by_path"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]].values())

@@ -9,7 +9,9 @@ in the repo are the only input: no PyTorch headers, no library of finished
 kernels.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
-Python wrappers raise when it is not 0 (``check``).
+Python wrappers raise when it is not 0 (``check``). ``ptxas`` reports each
+kernel's registers and spills (``-Xptxas -v``); ``BUILD_LOGS`` keeps what
+``nvcc`` printed for each source built in this process.
 """
 from __future__ import annotations
 
@@ -26,11 +28,12 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("flash_attention", "paged_attention", "linear_scan", "diag_scan",
            "shuffle_dispatch")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: Dict[str, str] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -81,6 +84,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     for name, out, tmp, t0, proc in procs:
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        BUILD_LOGS[name] = log
         if proc.returncode != 0:
             failures.append(f"{name}.cu (nvcc rc {proc.returncode}):\n{log}")
             continue

@@ -1,11 +1,22 @@
-"""Launcher of the hand-written CUDA flash-attention kernel
+"""Launcher of the hand-written CUDA flash-attention kernels
 (``csrc/flash_attention.cu``).
 
-The kernel replaces the Pallas TPU kernel ``flash_attention_kernel``
+The kernels replace the Pallas TPU kernel ``flash_attention_kernel``
 (``repro/kernels/flash_attention/kernel.py``); the source note in the
-``.cu`` file says what bounds it on the H100 and how its design deals with
-that. ``ops.flash_attention`` is the wrapper that pads, dispatches and
-counts launches.
+``.cu`` file says what bounds them on the H100 and how their design deals
+with that. Two routes, chosen by ``kernel_route`` from dtype and head dim
+alone, never on failure:
+
+- ``"wgmma"``: bf16 with D % 8 == 0. Tensor-core products (``wgmma``), tiles
+  staged by TMA through a two-stage ring of mbarriers, a producer
+  warpgroup and two consumer warpgroups that take turns on the tensor
+  cores; persistent, one block per SM. ``wgmma_tiles`` reads its tiles
+  from the library.
+- ``"scalar"``: fp32 (whose 3e-5 tolerance rules out TF32), or a head dim
+  that is no multiple of 8 (TMA needs 16-byte strides). Scalar fp32 FMAs
+  over 64 x 64 tiles.
+
+``ops.flash_attention`` is the wrapper that dispatches and counts launches.
 """
 from __future__ import annotations
 
@@ -21,8 +32,29 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_attention_fwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                              _I, _I, _I, _I, _I, _P], _I),
+    "flash_attention_fwd_wgmma": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _F, _I, _I, _I, _I, _I, _P], _I),
+    "flash_attention_wgmma_tiles": ([_I, _P, _P, _P], _I),
 }
 D_MAX = 256            # csrc/flash_attention.cu D_MAX
+ROUTES = ("wgmma", "scalar")
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a launch takes: ``"wgmma"`` for bf16 with a head dim that
+    is a multiple of 8, ``"scalar"`` otherwise."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim % 8 == 0 \
+        else "scalar"
+
+
+def wgmma_tiles(head_dim: int) -> dict:
+    """The wgmma route's tiles at ``head_dim``, as the built library
+    chooses them: the tile's head dim (D rounded up, zero-filled past D),
+    query rows and keys per tile."""
+    out = [ctypes.c_int() for _ in range(3)]
+    _lib().flash_attention_wgmma_tiles(head_dim, *map(ctypes.byref, out))
+    return dict(zip(("head_dim_tile", "block_q", "block_k"),
+                    (x.value for x in out)))
 
 
 def _lib():
@@ -31,7 +63,7 @@ def _lib():
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> None:
-    """Raise on anything the CUDA kernel does not take."""
+    """Raise on anything the CUDA kernels do not take."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention kernel: {name} is on {t.device}"
@@ -65,6 +97,11 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
     if D > D_MAX:
         raise ValueError(f"flash_attention kernel: head dim {D} over the "
                          f"kernel's limit {D_MAX}")
+    if kernel_route(q.dtype, D) == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention kernel: {name} must start "
+                                 f"on a 16-byte boundary for TMA")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,9 +109,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            window: Optional[int] = None,
                            scale: Optional[float] = None, q_offset: int = 0,
                            kv_len: Optional[int] = None) -> torch.Tensor:
-    """Launch the CUDA kernel. q: [B, H, Tq, D]; k, v: [B, KH, Tk, D], all
-    contiguous CUDA tensors of one dtype (float32 or bfloat16).
-    ``kv_len``: true (unpadded) key count. Returns [B, H, Tq, D]."""
+    """Launch the kernel of ``kernel_route(q.dtype, D)``. q: [B, H, Tq, D];
+    k, v: [B, KH, Tk, D], all contiguous CUDA tensors of one dtype (float32
+    or bfloat16). ``kv_len``: keys at or past it are masked (default Tk).
+    Returns [B, H, Tq, D]."""
     check_kernel_inputs(q, k, v)
     B, H, Tq, D = q.shape
     KH, Tk = k.shape[1], k.shape[2]
@@ -85,12 +123,15 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            KH, Tq, Tk, D, float(scale), int(causal), int(window is not None),
+            int(window or 0), int(q_offset), int(kv_len), stream)
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, H, KH, Tq, Tk, D, float(scale), int(causal),
-            int(window is not None), int(window or 0), int(q_offset),
-            int(kv_len), stream)
-    _build.check(lib, err, "flash_attention_fwd")
+        if kernel_route(q.dtype, D) == "wgmma":
+            err = lib.flash_attention_fwd_wgmma(*args)
+            what = "flash_attention_fwd_wgmma"
+        else:
+            err = lib.flash_attention_fwd(_DTYPE_CODE[q.dtype], *args)
+            what = "flash_attention_fwd"
+    _build.check(lib, err, what)
     return out
-

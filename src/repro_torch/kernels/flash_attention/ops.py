@@ -1,28 +1,37 @@
 """Public wrapper for flash attention.
 
-Dispatches between the hand-written CUDA kernel (``impl="kernel"``), a
+Dispatches between the hand-written CUDA kernels (``impl="kernel"``), a
 chunked plain-PyTorch path (``impl="xla"``, the mirror of the reference's
 ``lax.scan`` online softmax over kv blocks) and the naive oracle
-(``impl="naive"``). Handles padding to block multiples and GQA as the
-reference does.
+(``impl="naive"``). GQA as the reference does it.
 
-Kernel source note. The kernel (``csrc/flash_attention.cu``, launched by
-``kernel.flash_attention_kernel``) replaces the Pallas TPU kernel
+Kernel source note. The kernels (``csrc/flash_attention.cu``, launched by
+``kernel.flash_attention_kernel``) replace the Pallas TPU kernel
 ``flash_attention_kernel`` in ``repro/kernels/flash_attention/kernel.py``.
-At qwen3-0.6b's prefill its floor on the H100 is memory (q, k, v and out
-once over 3.35 TB/s; ~25 MB at B=4, H=16, T=512, D=128 in bf16); at
-recurrentgemma-9b's (B=4, H=16, KH=1, T=2100, D=256, window 2048) it is the
-0.145 TFLOP of causal products at the bf16 tensor-core rate (0.146 ms). This
-first version computes with scalar fp32 FMAs out of shared memory, so it is
-bound by shared-memory loads and FMA throughput. Head dims up to 256. Its design keeps the
-online-softmax state in registers, stages one 64-key tile of k and v in
-shared memory per step and skips masked tiles through the loop bounds;
-tensor-core tiles are later work.
+What bounds them on the H100 at the served prefills (bf16, causal): memory
+at qwen3-0.6b's (B=4, H=16, KH=8, T=512, D=128; ~25 MB over 3.35 TB/s, 7.5
+us) and at grok-1-314b's (H=48 over KH=8; ~55 MB, 16 us); the 0.145 TFLOP
+of products at the bf16 tensor-core rate at recurrentgemma-9b's (B=4, H=16,
+KH=1, T=2100, D=256, window 2048; 0.146 ms). Only the tensor cores reach
+that: the fp32 FMA rate alone puts a floor of ~2.2 ms there. So bf16 inputs
+with D % 8 == 0 take the ``"wgmma"`` route: both products on ``wgmma`` (P
+rounded to bf16 for P·V, as the reference's ``p_bf16``), tiles staged by
+TMA through a two-stage ring of mbarriers, a producer warpgroup and two
+consumer warpgroups of 64 query rows that take turns on the tensor cores
+(``setmaxnreg`` gives them 240 registers), the online softmax in registers
+under the products, fully masked tiles skipped and the element-wise mask
+only on edge tiles; persistent, heaviest q tiles first.
+fp32 inputs (3e-5 rules out TF32) and head dims that are no multiple of 8
+take the ``"scalar"`` route: fp32 FMAs over 64x64 tiles in shared memory.
+``kernel.kernel_route`` picks the route from dtype and head dim alone.
 
-``impl="kernel"`` takes the plain version (``ref.attention_ref``, on the
-unpadded inputs) only when the tensors lie on the CPU. On CUDA tensors it
-pads, launches the kernel or raises; it never falls back.
-``flash_attention.launches`` counts kernel launches.
+``impl="kernel"`` takes the plain version (``ref.attention_ref``) only when
+the tensors lie on the CPU. On CUDA tensors it launches a kernel or raises;
+it never falls back. It passes the tensors unpadded: the kernels mask Tq,
+Tk and kv_len themselves, so ``block_q`` / ``block_k`` only shape the
+``"xla"`` path.
+``flash_attention.launches`` counts kernel launches and
+``flash_attention.launches_by_route`` splits them by route.
 
 The custom VJP of the reference's chunked path waits for the training slice:
 this port is forward only.
@@ -34,7 +43,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .kernel import flash_attention_kernel
+from .kernel import ROUTES, flash_attention_kernel, kernel_route
 from .ref import attention_ref
 
 
@@ -56,21 +65,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     impl: "kernel" (CUDA kernel; its plain version on CPU tensors), "xla"
     (chunked online softmax in plain PyTorch), "naive" (reference; O(T^2)
-    memory). ``p_bf16``: cast softmax weights to bf16 for the PV product
-    ("xla" only, as in the reference).
+    memory). ``block_q`` / ``block_k`` shape only the "xla" path (its kv
+    chunks are ``block_k``); the kernels choose their own tiles and the CPU
+    plain version is unblocked, as the reference's signature keeps both.
+    ``p_bf16``: cast softmax weights to
+    bf16 for the PV product ("xla" only, as in the reference; the "wgmma"
+    kernel route always does).
     """
     if impl == "naive" or (impl == "kernel" and q.device.type == "cpu"):
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale, q_offset=q_offset)
     if impl == "kernel":
-        Tq, Tk = q.shape[2], k.shape[2]
-        bq, bk = min(block_q, Tq), min(block_k, Tk)
-        out = flash_attention_kernel(
-            _pad_to(q, 2, bq), _pad_to(k, 2, bk), _pad_to(v, 2, bk),
-            causal=causal, window=window, scale=scale, q_offset=q_offset,
-            kv_len=Tk)
+        out = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                     scale=scale, q_offset=q_offset,
+                                     kv_len=k.shape[2])
         flash_attention.launches += 1
-        return out[:, :, :Tq]
+        flash_attention.launches_by_route[
+            kernel_route(q.dtype, q.shape[-1])] += 1
+        return out
     if impl == "xla":
         if scale is None:
             scale = q.shape[-1] ** -0.5
@@ -81,6 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _chunk_mask(Tq, Tk, bk, ki, q_offset, causal, window, device):

@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.core import PagedKVCache
+from repro_torch.kernels.flash_attention.kernel import (kernel_route,
+                                                        wgmma_tiles)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan
@@ -38,6 +40,22 @@ FLASH_CASES = [
     (1, 2, 1, 64, 64, 32, False, None),
     (1, 2, 2, 96, 96, 32, True, 32),
     (1, 8, 4, 128, 128, 64, True, None),
+]
+# edges of the flash kernels' tiling and masks (the wgmma route's tiles are
+# 128 query rows by 128 keys, 64 keys at D = 256; the scalar route's 64 x
+# 64), small enough for the JAX package's interpreted Pallas kernel
+FLASH_EDGE_CASES = [
+    # B, H, KH, Tq, Tk, D, causal, window, q_offset, q scale
+    (1, 4, 2, 100, 260, 64, True, None, 160, 1.0),   # continued prefill
+    (2, 6, 1, 200, 200, 96, True, None, 0, 1.0),     # T, D off the tiles; G = 6
+    (1, 4, 4, 300, 300, 128, True, 200, 0, 1.0),     # window no multiple of BK
+    (1, 2, 1, 257, 257, 256, True, 40, 0, 1.0),      # window shorter than BK:
+    # rows from 167 on find their first visited key tile fully masked
+    (1, 16, 1, 130, 130, 128, True, None, 0, 1.0),   # G = 16
+    (1, 4, 2, 192, 192, 64, True, None, 0, 8.0),     # peaked scores
+    (1, 2, 2, 70, 300, 128, False, None, 0, 1.0),    # not causal, Tq < Tk
+    (1, 4, 1, 64, 300, 256, True, 100, 236, 1.0),    # continued, in a window
+    (1, 2, 1, 90, 90, 36, True, None, 0, 1.0),       # D % 8 != 0: scalar route
 ]
 PAGED_CASES = [
     # B, H, KH, D, P, page, max_pages
@@ -136,26 +154,68 @@ def _close(out, ref, **tol):
                                ref.float().cpu().numpy(), **tol)
 
 
+def flash_case(case):
+    """A FLASH_CASES or FLASH_EDGE_CASES entry as (B, H, KH, Tq, Tk, D,
+    causal, window, q_offset, q scale)."""
+    return tuple(case) + (0, 1.0)[len(case) - 8:]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES + [
     (4, 16, 8, 512, 512, 128, True, None),      # the served prefill
     (1, 4, 2, 300, 300, 128, True, 100),
     (1, 16, 1, 300, 300, 256, True, 128),       # recurrentgemma's heads
-    (4, 16, 1, 2100, 2100, 256, True, 2048)])   # and its served prefill
+    (4, 16, 1, 2100, 2100, 256, True, 2048),    # and its served prefill
+    (4, 48, 8, 512, 512, 128, True, None),      # grok-1-314b's prefill
+] + FLASH_EDGE_CASES)
 def test_flash_kernel_matches_plain(case, dtype, cuda_device):
-    B, H, KH, Tq, Tk, D, causal, window = case
+    """Both routes: fp32 (and D % 8 != 0) on the scalar kernel, bf16 on the
+    wgmma kernel; each case asserts which route it took."""
+    B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale = flash_case(case)
     rng = np.random.default_rng(42)
     q, k, v = (torch.from_numpy(rng.normal(size=s)).to(cuda_device,
                                                       DTYPES[dtype])
                for s in ((B, H, Tq, D), (B, KH, Tk, D), (B, KH, Tk, D)))
-    before = flash_attention.launches
+    q = q * q_scale
+    route = kernel_route(DTYPES[dtype], D)
+    assert route == ("wgmma" if dtype == "bfloat16" and D % 8 == 0
+                     else "scalar")
+    if route == "wgmma":
+        tiles = wgmma_tiles(D)
+        assert D <= tiles["head_dim_tile"] in (64, 128, 256)
+        assert tiles["block_q"] == 128 and tiles["block_k"] in (80, 128)
+    before = (flash_attention.launches,
+              dict(flash_attention.launches_by_route))
     out = flash_attention(q, k, v, causal=causal, window=window,
-                          impl="kernel", block_q=32, block_k=32)
+                          q_offset=q_offset, impl="kernel", block_q=32,
+                          block_k=32)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
-    _close(out, attention_ref(q, k, v, causal=causal, window=window),
-           **_tol(dtype))
+    assert flash_attention.launches == before[0] + 1
+    assert flash_attention.launches_by_route[route] == before[1][route] + 1
+    _close(out, attention_ref(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_fully_masked_rows_give_zero(dtype, cuda_device):
+    """A row with no live key gives 0 on both routes (q_offset -3: rows 0-2
+    see no key under the causal mask; q_offset -8: no row sees one); the
+    others match the plain version."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, 8, 8))).to(
+        cuda_device, DTYPES[dtype]) for _ in range(3))
+    for q_offset, dead in ((-3, 3), (-8, 8)):
+        before = flash_attention.launches_by_route[kernel_route(q.dtype, 8)]
+        out = flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                              impl="kernel")
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_route[
+            kernel_route(q.dtype, 8)] == before + 1
+        assert not out[:, :, :dead].any()
+        _close(out, attention_ref(q, k, v, causal=True, q_offset=q_offset),
+               **_tol(dtype))
 
 
 @pytest.mark.cuda

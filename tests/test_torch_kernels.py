@@ -26,7 +26,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-from test_torch_cuda import FLASH_CASES, PAGED_CASES
+from test_torch_cuda import (FLASH_CASES, FLASH_EDGE_CASES, PAGED_CASES,
+                             flash_case)
 
 torch.set_num_threads(2)
 
@@ -54,30 +55,44 @@ def _np(x):
 
 # -- flash attention --------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_EDGE_CASES)
 def test_flash_plain_paths_match_jax(case, dtype):
-    B, H, KH, Tq, Tk, D, causal, window = case
+    B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale = flash_case(case)
+    blk = 32 if case in FLASH_CASES else 64   # fewer interpreted grid steps
     rng = np.random.default_rng(42)
-    jq, q = _both(rng.normal(size=(B, H, Tq, D)), dtype)
+    jq, q = _both(rng.normal(size=(B, H, Tq, D)) * q_scale, dtype)
     jk, k = _both(rng.normal(size=(B, KH, Tk, D)), dtype)
     jv, v = _both(rng.normal(size=(B, KH, Tk, D)), dtype)
-    ref = jax_attention_ref(jq, jk, jv, causal=causal, window=window)
-    jker = jax_flash(jq, jk, jv, causal=causal, window=window, impl="kernel",
-                     block_q=32, block_k=32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ref = jax_attention_ref(jq, jk, jv, **kw)
+    jker = jax_flash(jq, jk, jv, impl="kernel", block_q=blk, block_k=blk,
+                     **kw)
     tol = _tol(dtype)
     np.testing.assert_allclose(_np(jker), _np(ref), **tol)
     outs = {
-        "naive": flash_attention(q, k, v, causal=causal, window=window,
-                                 impl="naive"),
-        "xla": flash_attention(q, k, v, causal=causal, window=window,
-                               impl="xla", block_k=32),
-        "kernel": flash_attention(q, k, v, causal=causal, window=window,
-                                  impl="kernel", block_q=32, block_k=32),
+        "naive": flash_attention(q, k, v, impl="naive", **kw),
+        "xla": flash_attention(q, k, v, impl="xla", block_k=blk, **kw),
+        "kernel": flash_attention(q, k, v, impl="kernel", block_q=blk,
+                                  block_k=blk, **kw),
     }
     for impl, out in outs.items():
         assert out.dtype == q.dtype and out.shape == q.shape, impl
         np.testing.assert_allclose(_np(out), _np(ref), err_msg=impl, **tol)
         np.testing.assert_allclose(_np(out), _np(jker), err_msg=impl, **tol)
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 96, "wgmma"),
+    (torch.bfloat16, 36, "scalar"), (torch.bfloat16, 255, "scalar"),
+    (torch.float32, 128, "scalar"), (torch.float32, 256, "scalar"),
+    (torch.float32, 36, "scalar")])
+def test_flash_kernel_route(dtype, head_dim, route):
+    """bf16 with D % 8 == 0 takes the tensor-core kernel; fp32 (whose 3e-5
+    tolerance rules out TF32) or D % 8 != 0 (TMA's 16-byte strides) the
+    scalar one. The choice reads dtype and shape only."""
+    assert flash_kernel.kernel_route(dtype, head_dim) == route
+    assert route in flash_kernel.ROUTES
 
 
 def test_flash_kernel_plain_version_counts_no_launch():
@@ -90,10 +105,11 @@ def test_flash_kernel_plain_version_counts_no_launch():
 
 
 def test_flash_padding_rows_and_keys_are_masked():
-    """The wrapper pads q rows and k/v keys with zeros up to the block
-    multiples and cuts the output back to Tq; on the CPU ``impl="kernel"``
-    over such shapes is the oracle. That the kernel gives padded keys no
-    weight is held on the card (tests/test_torch_cuda.py, Tq=40, Tk=72)."""
+    """``_pad_to`` pads with zeros up to the block multiples (the "xla"
+    path pads k/v so); the kernel route takes the tensors unpadded, and on
+    the CPU ``impl="kernel"`` over shapes off the blocks is the oracle. That
+    the kernels mask rows and keys past Tq and Tk is held on the card
+    (tests/test_torch_cuda.py, Tq=40, Tk=72 and FLASH_EDGE_CASES)."""
     rng = np.random.default_rng(3)
     q = torch.from_numpy(rng.normal(size=(1, 2, 40, 16))).float()
     k = torch.from_numpy(rng.normal(size=(1, 1, 72, 16))).float()
@@ -125,7 +141,7 @@ def test_flash_fully_masked_rows_give_zero():
 
 
 @pytest.mark.parametrize("bad", ["device", "dtype", "contiguity", "dv",
-                                 "head_dim"])
+                                 "head_dim", "alignment"])
 def test_flash_kernel_raises_on_what_it_does_not_take(bad):
     q = torch.zeros(1, 2, 8, 16)
     k = torch.zeros(1, 1, 8, 16)
@@ -136,6 +152,12 @@ def test_flash_kernel_raises_on_what_it_does_not_take(bad):
         q = torch.zeros(1, 8, 2, 16).transpose(1, 2)
     elif bad == "dv":
         v = torch.zeros(1, 1, 8, 32)
+    elif bad == "alignment":
+        # the wgmma route's TMA reads need 16-byte aligned starts
+        q = torch.zeros(1 * 2 * 8 * 16 + 1, dtype=torch.bfloat16)[1:].view(
+            1, 2, 8, 16)
+        k, v = k.bfloat16(), v.bfloat16()
+        assert q.is_contiguous() and q.data_ptr() % 16
     elif bad == "head_dim":
         # recurrentgemma's 256 is the widest head the kernel takes
         q, k, v = (torch.zeros(1, 2, 8, 512), torch.zeros(1, 1, 8, 512),
