@@ -10,8 +10,13 @@ non-zero exit):
 1. the card's name and power limit from ``nvidia-smi``;
 2. build the five CUDA sources from ``src/repro_torch/csrc`` with ``nvcc``,
    one process per source, all started together; ``ptxas``' registers and
-   spills and, from ``cuobjdump -sass``, the ``HGMMA`` count, the highest
-   register and the local stores of each flash kernel;
+   spills and, from ``cuobjdump -sass``, the tensor-core instruction counts
+   (``HGMMA``, ``HMMA``), the highest register and the local stores of each
+   flash kernel (``flash_build`` line) and of each linear-scan kernel
+   (``scan_build``: the diagonal scan's ring and step kernels, the GLA
+   scan's FMA and tensor-core kernels; fails without HMMA in the latter);
+   the disassembly runs in the background during phase 3 and both lines
+   are logged after it;
 3. each kernel against its plain PyTorch version on the card: the reference
    test cases in fp32 and bf16, and the serving paths' own shapes, with
    CUDA-event timings of the kernel, its plain version and (flash) SDPA as a
@@ -19,9 +24,12 @@ non-zero exit):
    D % 8 != 0 scalar, bf16 wgmma) over the reference's cases and the edges
    of its tiles and masks, and timed at the prefills of qwen3-0.6b,
    recurrentgemma-9b (D = 256, one kv head, window 2048) and grok-1-314b
-   (48 heads over 8), each with its route and tiles; the GLA scan also at unit
-   scale against the exact (fp64) scan, with the tolerance its witness
-   gives; the diagonal scan at recurrentgemma-9b's prefill in bf16 and fp32
+   (48 heads over 8), each with its route and tiles; the GLA scan on its
+   two routes (fp32 FMA, bf16 tensor cores), also at unit scale against the
+   exact (fp64) scan with the tolerance its witness gives, in fp32 and bf16,
+   and timed at rwkv6-3b's prefill; the diagonal scan on its two routes (the ring for T > 1, the step
+   for T = 1) with h0 in fp32 and bf16, failing unless its bits equal the
+   plain version's, timed at recurrentgemma-9b's prefill in bf16 and fp32
    and at its decode; the MoE shuffle kernels (dispatch and combine) on the
    reference's cases with capacity drops, dropped ids and slots, repeated
    slots that sum, the round trip, and grok-1-314b's served prefill and
@@ -62,14 +70,17 @@ before phase 9 and read just after it (the diagonal scan and flash: the
 recurrentgemma-9b path), and again just before phase 11 and read just after
 it (dispatch, combine and flash: the grok-1-314b path). Each serve phase
 fails unless every kernel of its path made exactly the launches its layers
-and batches call for, and every flash launch of a serve phase on the wgmma
-route. The script's own seconds are logged on an
+and batches call for, every flash launch of a serve phase on the wgmma
+route, every GLA launch on the tensor-core route, and the diagonal scan's
+launches on the ring (prefill) and the step (decode) route as its layers
+call for. The script's own seconds are logged on an
 ``elapsed`` line; the second-to-last line is ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device":
 {...}}``. Without CUDA, or without
 the rest of the repo beside it, the script exits non-zero and prints no
 result.
 """
+import atexit
 import gc
 import json
 import os
@@ -98,6 +109,7 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     kernel_route, wgmma_tiles)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.linear_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import gla_scan_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_attention  # noqa: E402
@@ -234,26 +246,43 @@ def rand(rng, shape, dtype):
     return torch.from_numpy(rng.normal(size=shape)).to(DEV, dtype)
 
 
-# -- phase 2: what the compiler made of the flash kernels --------------------------
-def flash_build_facts():
-    """Per flash kernel: ``ptxas``' registers and spill bytes (-Xptxas -v;
-    a 384-thread block starts at 168 registers a thread, and the consumer
-    warpgroups' code after ``setmaxnreg.inc`` may use up to 240), and from
-    ``cuobjdump -sass`` the HGMMA instructions, the highest register index
-    and the local-memory stores."""
-    def short(mangled):
-        m = re.search(r"(flash_fwd_\w+?)I(\w+?)EEv", mangled)
-        if not m:
-            return mangled
-        args = ["bf16" if a.group(0)[0] == "1" else "f32" if a.group(0) == "f"
-                else a.group(1)
-                for a in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f(?=Li)",
-                                     m.group(2))]
-        return f"{m.group(1)}<{','.join(args)}>"
+# -- phase 2: what the compiler made of the kernels --------------------------------
+def start_disassembly(sources):
+    """``cuobjdump -sass`` of each built library into ``<library>.sass``
+    beside it, started together in the background (seconds of host work
+    each, overlapped with phase 3)."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    procs = {}
+    for src in sources:
+        lib = _build._lib_path(src)
+        with open(lib.with_suffix(".sass"), "w") as out:
+            procs[src] = subprocess.Popen([cuobjdump, "-sass", str(lib)],
+                                          stdout=out)
+    # a failed phase exits early: stop whatever is still running
+    atexit.register(lambda: [p.kill() for p in procs.values()
+                             if p.poll() is None])
+    return procs
 
+
+_DISASSEMBLY = {}
+
+
+def sass_of(source):
+    """The disassembly of ``csrc/<source>.cu``'s library."""
+    if _DISASSEMBLY[source].wait():
+        _fail(f"cuobjdump of {source} failed")
+    return _build._lib_path(source).with_suffix(".sass").read_text()
+
+
+def build_facts(source, short):
+    """Per kernel of ``csrc/<source>.cu``: ``ptxas``' registers and spill
+    bytes (-Xptxas -v), and from ``cuobjdump -sass`` the tensor-core
+    instructions (HGMMA for wgmma, HMMA for mma.sync), the highest register
+    index and the local-memory stores. ``short`` names a kernel from its
+    mangled name."""
     facts = {}
     fn = None
-    for line in _build.BUILD_LOGS.get("flash_attention", "").splitlines():
+    for line in _build.BUILD_LOGS.get(source, "").splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             fn = short(m.group(1))
@@ -265,17 +294,53 @@ def flash_build_facts():
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             facts[fn]["ptxas_registers"] = int(m.group(1))
-    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(_build._lib_path("flash_attention"))],
-                          check=True, capture_output=True, text=True).stdout
-    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+    for body in re.split(r"\n\s+Function : ", sass_of(source))[1:]:
         fn = short(body.split("\n")[0].strip())
         facts.setdefault(fn, {}).update(
-            hgmma=body.count("HGMMA"), local_stores=body.count("STL"),
+            hgmma=body.count("HGMMA"), hmma=len(re.findall(r"\bHMMA\b", body)),
+            local_stores=body.count("STL"),
             max_register=max(int(r) for r in re.findall(r"\bR(\d+)\b", body)))
+    return facts
+
+
+def flash_build_facts():
+    """The flash kernels' build facts (a 384-thread block starts at 168
+    registers a thread, and the consumer warpgroups' code after
+    ``setmaxnreg.inc`` may use up to 240)."""
+    def short(mangled):
+        m = re.search(r"(flash_fwd_\w+?)I(\w+?)EEv", mangled)
+        if not m:
+            return mangled
+        args = ["bf16" if a.group(0)[0] == "1" else "f32" if a.group(0) == "f"
+                else a.group(1)
+                for a in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f(?=Li)",
+                                     m.group(2))]
+        return f"{m.group(1)}<{','.join(args)}>"
+
+    facts = build_facts("flash_attention", short)
     if not sum(f.get("hgmma", 0) for f in facts.values()):
         _fail(f"no HGMMA in the flash library: {facts}")
+    return facts
+
+
+def scan_build_facts():
+    """The two linear scans' build facts: the diagonal scan's ring and step
+    kernels and the GLA scan's FMA and tensor-core kernels. Fails unless
+    the tensor-core GLA kernel has HMMA instructions."""
+    def short(mangled):
+        m = re.search(r"\d+(diag_scan_\w+?|gla_scan_\w+?)(?:I(\w+?)E)?(?:EvP|EPK)",
+                      mangled)
+        if not m:
+            return mangled
+        arg = m.group(2) or ""
+        return m.group(1) + ("<bf16>" if "bfloat16" in arg else
+                             "<f32>" if arg == "f" else "")
+
+    facts = {"diag_scan": build_facts("diag_scan", short),
+             "linear_scan": build_facts("linear_scan", short)}
+    mma = facts["linear_scan"].get("gla_scan_mma", {})
+    if not mma.get("hmma"):
+        _fail(f"no HMMA in the tensor-core GLA kernel: {facts}")
     return facts
 
 
@@ -457,8 +522,12 @@ def gla_inputs(rng, B, T, Dk, Dv, w0, dtype, rk_scale=1.0):
 def gla_close(inputs, chunk, dtype, what):
     """Kernel against the chunked plain version: o and S_T. Returns the max
     abs error and the plain o."""
+    route = scan_kernel.gla_route(dtype)
+    before = gla_scan.launches_by_route[route]
     o, S = gla_scan(*inputs, impl="kernel", chunk=chunk)
     torch.cuda.synchronize()
+    if gla_scan.launches_by_route[route] != before + 1:
+        _fail(f"{what}: not on the {route} route")
     ro, rS = gla_scan(*inputs, impl="xla_chunked", chunk=chunk)
     if o.dtype != inputs[2].dtype or S.dtype != torch.float32:
         _fail(f"{what}: dtypes o {o.dtype}, S {S.dtype}")
@@ -473,29 +542,46 @@ def rel_gap(out, exact):
 
 
 def gla_witness(inputs, chunk, what):
-    """fp32 kernel at unit-scale r and k, as the model feeds it: o reaches
-    ~170 and its terms cancel, so no fixed fp32 tolerance is known a priori.
-    The witness is the exact scan (``gla_scan_ref`` in fp64) and the gap to
-    it of the chunked plain version, the same factorisation in fp32; the
-    kernel must come as close to the exact scan as twice that gap."""
+    """The kernel at unit-scale r and k, as the model feeds it: o reaches
+    ~170 and its terms cancel, so no fixed tolerance is known a priori. The
+    witness is the exact scan (``gla_scan_ref`` in fp64) and the gap to it
+    of the chunked plain version, the same factorisation in fp32. In fp32
+    (the FMA route) the kernel must come as close to the exact scan as twice
+    that gap, in o and S. In bf16 (the tensor-core route, operands split in
+    two bf16 parts) o, which is rounded to bf16, must come as close as twice
+    the plain version's gap, and S within GLA's bf16 tolerance."""
     exact_o, exact_S = gla_scan_ref(*(x.double() for x in inputs))
     o, S = gla_scan(*inputs, impl="kernel", chunk=chunk)
     ro, rS = gla_scan(*inputs, impl="xla_chunked", chunk=chunk)
     torch.cuda.synchronize()
-    reading = dict(plain_vs_exact=max(rel_gap(ro, exact_o), rel_gap(rS, exact_S)),
-                   kernel_vs_exact=max(rel_gap(o, exact_o), rel_gap(S, exact_S)),
+    reading = dict(route=scan_kernel.gla_route(inputs[0].dtype),
+                   plain_vs_exact_o=rel_gap(ro, exact_o),
+                   plain_vs_exact_S=rel_gap(rS, exact_S),
+                   kernel_vs_exact_o=rel_gap(o, exact_o),
+                   kernel_vs_exact_S=rel_gap(S, exact_S),
                    kernel_vs_plain=max(rel_gap(o, ro.double()),
                                        rel_gap(S, rS.double())),
                    exact_max_abs=float(exact_o.abs().max()))
-    reading["tolerance"] = 2 * reading["plain_vs_exact"]
+    plain = max(reading["plain_vs_exact_o"], reading["plain_vs_exact_S"])
+    if inputs[0].dtype == torch.float32:
+        reading["tolerance"] = 2 * plain
+        gaps = {"o and S": max(reading["kernel_vs_exact_o"],
+                               reading["kernel_vs_exact_S"])}
+        tols = {"o and S": reading["tolerance"]}
+    else:
+        reading["tolerance_o"] = 2 * reading["plain_vs_exact_o"]
+        reading["tolerance_S"] = GLA_TOL[torch.bfloat16]
+        gaps = {"o": reading["kernel_vs_exact_o"],
+                "S": reading["kernel_vs_exact_S"]}
+        tols = {"o": reading["tolerance_o"], "S": reading["tolerance_S"]}
     log("gla_witness", what, json.dumps(reading))
     if not (torch.isfinite(o).all() and torch.isfinite(S).all()):
         _fail(f"{what}: non-finite output")
-    if reading["kernel_vs_exact"] > reading["tolerance"]:
-        _fail(f"{what}: kernel {reading['kernel_vs_exact']} from the exact "
-              f"scan, over twice the plain version's gap "
-              f"{reading['plain_vs_exact']}")
-    return reading["kernel_vs_exact"]
+    for key, gap in gaps.items():
+        if gap > tols[key]:
+            _fail(f"{what}: kernel {key} {gap} from the exact scan, over "
+                  f"{tols[key]}")
+    return max(gaps.values())
 
 
 def check_gla(rng):
@@ -521,6 +607,8 @@ def check_gla(rng):
     dtype = torch.bfloat16
     inputs = gla_inputs(rng, B, T, D, D, -2.0, dtype)
     err, ro = gla_close(inputs, chunk, dtype, "gla slice shape bf16")
+    worst["slice bf16 unit scale, vs exact"] = gla_witness(
+        inputs, chunk, "slice shape bf16 unit scale")
 
     def run():
         return gla_scan(*inputs, impl="kernel", chunk=chunk)
@@ -528,6 +616,9 @@ def check_gla(rng):
     kernel_ms, call_ms = time_ms(run), time_ms(run, spin=False)
     plain_ms = time_ms(lambda: gla_scan(*inputs, impl="xla_chunked",
                                         chunk=chunk))
+    tv = scan_kernel.mma_dv_tile(B, D, D, chunk, torch.cuda
+                                 .get_device_properties(0).multi_processor_count)
+    lib = scan_kernel._lib()
     strict = chunk * (chunk - 1) // 2        # A's strictly lower entries
     flops = B * (T // chunk) * (     # per (row, chunk), products only:
         2 * chunk * D * D            # q_inter S
@@ -545,11 +636,14 @@ def check_gla(rng):
                 source="src/repro_torch/csrc/linear_scan.cu",
                 replaces="src/repro/kernels/linear_scan/kernel.py:134",
                 shape=f"B*H={B} T={T} Dk=Dv={D} chunk={chunk} bf16",
+                kernel_route=scan_kernel.gla_route(dtype),
+                tiles=dict(dv_tile=tv, blocks=B * -(-D // tv),
+                           smem_bytes=lib.gla_scan_mma_smem(chunk, D, tv)),
                 max_abs_err=err, tolerance=GLA_TOL[dtype],
                 ref_max_abs=float(ro.float().abs().max()),
                 cases_max_abs_err=worst, ms=kernel_ms, kernel_ms=kernel_ms,
-                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def diag_inputs(rng, B, T, D, dtype, near_one=False):
@@ -566,14 +660,25 @@ def diag_inputs(rng, B, T, D, dtype, near_one=False):
 
 
 def diag_close(a, b, h0, chunk, dtype, what):
-    """Kernel against the sequential oracle: h and h_T, and their dtypes."""
+    """Kernel against the sequential oracle: h and h_T, their dtypes, the
+    route the launch took, and their bits: both routes walk each channel in
+    order and round the multiply and the add apart, as the oracle does, so
+    any difference fails."""
+    route = scan_kernel.diag_route(a.shape[1])
+    before = diag_scan.launches_by_route[route]
     h, hT = diag_scan(a, b, h0, impl="kernel", chunk=chunk)
     torch.cuda.synchronize()
+    if diag_scan.launches_by_route[route] != before + 1:
+        _fail(f"{what}: not on the {route} route")
     rh, rT = diag_scan(a, b, h0, impl="xla")
     if h.dtype != a.dtype or hT.dtype != a.dtype:
         _fail(f"{what}: dtypes h {h.dtype}, h_T {hT.dtype}")
-    return max(close_or_fail(h, rh, TOL[dtype], f"{what} h"),
-               close_or_fail(hT, rT, TOL[dtype], f"{what} h_T"))
+    err = max(close_or_fail(h, rh, TOL[dtype], f"{what} h"),
+              close_or_fail(hT, rT, TOL[dtype], f"{what} h_T"))
+    if not (torch.equal(h, rh) and torch.equal(hT, rT)):
+        _fail(f"{what}: the {route} route's bits differ from the plain "
+              f"version's (max abs err {err})")
+    return err
 
 
 def check_diag(rng):
@@ -582,7 +687,9 @@ def check_diag(rng):
         for case in DIAG_CASES:
             B, T, D, chunk = case
             a, b, h0 = diag_inputs(rng, B, T, D, dtype)
-            for init in (None, h0.to(dtype), h0.bfloat16()):
+            # h0 in both dtypes, each read as it is (T = 1 included: the
+            # step route's bits with an fp32 and a bf16 h0)
+            for init in (None, h0, h0.bfloat16()):
                 err = diag_close(a, b, init, chunk, dtype,
                                  f"diag {case} {dtype} h0 "
                                  f"{None if init is None else init.dtype}")
@@ -593,9 +700,9 @@ def check_diag(rng):
     # bf16 zero state; and one decode step (T = 1) from a state
     B, T, D = 4, 2100, 4096
     zero = torch.zeros((B, D), dtype=torch.bfloat16, device=DEV)
-    # at the served width with a near 1: with sigmoid draws a segment's
-    # product of a's underflows to 0 and a kernel that dropped the carry
-    # across segments would still agree
+    # at the served width with a near 1: with sigmoid draws the product of
+    # a's over a few hundred steps underflows to 0, and a kernel that lost
+    # the carry from one stage of its ring to the next would still agree
     for dtype in (torch.float32, torch.bfloat16):
         a, b, h0 = diag_inputs(rng, B, T, D, dtype, near_one=True)
         worst[f"T={T} near one {dtype}"] = diag_close(
@@ -618,10 +725,21 @@ def check_diag(rng):
         bound_ms, bound_by = bound(nbytes, 2 * a.numel(), dtype)
         work[f"T={T_} {dtype}"] = dict(flops=2 * a.numel(), bytes=nbytes)
         served[f"T={T_} {dtype}"] = dict(
+            kernel_route=scan_kernel.diag_route(T_),
+            plan=scan_kernel.diag_plan_built(B, T_, D, dtype),
+            h0_dtype=str(init.dtype), bits_equal_plain=True,
             max_abs_err=err, ms=time_ms(run), call_ms=time_ms(run, spin=False),
             plain_ms=time_ms(lambda: diag_scan(a, b, init, impl="xla"),
                              reps=5 if T_ > 1 else 20),
             bound_ms=bound_ms, bound_by=bound_by)
+    # the floor of this timing for one launch: the step kernel on 8
+    # channels, next to nothing to move (its own generator, so that the
+    # later kernels' inputs stay those of the earlier slices)
+    frng = np.random.default_rng(16)
+    a, b, _ = diag_inputs(frng, 1, 1, 8, torch.bfloat16)
+    init = rand(frng, (1, 8), torch.bfloat16)
+    served[f"T=1 {torch.bfloat16}"]["launch_floor_ms"] = time_ms(
+        lambda: diag_scan(a, b, init, impl="kernel"))
     log("diag_work", json.dumps(work))
     top = served[f"T={T} {torch.bfloat16}"]
     return dict(name="diag_scan", route="cuda",
@@ -809,9 +927,11 @@ def check_model_small(cfg, rng, tol, n_layers=2, T=130, **impls):
 
 
 # -- phase 4: serve ---------------------------------------------------------------
-def serve(cfg, prompts, expect, hbm_pages=None, max_len=552, params=None):
+def serve(cfg, prompts, expect, hbm_pages=None, max_len=552, params=None,
+          routes=None):
     """``expect``: {counted wrapper: launches per batch} that the path must
-    make exactly. With ``hbm_pages`` the pool is too
+    make exactly; ``routes``: {counted wrapper: {route: launches per
+    batch}}, the same for its routes. With ``hbm_pages`` the pool is too
     small for a batch and must offload; without, it is ServeLoop's default.
     ``params``: the model's params (else ServeLoop draws its own)."""
     loop = ServeLoop(cfg, batch_slots=4, max_len=max_len,
@@ -839,6 +959,11 @@ def serve(cfg, prompts, expect, hbm_pages=None, max_len=552, params=None):
                                       != flash_attention.launches):
         _fail(f"flash_attention launches by route "
               f"{flash_attention.launches_by_route}: not all on wgmma")
+    for kernel, per_route in (routes or {}).items():
+        want = {r: n * n_prefills for r, n in per_route.items()}
+        got = {r: n for r, n in kernel.launches_by_route.items() if n or r in want}
+        if got != want:
+            _fail(f"{kernel.__name__} launches by route {got}, want {want}")
     report = dict(arch=cfg.name, requests=len(out), wall_s=wall_s,
                   prefill_ms_per_batch=st["prefill_s"] / n_prefills * 1e3,
                   decode_tok_per_s=st["decode_tokens"] / st["decode_s"],
@@ -981,15 +1106,29 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
     t_start = t0 = time.perf_counter()
-    built = _build.build()
-    log("build", json.dumps(dict(seconds=time.perf_counter() - t0,
-                                 per_source=built)))
-    flash_build = flash_build_facts()
-    log("flash_build", json.dumps(flash_build))
+    phase_s = {}
 
+    def lap(name):
+        """Seconds since the last lap, kept for the ``elapsed`` line."""
+        nonlocal t0
+        now = time.perf_counter()
+        phase_s[name] = now - t0
+        t0 = now
+
+    built = _build.build()
+    lap("build")
+    log("build", json.dumps(dict(seconds=phase_s["build"], per_source=built)))
+    _DISASSEMBLY.update(start_disassembly(
+        ("flash_attention", "linear_scan", "diag_scan")))
     rng = np.random.default_rng(42)
     kernels = [check_flash(rng), check_paged(rng), check_gla(rng),
                check_diag(rng), *check_shuffle(rng)]
+    lap("kernels")
+    flash_build = flash_build_facts()
+    log("flash_build", json.dumps(flash_build))
+    scan_build = scan_build_facts()
+    log("scan_build", json.dumps(scan_build))
+    lap("build facts")
     cfg = get_config("qwen3-0.6b")
     rcfg = get_config("rwkv6-3b")
     gcfg = get_config("recurrentgemma-9b")
@@ -1009,6 +1148,7 @@ def main():
         log("model_small", c.name, json.dumps(dict(
             max_abs_err=check_model_small(c, rng, tol, **kw),
             tolerance=tol)))
+    lap("model_small")
     gc.collect()
     torch.cuda.empty_cache()
     counted = (flash_attention, paged_attention, gla_scan, diag_scan,
@@ -1017,8 +1157,8 @@ def main():
     def zero_counts():
         for fn in counted:
             fn.launches = 0
-        flash_attention.launches_by_route = dict.fromkeys(
-            flash_attention.launches_by_route, 0)
+        for fn in (flash_attention, gla_scan, diag_scan):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
     def free():
         gc.collect()
@@ -1037,16 +1177,20 @@ def main():
     profile_steps(loop, prompts)
     del loop
     free()
+    lap("qwen3-0.6b")
 
     rprompts = [np.random.default_rng(200 + i).integers(0, rcfg.vocab, 512,
                                                         dtype=np.int32)
                 for i in range(8)]
     zero_counts()
-    rloop = serve(rcfg, rprompts, {gla_scan: rcfg.n_layers})
+    rloop = serve(rcfg, rprompts, {gla_scan: rcfg.n_layers},
+                  routes={gla_scan: {"mma": rcfg.n_layers}})
     launches["gla_scan"] = {rcfg.name: gla_scan.launches}
+    scan_routes = {"gla_scan": {rcfg.name: dict(gla_scan.launches_by_route)}}
     profile_steps(rloop, rprompts)
     del rloop
     free()
+    lap("rwkv6-3b")
 
     # recurrentgemma-9b: 10.4 B params, 41.8 GB in fp32. Cast to bf16 once
     # and free the fp32 tree before serving (ServeLoop's own cast then keeps
@@ -1065,14 +1209,17 @@ def main():
     zero_counts()
     gloop = serve(gcfg, gprompts,
                   {diag_scan: n_rec * (1 + 32), flash_attention: n_attn},
-                  max_len=2140, params=gparams)
+                  max_len=2140, params=gparams,
+                  routes={diag_scan: {"ring": n_rec, "step": n_rec * 32}})
     launches["diag_scan"] = {gcfg.name: diag_scan.launches}
+    scan_routes["diag_scan"] = {gcfg.name: dict(diag_scan.launches_by_route)}
     launches["flash_attention"][gcfg.name] = flash_attention.launches
     flash_routes[gcfg.name] = dict(flash_attention.launches_by_route)
     del gparams
     profile_steps(gloop, gprompts)
     del gloop
     free()
+    lap("recurrentgemma-9b")
 
     # grok-1-314b, 4 layers: 21.3 B params drawn straight in bf16 (42.6 GB;
     # one expert weight alone would be 25.8 GB in fp32)
@@ -1094,15 +1241,20 @@ def main():
     flash_routes[kcfg.name] = dict(flash_attention.launches_by_route)
     del kparams
     profile_steps(kloop, kprompts)
+    lap("grok-1-314b")
     next(k for k in kernels if k["name"] == "flash_attention").update(
         launches_by_route=flash_routes, build=flash_build)
+    for name, lib in (("gla_scan", "linear_scan"), ("diag_scan", "diag_scan")):
+        next(k for k in kernels if k["name"] == name).update(
+            launches_by_route=scan_routes[name], build=scan_build[lib])
     for k in kernels:
         k["launches_by_path"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]].values())
         if min(launches[k["name"]].values()) <= 0:
             _fail(f"{k['name']} was never launched on a main path: "
                   f"{launches[k['name']]}")
-    log("elapsed", json.dumps(dict(seconds=time.perf_counter() - t_start)))
+    log("elapsed", json.dumps(dict(seconds=time.perf_counter() - t_start,
+                                   phases=phase_s)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,14 @@ Tk and kv_len themselves, so ``block_q`` / ``block_k`` only shape the
 ``flash_attention.launches`` counts kernel launches and
 ``flash_attention.launches_by_route`` splits them by route.
 
+``"kernel"`` and ``"xla"`` differ on a row with no live key inside a block
+that is not skipped (a causal row before the first key, ``q_offset < 0``):
+``"kernel"`` gives 0, as the reference's ``attention_ref`` does (both CUDA
+routes zero masked probabilities), while ``"xla"`` mirrors the reference's
+Pallas kernel and chunked path, which leave them unzeroed, so that every
+visited key counts exp(-1e30 - (-1e30)) = 1 and the row is the mean of V.
+No served path has such a row.
+
 The custom VJP of the reference's chunked path waits for the training slice:
 this port is forward only.
 """

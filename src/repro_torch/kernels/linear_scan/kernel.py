@@ -22,13 +22,24 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gla_scan_fwd": ([_I] + [_P] * 7 + [_I] * 8 + [_P], _I),
+    "gla_scan_fwd_mma": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    "gla_scan_mma_smem": ([_I] * 3, _I),
 }
 _DIAG_SIGNATURES = {
-    "diag_scan_fwd": ([_I] + [_P] * 5 + [_I] * 4 + [_P], _I),
+    "diag_scan_fwd": ([_I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P], _I),
+    "diag_scan_plan": ([_I] * 4 + [_P] * 7, _I),
 }
 D_MAX = 128            # csrc/linear_scan.cu D_MAX (Dk and Dv)
 CHUNK_MAX = 64         # csrc/linear_scan.cu L_MAX
-SEGMENTS_MAX = 16      # csrc/diag_scan.cu SEG_MAX (warps of a block)
+GLA_ROUTES = ("mma", "fma")
+# csrc/diag_scan.cu: the ring (T > 1) and the step (T = 1) kernels
+DIAG_ROUTES = ("ring", "step")
+RING_CHANNELS = 64     # RING_CH: channels a block, one a thread
+RING_STAGES = 4
+RING_STAGE_BYTES = 16384
+STEP_CHANNELS = 8      # STEP_PER_THREAD
+STEP_THREADS = 128
+SMEM_MAX = 232448      # shared memory a block may use on the H100 (227 KB)
 
 
 def _lib():
@@ -71,25 +82,59 @@ def check_diag_inputs(a: torch.Tensor, b: torch.Tensor,
                          f"[B, D] = {(B, D)}")
 
 
-def segment_steps(T: int, chunk: int) -> int:
-    """Time steps per warp: ``chunk``, or more where T would need more
-    warps than a block holds."""
-    return max(chunk, -(-T // SEGMENTS_MAX))
+def diag_route(T: int) -> str:
+    """The kernel a launch of T steps takes: ``"step"`` for T = 1 (every
+    decode step), ``"ring"`` otherwise."""
+    return "step" if T == 1 else "ring"
+
+
+def diag_plan(B: int, T: int, D: int, dtype: torch.dtype) -> dict:
+    """How ``csrc/diag_scan.cu`` runs a [B, T, D] call (``diag_scan_plan``
+    computes the same in the library): its route, blocks, threads a block,
+    channels a block (ring) or a thread (step), time steps a stage, stages,
+    dynamic shared memory a block, and the bytes of one load of a or b by
+    one thread (16 where rows are whole 16-byte pieces and the pointers
+    aligned, as PyTorch's allocations are)."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    if diag_route(T) == "step":
+        per_block = STEP_THREADS * STEP_CHANNELS
+        return dict(route="step", blocks=-(-B * D // per_block),
+                    threads=STEP_THREADS, channels=STEP_CHANNELS, steps=1,
+                    stages=0, smem_bytes=0, access_bytes=16)
+    return dict(route="ring", blocks=-(-D // RING_CHANNELS) * B,
+                threads=RING_CHANNELS, channels=RING_CHANNELS,
+                steps=RING_STAGE_BYTES // (2 * RING_CHANNELS * elem),
+                stages=RING_STAGES, smem_bytes=RING_STAGES * RING_STAGE_BYTES,
+                access_bytes=16 if (D * elem) % 16 == 0 else elem)
+
+
+def diag_plan_built(B: int, T: int, D: int, dtype: torch.dtype) -> dict:
+    """``diag_plan``'s numbers as the built library gives them (needs
+    ``nvcc``; no launch)."""
+    out = [ctypes.c_int() for _ in range(7)]
+    lib = _build.load("diag_scan", _DIAG_SIGNATURES)
+    err = lib.diag_scan_plan(_DTYPE_CODE[dtype], B, T, D,
+                             *map(ctypes.byref, out))
+    _build.check(lib, err, "diag_scan_plan")
+    keys = ("route", "blocks", "threads", "channels", "steps", "stages",
+            "smem_bytes")
+    plan = dict(zip(keys, (x.value for x in out)))
+    plan["route"] = DIAG_ROUTES[plan["route"]]
+    return plan
 
 
 def diag_scan_kernel(a: torch.Tensor, b: torch.Tensor,
-                     h0: Optional[torch.Tensor] = None, *, chunk: int = 256
+                     h0: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel. a, b: [B, T, D], contiguous CUDA tensors of
-    one dtype (float32 or bfloat16), any T >= 1; h0: [B, D] in either dtype
-    or None (zeros), handed to the kernel in fp32 (exact from bf16).
-    ``chunk``: time steps per warp. Returns (h [B, T, D], h_T [B, D]), both
-    in a's dtype."""
+    """Launch the CUDA kernel of ``diag_route(T)``. a, b: [B, T, D],
+    contiguous CUDA tensors of one dtype (float32 or bfloat16), any T >= 1;
+    h0: [B, D] or None (zeros), read in its own dtype where that is float32
+    or bfloat16 (another float type is widened to fp32 first, exactly as the
+    plain version reads it). Returns (h [B, T, D], h_T [B, D]), both in a's
+    dtype."""
     check_diag_inputs(a, b, h0)
     B, T, D = a.shape
-    if chunk < 1:
-        raise ValueError(f"diag_scan kernel: chunk {chunk} must be >= 1")
-    if h0 is not None:
+    if h0 is not None and h0.dtype not in _DTYPE_CODE:
         h0 = h0.float()
     h = torch.empty_like(a)
     hT = torch.empty((B, D), dtype=a.dtype, device=a.device)
@@ -99,8 +144,8 @@ def diag_scan_kernel(a: torch.Tensor, b: torch.Tensor,
         err = lib.diag_scan_fwd(
             _DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(),
             None if h0 is None else h0.data_ptr(),
-            h.data_ptr(), hT.data_ptr(), B, T, D, segment_steps(T, chunk),
-            stream)
+            0 if h0 is None else _DTYPE_CODE[h0.dtype],
+            h.data_ptr(), hT.data_ptr(), B, T, D, stream)
     _build.check(lib, err, "diag_scan_fwd")
     return h, hT
 
@@ -124,6 +169,47 @@ def dv_tile(rows: int, Dv: int, num_sms: int) -> int:
     tiles = min(want, max(1, Dv // step))
     tv = -(-Dv // tiles)
     return min(Dv, -(-tv // step) * step)
+
+
+def gla_route(dtype: torch.dtype) -> str:
+    """The kernel a launch takes: ``"mma"`` (the chunk products on bf16
+    tensor cores, every operand split into two bf16 parts) for bf16 inputs
+    of any width, ``"fma"`` (fp32 FMAs; GLA's fp32 tolerance rules out
+    rounded operands) for fp32 inputs."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def _round(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def gla_mma_smem(chunk: int, Dk: int, tv: int) -> int:
+    """Bytes of shared memory of one block of the ``"mma"`` route
+    (``csrc/linear_scan.cu`` MmaLayout; ``gla_scan_mma_smem`` in the
+    library): bf16 hi and lo planes of q_inter, q_intra, k_intra, A and S,
+    one of v, with row strides that keep ldmatrix free of bank conflicts;
+    S in fp32; the bonus and decay vectors and their partial sums; and one
+    chunk's bf16 inputs as they arrive."""
+    LP, DKp, TVp = _round(chunk, 16), _round(Dk, 16), _round(tv, 16)
+
+    def plane(n):                  # an odd number of 16-byte units a row
+        n = _round(n, 8)
+        return n if n % 16 else n + 8
+    LDK, LDL, LDV, LDS = plane(DKp), plane(LP), plane(TVp), TVp + 8
+    planes = 6 * LP * LDK + 2 * LP * LDL + LP * LDV + 2 * DKp * LDV
+    floats = DKp * LDS + LP + 2 * DKp + LP * DKp // 2 + LP * DKp // 8
+    return _round(2 * planes + 4 * floats, 16) \
+        + _round(2 * (3 * chunk * Dk + chunk * tv), 16)
+
+
+def mma_dv_tile(rows: int, Dk: int, Dv: int, chunk: int,
+                num_sms: int) -> int:
+    """``dv_tile`` for the ``"mma"`` route, narrowed by 8 columns at a time
+    until one block's shared memory fits the H100's 227 KB."""
+    tv = dv_tile(rows, Dv, num_sms)
+    while tv > 8 and gla_mma_smem(chunk, Dk, tv) > SMEM_MAX:
+        tv -= 8
+    return tv
 
 
 def check_kernel_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -173,24 +259,30 @@ def _vec_ok(t: torch.Tensor, *widths: int) -> int:
 def gla_scan_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     w: torch.Tensor, u: torch.Tensor, *, chunk: int = 64
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel. r, k, w: [B, T, Dk]; v: [B, T, Dv]; u: [B, Dk];
-    all contiguous CUDA tensors of one dtype (float32 or bfloat16), with T a
-    multiple of ``chunk``. Returns (o [B, T, Dv] in v's dtype, S_T
-    [B, Dk, Dv] in fp32)."""
+    """Launch the CUDA kernel of ``gla_route(r.dtype)``. r, k, w: [B, T,
+    Dk]; v: [B, T, Dv]; u: [B, Dk]; all contiguous CUDA tensors of one dtype
+    (float32 or bfloat16), with T a multiple of ``chunk``. Returns (o
+    [B, T, Dv] in v's dtype, S_T [B, Dk, Dv] in fp32)."""
     check_kernel_inputs(r, k, v, w, u, chunk)
     B, T, Dk = r.shape
     Dv = v.shape[-1]
-    tv = dv_tile(B, Dv, _num_sms(r.device.index or 0))
+    route = gla_route(r.dtype)
+    sms = _num_sms(r.device.index or 0)
+    tv = (mma_dv_tile(B, Dk, Dv, chunk, sms) if route == "mma"
+          else dv_tile(B, Dv, sms))
     o = torch.empty((B, T, Dv), dtype=v.dtype, device=v.device)
     s_out = torch.empty((B, Dk, Dv), dtype=torch.float32, device=v.device)
     vec_rkw = min(_vec_ok(t, Dk) for t in (r, k, w))
     vec_v = _vec_ok(v, Dv, tv)
     lib = _lib()
     stream = torch.cuda.current_stream(r.device).cuda_stream
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), o.data_ptr(), s_out.data_ptr())
+    sizes = (B, T, Dk, Dv, chunk, tv, vec_rkw, vec_v, stream)
     with torch.cuda.device(r.device):
-        err = lib.gla_scan_fwd(
-            _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
-            w.data_ptr(), u.data_ptr(), o.data_ptr(), s_out.data_ptr(), B, T,
-            Dk, Dv, chunk, tv, vec_rkw, vec_v, stream)
-    _build.check(lib, err, "gla_scan_fwd")
+        if route == "mma":
+            err = lib.gla_scan_fwd_mma(*ptrs, *sizes)
+        else:
+            err = lib.gla_scan_fwd(_DTYPE_CODE[r.dtype], *ptrs, *sizes)
+    _build.check(lib, err, f"gla_scan_fwd ({route})")
     return o, s_out

@@ -1,46 +1,58 @@
 """Public wrappers for the linear scans: ``diag_scan`` (RG-LRU) and
 ``gla_scan`` (the RWKV6 wkv core).
 
-``diag_scan`` dispatches between the hand-written CUDA kernel
+``diag_scan`` dispatches between the hand-written CUDA kernels
 (``impl="kernel"``) and the sequential oracle (``impl="xla"``,
-``ref.diag_scan_ref``). Kernel source note. The kernel (``csrc/diag_scan.cu``,
-launched by ``kernel.diag_scan_kernel``) replaces the Pallas TPU kernel
-``diag_scan_kernel`` in ``repro/kernels/linear_scan/kernel.py``. It moves 3
-elements per multiply-add, so its floor on the H100 is memory: at the served
-prefill shape ([4, 2100, 4096] bf16) 206 MB over 3.35 TB/s, 0.062 ms. The TPU
-kernel walks T in chunks over a sequential grid axis with the state in VMEM;
-on Hopper the 16,384 channels alone are too few threads to keep enough loads
-in flight, so a block cuts T into segments, one warp each, scans every
-segment from zero, chains the segments' (product, end state) pairs in shared
-memory and walks each segment again from its true start. The kernel takes
+``ref.diag_scan_ref``). Kernel source note. The kernels
+(``csrc/diag_scan.cu``, launched by ``kernel.diag_scan_kernel``) replace the
+Pallas TPU kernel ``diag_scan_kernel`` in
+``repro/kernels/linear_scan/kernel.py``. They move 3 elements per
+multiply-add, so their floor on the H100 is memory: at the served prefill
+shape ([4, 2100, 4096] bf16) 206 MB over 3.35 TB/s, 0.062 ms. The TPU
+kernel walks T in chunks over a sequential grid axis with the state in
+VMEM. On Hopper, ``kernel.diag_route`` picks one of two kernels by T alone:
+the ``"ring"`` kernel (T > 1) gives each thread one channel to walk through
+all of T, and streams a and b through a ring of shared-memory stages filled
+by 16-byte ``cp.async`` copies three stages ahead, so each element of a and
+b is read from device memory once and each of h written once; the
+``"step"`` kernel (T = 1, every decode step) is one flat elementwise pass, 8
+channels a thread, no shared memory. Both walk each channel in order and
+round the multiply and the add apart, so they give the plain version's bits
+for every T. h0 is read in its own dtype (fp32 or bf16). The kernels take
 any T >= 1, so the wrapper skips the reference's padding of T to a chunk
 multiple (the padded steps come after the last real one and change no
-output); ``chunk`` is the segment length. ``impl="kernel"`` takes the plain
-version only when the tensors lie on the CPU; on CUDA tensors it launches the
-kernel or raises. ``diag_scan.launches`` counts kernel launches.
+output); ``chunk`` only shapes the reference. ``impl="kernel"`` takes the
+plain version only when the tensors lie on the CPU; on CUDA tensors it
+launches a kernel or raises. ``diag_scan.launches`` counts kernel launches
+and ``diag_scan.launches_by_route`` splits them by route.
 
-``gla_scan`` dispatches between the hand-written CUDA kernel
+``gla_scan`` dispatches between the hand-written CUDA kernels
 (``impl="kernel"``), the chunk-parallel plain-PyTorch path
 (``impl="xla_chunked"``, the mirror of the reference's ``_gla_chunked_xla``:
 a loop over chunks with products within) and the sequential oracle
-(``impl="xla"``, ``ref.gla_scan_ref``). Kernel source note. The kernel (``csrc/linear_scan.cu``, launched by
-``kernel.gla_scan_kernel``) replaces the Pallas TPU kernel ``gla_scan_kernel``
-in ``repro/kernels/linear_scan/kernel.py``. At the served prefill shape
-(B·H = 128 rows, T = 512, Dk = Dv = 80, chunk 64, bf16 in) its floor on the
-H100 is the fp32 flops of the chunked products (about 2.4 GFLOP, A and A v
-strictly lower triangular, over 67 TFLOP/s: 0.035 ms), not its ~56 MB of
-traffic (0.017 ms). The TPU kernel carries the state in
+(``impl="xla"``, ``ref.gla_scan_ref``). Kernel source note. The kernels
+(``csrc/linear_scan.cu``, launched by ``kernel.gla_scan_kernel``) replace the
+Pallas TPU kernel ``gla_scan_kernel`` in ``repro/kernels/linear_scan/kernel.py``.
+At the served prefill shape (B·H = 128 rows, T = 512, Dk = Dv = 80, chunk
+64, bf16 in) the chunk products are about 2.4 GFLOP, A and A v strictly
+lower triangular: 0.035 ms in fp32 FMAs, a few microseconds on tensor cores,
+against ~56 MB of traffic (0.017 ms). The TPU kernel carries the state in
 VMEM scratch across a sequential grid axis; on Hopper blocks run in no
 order, so one block per (row, Dv tile) keeps its fp32 state tile in shared
-memory and walks the chunks itself. The Dv tiles are sized to give every SM
-a block (128 rows are under the 132 SMs). Chunks are staged in shared memory
-with 16-byte loads, the cumulative decays run as warp scans, and the three
-products take fp32 FMAs from 4x4 register tiles; tensor cores are later work.
+memory and walks the chunks itself, the Dv tiles sized to give every SM a
+block (128 rows are under the 132 SMs). ``kernel.gla_route`` picks the
+kernel by dtype alone: bf16 inputs take ``"mma"``, the four chunk products
+on tensor cores (mma.sync, fp32 accumulation) with each fp32 operand split
+into two bf16 parts (rounded once, to bf16 or TF32, they miss GLA's bf16
+tolerance at the served shape), the next chunk staged by ``cp.async`` under
+the current one's products; fp32 inputs keep ``"fma"``, fp32 FMAs from 4x4
+register tiles (GLA's fp32 tolerance rules out rounded operands).
 
 ``impl="kernel"`` takes the plain version (``"xla_chunked"``, the function
 the TPU kernel computes) only when the tensors lie on the CPU. On CUDA
-tensors it pads T to a chunk multiple, launches the kernel or raises; it
-never falls back. ``gla_scan.launches`` counts kernel launches.
+tensors it pads T to a chunk multiple, launches a kernel or raises; it
+never falls back. ``gla_scan.launches`` counts kernel launches and
+``gla_scan.launches_by_route`` splits them by route.
 """
 from __future__ import annotations
 
@@ -49,7 +61,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .kernel import diag_scan_kernel, gla_scan_kernel
+from .kernel import (DIAG_ROUTES, GLA_ROUTES, diag_route, diag_scan_kernel,
+                     gla_route, gla_scan_kernel)
 from .ref import diag_scan_ref, gla_scan_ref
 
 
@@ -61,14 +74,15 @@ def diag_scan(a: torch.Tensor, b: torch.Tensor,
     h_T [B, D]) in a's dtype.
 
     impl: "kernel" (CUDA kernel; the oracle on CPU tensors) or "xla" (the
-    sequential oracle)."""
+    sequential oracle). ``chunk`` is the reference's padding unit; neither
+    path here needs it."""
     if impl == "kernel":
         if a.device.type == "cpu":
             return diag_scan_ref(a, b, h0)
         out = diag_scan_kernel(a.contiguous(), b.contiguous(),
-                               None if h0 is None else h0.contiguous(),
-                               chunk=chunk)
+                               None if h0 is None else h0.contiguous())
         diag_scan.launches += 1
+        diag_scan.launches_by_route[diag_route(a.shape[1])] += 1
         return out
     if impl == "xla":
         return diag_scan_ref(a, b, h0)
@@ -76,6 +90,7 @@ def diag_scan(a: torch.Tensor, b: torch.Tensor,
 
 
 diag_scan.launches = 0
+diag_scan.launches_by_route = dict.fromkeys(DIAG_ROUTES, 0)
 
 
 def _pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -103,6 +118,7 @@ def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  for x in (r, k, v, w)),
                                u.contiguous(), chunk=c)
         gla_scan.launches += 1
+        gla_scan.launches_by_route[gla_route(r.dtype)] += 1
         return (o[:, :T] if pad else o), S
     if impl == "xla":
         return gla_scan_ref(r, k, v, w, u)
@@ -112,6 +128,7 @@ def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 gla_scan.launches = 0
+gla_scan.launches_by_route = dict.fromkeys(GLA_ROUTES, 0)
 
 
 def _gla_chunked(r, k, v, w, u, *, chunk: int = 64):

@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_attention.kernel import (kernel_route,
                                                         wgmma_tiles)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.linear_scan import kernel as scan_kernel
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan
 from repro_torch.kernels.linear_scan.ref import gla_scan_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -42,7 +43,7 @@ FLASH_CASES = [
     (1, 8, 4, 128, 128, 64, True, None),
 ]
 # edges of the flash kernels' tiling and masks (the wgmma route's tiles are
-# 128 query rows by 128 keys, 64 keys at D = 256; the scalar route's 64 x
+# 128 query rows by 128 keys, 80 keys at D = 256; the scalar route's 64 x
 # 64), small enough for the JAX package's interpreted Pallas kernel
 FLASH_EDGE_CASES = [
     # B, H, KH, Tq, Tk, D, causal, window, q_offset, q scale
@@ -80,8 +81,8 @@ GLA_CASES = [
 # prefill (B = 4, T = 2100, D = 4096) and decode (T = 1), and a width that is
 # not a whole number of channel pairs. a = sigmoid(N(0, 1)) as the reference's
 # tests draw it, or near 1 (exp(-U(0, 0.02)), as RG-LRU's a is where its gate
-# is small): at the served T only then does the carry across the kernel's
-# 256-step segments survive their product of a's and decide the output
+# is small): at the served T only then does the carry survive the product of
+# a's over hundreds of steps and decide the output
 DIAG_CASES = [
     # B, T, D, chunk, a near 1
     (2, 64, 16, 16, False),
@@ -425,10 +426,13 @@ def _check_gla(case, dtype, device, rk_scale=1.0):
     B, T, Dk, Dv, chunk, w0 = case
     inputs = _gla_inputs(np.random.default_rng(11), B, T, Dk, Dv, w0,
                          DTYPES[dtype], device, rk_scale)
-    before = gla_scan.launches
+    route = scan_kernel.gla_route(DTYPES[dtype])
+    before = gla_scan.launches, gla_scan.launches_by_route[route]
     o, S = gla_scan(*inputs, impl="kernel", chunk=chunk)
     torch.cuda.synchronize()
-    assert gla_scan.launches == before + 1
+    assert (gla_scan.launches, gla_scan.launches_by_route[route]) == \
+        (before[0] + 1, before[1] + 1)
+    assert route == ("mma" if dtype == "bfloat16" else "fma")
     assert o.dtype == DTYPES[dtype] and S.dtype == torch.float32
     ro, rS = gla_scan(*inputs, impl="xla_chunked", chunk=chunk)
     assert torch.isfinite(o).all() and torch.isfinite(S).all()
@@ -478,15 +482,49 @@ def test_gla_kernel_at_the_served_shape_against_the_exact_scan(cuda_device):
 
 
 @pytest.mark.cuda
+def test_gla_mma_route_at_the_served_shape_against_the_exact_scan(
+        cuda_device):
+    """bf16, unit-scale r and k at the served shape, on the tensor-core
+    route. The exact (fp64) scan of the same bf16 inputs is the witness: o
+    (rounded to bf16, what the model reads) must come as close to it as
+    twice the chunked plain version does, and S within GLA's bf16
+    tolerance."""
+    inputs = _gla_inputs(np.random.default_rng(11), 128, 512, 80, 80, -2.0,
+                         torch.bfloat16, cuda_device)
+    exact_o, exact_S = gla_scan_ref(*(x.double() for x in inputs))
+    before = gla_scan.launches_by_route["mma"]
+    o, S = gla_scan(*inputs, impl="kernel", chunk=64)
+    po, _ = gla_scan(*inputs, impl="xla_chunked", chunk=64)
+    torch.cuda.synchronize()
+    assert gla_scan.launches_by_route["mma"] == before + 1
+    assert torch.isfinite(o).all() and torch.isfinite(S).all()
+    assert _rel_gap(o, exact_o) <= 2 * _rel_gap(po, exact_o)
+    assert _rel_gap(S, exact_S) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,Dk,tv", [(64, 80, 40), (16, 10, 6),
+                                         (64, 128, 32), (37, 80, 8)])
+def test_gla_mma_smem_plan_matches_the_library(chunk, Dk, tv, cuda_device):
+    """The wrapper's shared-memory plan (``gla_mma_smem``, which picks the
+    tiles on the CPU) is the one the built library launches with."""
+    lib = scan_kernel._lib()
+    assert lib.gla_scan_mma_smem(chunk, Dk, tv) == \
+        scan_kernel.gla_mma_smem(chunk, Dk, tv)
+
+
+@pytest.mark.cuda
 def test_rwkv_serve_loop_prefills_through_the_scan_kernel(cuda_device):
     cfg = smoke_config("rwkv6-3b")
     loop = ServeLoop(cfg, batch_slots=2, max_len=40, hbm_pages=4)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab, 24, dtype=np.int32),
                     max_new_tokens=4) for i in range(4)]
-    before = gla_scan.launches
+    before = gla_scan.launches, gla_scan.launches_by_route["mma"]
     out = loop.run(reqs)
-    assert gla_scan.launches - before == cfg.n_layers * 2
+    assert gla_scan.launches - before[0] == cfg.n_layers * 2
+    # smoke rwkv serves in bf16: every prefill on the tensor-core route
+    assert gla_scan.launches_by_route["mma"] - before[1] == cfg.n_layers * 2
     assert all(len(v) == 4 for v in out.values())
 
 
@@ -508,9 +546,11 @@ def test_rwkv_kernel_path_matches_plain_path(cuda_device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", DIAG_CASES)
 def test_diag_kernel_matches_plain(case, dtype, cuda_device):
-    """The kernel against the sequential oracle; with no h0, with h0 in the
-    inputs' dtype and with a bf16 h0 (recurrentgemma's fp32 layers start
-    from the bf16 zero state of the cache)."""
+    """The kernel against the sequential oracle; with no h0, and with h0 in
+    fp32 and in bf16 (recurrentgemma's fp32 layers start from the bf16 zero
+    state of the cache), each read in its own dtype. Both routes walk each
+    channel in order and round as the plain version does, so h and h_T are
+    its bits at every T: the ring for T > 1, the step for T = 1."""
     B, T, D, chunk, near_one = case
     rng = np.random.default_rng(T + D)
     dt = DTYPES[dtype]
@@ -521,18 +561,30 @@ def test_diag_kernel_matches_plain(case, dtype, cuda_device):
     a = a.to(cuda_device, dt)
     b = torch.from_numpy(rng.normal(size=(B, T, D))).to(cuda_device, dt)
     h0 = torch.from_numpy(rng.normal(size=(B, D))).to(cuda_device)
-    for init in (None, h0.to(dt), h0.bfloat16()):
-        before = diag_scan.launches
+    route = scan_kernel.diag_route(T)
+    for init in (None, h0.float(), h0.bfloat16()):
+        before = diag_scan.launches, diag_scan.launches_by_route[route]
         h, hT = diag_scan(a, b, init, impl="kernel", chunk=chunk)
         torch.cuda.synchronize()
-        assert diag_scan.launches == before + 1
+        assert (diag_scan.launches, diag_scan.launches_by_route[route]) == \
+            (before[0] + 1, before[1] + 1)
         rh, rT = diag_scan(a, b, init, impl="xla")
         assert h.dtype == hT.dtype == dt
         _close(h, rh, **_tol(dtype))
         _close(hT, rT, **_tol(dtype))
-        if T <= chunk:
-            # one segment: the kernel rounds as the plain version does
-            assert torch.equal(h, rh) and torch.equal(hT, rT)
+        assert torch.equal(h, rh) and torch.equal(hT, rT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,D", [(4, 2100, 4096), (4, 1, 4096), (2, 77, 33),
+                                   (3, 1, 33)])
+def test_diag_plan_matches_the_library(B, T, D, dtype, cuda_device):
+    """The wrapper's tiling (``diag_plan``, tested on the CPU) is the one
+    the built library launches."""
+    plan = scan_kernel.diag_plan(B, T, D, DTYPES[dtype])
+    plan.pop("access_bytes")
+    assert scan_kernel.diag_plan_built(B, T, D, DTYPES[dtype]) == plan
 
 
 @pytest.mark.cuda
@@ -546,10 +598,14 @@ def test_hybrid_serve_loop_runs_both_kernels(cuda_device):
     reqs = [Request(i, rng.integers(0, cfg.vocab, 24, dtype=np.int32),
                     max_new_tokens=4) for i in range(4)]
     before = (diag_scan.launches, flash_attention.launches)
+    routes = dict(diag_scan.launches_by_route)
     out = loop.run(reqs)
     rec = sum(k == "rec" for k in cfg.block_pattern) + 1     # 2 + 1 rem
     steps = 2 * (1 + 4)                  # 2 batches: a prefill, 4 decodes
     assert diag_scan.launches - before[0] == rec * steps
+    # prefills on the ring, decode steps (T = 1) on the step kernel
+    assert {r: n - routes[r] for r, n in diag_scan.launches_by_route.items()} \
+        == {"ring": rec * 2, "step": rec * 2 * 4}
     assert flash_attention.launches - before[1] == 1 * 2
     assert all(len(v) == 4 for v in out.values())
 

@@ -140,6 +140,42 @@ def test_flash_fully_masked_rows_give_zero():
     assert torch.equal(ref, torch.zeros_like(ref))
 
 
+def test_flash_rows_with_no_live_key_in_a_live_block_documented_disagreement():
+    """Causal, q_offset = -4, one block of 8 queries and 8 keys: rows 0-3
+    have no live key, but the block is not skipped (rows 4-7 attend). The
+    reference's Pallas kernel and its "xla" path (``_chunked_attention``)
+    do not zero masked probabilities, so such a row gets exp(-1e30 - (-1e30))
+    = 1 for every visited key: the mean of V; the port's "xla" path mirrors
+    them. The reference's ``attention_ref``, the port's "kernel" (on the
+    CPU its plain version, ``attention_ref``; both CUDA routes zero masked
+    probabilities) and "naive" give 0. Rows with a live key agree."""
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.normal(size=(1, 1, 8, 8)) for _ in range(3))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, "float32") for a in (q, k, v))
+    kw = dict(causal=True, q_offset=-4, block_q=8, block_k=8)
+    mean_v = _np(tv).mean(axis=2)[0, 0]
+    means = {
+        "jax kernel": _np(jax_flash(jq, jk, jv, impl="kernel", **kw)),
+        "jax xla": _np(jax_flash(jq, jk, jv, impl="xla", **kw)),
+        "port xla": _np(flash_attention(tq, tk, tv, impl="xla", **kw)),
+    }
+    zeros = {
+        "jax attention_ref": _np(jax_attention_ref(jq, jk, jv, causal=True,
+                                                   q_offset=-4)),
+        "port kernel": _np(flash_attention(tq, tk, tv, impl="kernel", **kw)),
+        "port naive": _np(flash_attention(tq, tk, tv, impl="naive", **kw)),
+    }
+    for name, out in means.items():
+        np.testing.assert_allclose(out[0, 0, :4], np.tile(mean_v, (4, 1)),
+                                   rtol=3e-5, atol=3e-5, err_msg=name)
+    for name, out in zeros.items():
+        assert np.array_equal(out[0, 0, :4], np.zeros((4, 8))), name
+    live = zeros["jax attention_ref"][0, 0, 4:]
+    for name, out in {**means, **zeros}.items():
+        np.testing.assert_allclose(out[0, 0, 4:], live, rtol=3e-5, atol=3e-5,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("bad", ["device", "dtype", "contiguity", "dv",
                                  "head_dim", "alignment"])
 def test_flash_kernel_raises_on_what_it_does_not_take(bad):

@@ -192,3 +192,125 @@ def test_gla_build_and_signature():
     assert restype is ctypes.c_int
     assert argtypes.count(ctypes.c_void_p) == 8     # 7 tensors + the stream
     assert len(argtypes) == 17
+    # the tensor-core route: the same arguments without the dtype
+    argtypes, restype = gla_kernel._SIGNATURES["gla_scan_fwd_mma"]
+    assert restype is ctypes.c_int
+    assert argtypes.count(ctypes.c_void_p) == 8
+    assert len(argtypes) == 16
+    argtypes, restype = gla_kernel._SIGNATURES["gla_scan_mma_smem"]
+    assert restype is ctypes.c_int and argtypes == [ctypes.c_int] * 3
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+def test_gla_route_by_dtype(dtype, route):
+    """bf16 inputs of every width take the tensor-core route; fp32 keeps
+    the FMA kernel (its 2e-4 tolerance rules out rounded operands)."""
+    assert gla_kernel.gla_route(dtype) == route
+    assert set(gla_kernel.GLA_ROUTES) == {"mma", "fma"}
+
+
+@pytest.mark.parametrize("case", GLA_CASES + [(128, 512, 80, 80, 64, -2.0),
+                                             (200, 128, 128, 128, 64, -2.0)])
+def test_gla_mma_tiles_fit_the_card(case):
+    """The tensor-core route's Dv tile at GLA_CASES, the served shape and a
+    wide head: a block's shared memory within the H100's 227 KB, every
+    column covered, and at the served shape (128 rows, Dv 80) two tiles of
+    40, so that 256 blocks cover the 132 SMs."""
+    B, T, Dk, Dv, chunk, _ = case
+    chunk = min(chunk, T)
+    tv = gla_kernel.mma_dv_tile(B, Dk, Dv, chunk, num_sms=132)
+    assert 1 <= tv <= Dv
+    assert gla_kernel.gla_mma_smem(chunk, Dk, tv) <= gla_kernel.SMEM_MAX
+    tiles = -(-Dv // tv)
+    assert (tiles - 1) * tv < Dv <= tiles * tv          # no empty tile
+    if (B, Dk, Dv) == (128, 80, 80):
+        assert tv == 40 and B * tiles >= 132
+
+
+def _round_tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _round_bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _split(x):
+    """x = hi + lo, each a bf16 (the tensor-core route's operand split)."""
+    hi = _round_bf16(x)
+    return hi, _round_bf16(x - hi)
+
+
+def _prod(a, b, eq, how):
+    """einsum(eq, a, b) with fp32 sums and the operands as ``how`` makes
+    them: "bf16" or "tf32" (each rounded once), "split" (a and b split, three
+    products) or "split_a" (a split, b exact in bf16: two products)."""
+    if how in ("bf16", "tf32"):
+        rnd = _round_bf16 if how == "bf16" else _round_tf32
+        return torch.einsum(eq, rnd(a), rnd(b))
+    ah, al = _split(a)
+    if how == "split_a":
+        return torch.einsum(eq, ah, b) + torch.einsum(eq, al, b)
+    bh, bl = _split(b)
+    return (torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, al, bh))
+
+
+def _gla_chunked_rounded(r, k, v, w, u, chunk, how):
+    """The chunked factorisation with its four products' operands rounded
+    as the tensor-core route would: ``how`` for the products of two fp32
+    operands (q_inter S, q_intra k_intra^T); v is bf16 (exact), so A v and
+    k_intra^T v round only A and k_intra ("split_a" under "split")."""
+    B, T, Dk = r.shape
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    strict = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool), -1)
+    S = torch.zeros((B, Dk, v.shape[-1]))
+    one = "split_a" if how == "split" else how
+    outs = []
+    for s in range(0, T, chunk):
+        rc, kc, vc, wc = (x[:, s:s + chunk] for x in (r, k, v, w))
+        cum = torch.cumsum(wc, 1)
+        ex, cl = cum - wc, cum[:, -1:]
+        q_inter, q_intra = rc * torch.exp(ex), rc * torch.exp(ex - cl)
+        k_intra = kc * torch.exp(cl - cum)
+        A = torch.where(strict, _prod(q_intra, k_intra, "bik,bjk->bij", how),
+                        0.0)
+        bonus = torch.einsum("blk,bk,blk->bl", rc, u.float(), kc)
+        outs.append(_prod(q_inter, S, "blk,bkv->blv", how)
+                    + _prod(A.transpose(1, 2), vc, "bji,bjv->biv", one)
+                    + bonus[..., None] * vc)
+        S = torch.exp(cl).transpose(1, 2) * S \
+            + _prod(k_intra, vc, "blk,blv->bkv", one)
+    return torch.cat(outs, 1).to(torch.bfloat16), S
+
+
+def test_gla_operand_rounding_choice():
+    """Why the tensor-core route splits its operands: at the served head
+    (Dk = Dv = 80, chunk 64, T = 512, rwkv's decays) with unit-scale bf16 r
+    and k, operands rounded once to bf16 or to TF32 put o past GLA's bf16
+    tolerance (2e-2 of 1 + |o|) against the chunked plain version, and the
+    hi + lo split keeps it well within (measured: ~9x, ~1.5x and ~0.36x of
+    the tolerance on these 8 rows)."""
+    rng = np.random.default_rng(0)
+    B, T, D = 8, 512, 80
+    r, k, v = (torch.from_numpy(rng.normal(size=(B, T, D))).float()
+               for _ in range(3))
+    w = -torch.exp(-2 + torch.from_numpy(rng.normal(size=(B, T, D))) * 0.5)
+    u = torch.from_numpy(rng.normal(size=(B, D)))
+    r, k, v, w, u = (x.to(torch.bfloat16) for x in (r, k, v, w, u))
+    ro, rS = gla_scan(r, k, v, w, u, impl="xla_chunked", chunk=64)
+    ref = ro.float()
+
+    def share(how):
+        o, S = _gla_chunked_rounded(r, k, v, w, u, 64, how)
+        return float(((o.float() - ref).abs()
+                      / (TOL["bfloat16"] * (1 + ref.abs()))).max())
+
+    assert share("bf16") > 1
+    assert share("tf32") > 1
+    assert share("split") < 0.5
+    o, S = _gla_chunked_rounded(r, k, v, w, u, 64, "split")
+    np.testing.assert_allclose(S.numpy(), rS.numpy(), rtol=2e-2, atol=2e-2)

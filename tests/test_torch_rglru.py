@@ -133,14 +133,40 @@ def test_diag_kernel_raises_on_what_it_does_not_take(bad):
             scan_kernel.check_diag_inputs(a, b, h0)
 
 
-@pytest.mark.parametrize("T,chunk,want", [(2100, 256, 256), (1, 256, 256),
-                                          (100, 32, 32), (10000, 256, 625)])
-def test_diag_segments_fit_a_block(T, chunk, want):
-    seg = scan_kernel.segment_steps(T, chunk)
-    assert seg == want
-    assert -(-T // seg) <= scan_kernel.SEGMENTS_MAX
-    if (T, chunk) == (2100, 256):
-        assert -(-T // seg) == 9                 # the served prefill's warps
+@pytest.mark.parametrize("B,T,D,dtype", [
+    (4, 2100, 4096, torch.bfloat16),     # recurrentgemma-9b's prefill
+    (4, 2100, 4096, torch.float32),      # its fp32 rem layers
+    (4, 1, 4096, torch.bfloat16),        # its decode step
+    (4, 1, 4096, torch.float32),
+    (2, 77, 33, torch.bfloat16),         # rows that are not 16-byte pieces
+    (1, 100, 8, torch.float32),
+])
+def test_diag_plan_fits_the_card(B, T, D, dtype):
+    """The tiling the kernels use: the ring for T > 1 and the step for T = 1;
+    at the served prefill at least one block per SM of the H100 (132), shared
+    memory within 227 KB a block and 16-byte loads; ragged widths fall to
+    element loads, never to another route."""
+    plan = scan_kernel.diag_plan(B, T, D, dtype)
+    assert plan["route"] == scan_kernel.diag_route(T)
+    assert plan["route"] == ("step" if T == 1 else "ring")
+    assert plan["smem_bytes"] <= scan_kernel.SMEM_MAX
+    elem = torch.empty((), dtype=dtype).element_size()
+    if plan["route"] == "ring":
+        # the ring's stages hold a and b of `steps` steps of the block's
+        # channels, and every channel of every row has a block
+        assert plan["smem_bytes"] == plan["stages"] * plan["steps"] * 2 \
+            * plan["channels"] * elem
+        assert plan["blocks"] * plan["channels"] >= B * D
+        assert plan["stages"] >= 3                  # two stages in flight
+    else:
+        assert plan["blocks"] * plan["threads"] * plan["channels"] >= B * D
+        assert plan["smem_bytes"] == 0
+    if D == 4096:
+        assert plan["access_bytes"] == 16
+        if T > 1:
+            assert plan["blocks"] >= 132
+    if D == 33:
+        assert plan["access_bytes"] == elem
 
 
 def test_diag_build_and_signature():
@@ -149,7 +175,10 @@ def test_diag_build_and_signature():
     argtypes, restype = scan_kernel._DIAG_SIGNATURES["diag_scan_fwd"]
     assert restype is ctypes.c_int
     assert argtypes.count(ctypes.c_void_p) == 6     # 5 tensors + the stream
-    assert len(argtypes) == 11                      # + dtype, B, T, D, seg
+    assert len(argtypes) == 11            # + dtype, h0's dtype, B, T, D
+    argtypes, restype = scan_kernel._DIAG_SIGNATURES["diag_scan_plan"]
+    assert restype is ctypes.c_int
+    assert argtypes == [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
 
 
 # -- activations ---------------------------------------------------------------------
