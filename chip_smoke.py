@@ -14,7 +14,10 @@ non-zero exit):
    (``HGMMA``, ``HMMA``), the highest register and the local stores of each
    flash kernel (``flash_build`` line) and of each linear-scan kernel
    (``scan_build``: the diagonal scan's ring and step kernels, the GLA
-   scan's FMA and tensor-core kernels; fails without HMMA in the latter);
+   scan's FMA and tensor-core kernels; fails without HMMA in the latter),
+   and of the shuffle kernels (``shuffle_build``: dispatch's walk and
+   direct kernels and combine, with their static and dynamic shared
+   memory);
    the disassembly runs in the background during phase 3 and both lines
    are logged after it;
 3. each kernel against its plain PyTorch version on the card: the reference
@@ -32,8 +35,11 @@ non-zero exit):
    plain version's, timed at recurrentgemma-9b's prefill in bf16 and fp32
    and at its decode; the MoE shuffle kernels (dispatch and combine) on the
    reference's cases with capacity drops, dropped ids and slots, repeated
-   slots that sum, the round trip, and grok-1-314b's served prefill and
-   decode shapes; then full-width layers of each model, kernel path against
+   slots that sum, the round trip, rows that collect more pairs than
+   dispatch's hit list holds (bits equal to the sum in token order), and
+   grok-1-314b's served prefill and decode shapes (dispatch bit for bit the
+   gather of the kept tokens, on its walk and its direct route); then
+   full-width layers of each model, kernel path against
    plain path (recurrentgemma-9b: one superblock and one RG-LRU layer over
    2100 tokens, and a decode step; grok-1-314b: one layer in fp32, prefill
    and a decode step);
@@ -73,7 +79,8 @@ fails unless every kernel of its path made exactly the launches its layers
 and batches call for, every flash launch of a serve phase on the wgmma
 route, every GLA launch on the tensor-core route, and the diagonal scan's
 launches on the ring (prefill) and the step (decode) route as its layers
-call for. The script's own seconds are logged on an
+call for, and dispatch's on the walk (prefill) and the direct (decode)
+route. The script's own seconds are logged on an
 ``elapsed`` line; the second-to-last line is ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device":
 {...}}``. Without CUDA, or without
@@ -113,6 +120,7 @@ from repro_torch.kernels.linear_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import gla_scan_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_attention  # noqa: E402
+from repro_torch.kernels.shuffle_dispatch import kernel as shuffle_kernel  # noqa: E402
 from repro_torch.kernels.shuffle_dispatch.ops import (  # noqa: E402
     combine, compute_slots, dispatch)
 from repro_torch.launch.serve import Request, ServeLoop  # noqa: E402
@@ -186,6 +194,12 @@ SHUFFLE_CASES = [  # T, D, E, K, C
     (128, 16, 8, 1, 24),
     (96, 64, 16, 6, 16),
     (50, 37, 5, 3, 12),
+]
+# more pairs on a walk block's rows than its hit list holds (1024): all
+# pairs on one row, and pairs drawn at random over a few rows
+OVERFLOW_CASES = [  # kind, T, D, E, K, C
+    ("one row", 4096, 64, 4, 2, 8),
+    ("spread", 3001, 40, 3, 3, 8),
 ]
 
 
@@ -275,8 +289,9 @@ def sass_of(source):
 
 
 def build_facts(source, short):
-    """Per kernel of ``csrc/<source>.cu``: ``ptxas``' registers and spill
-    bytes (-Xptxas -v), and from ``cuobjdump -sass`` the tensor-core
+    """Per kernel of ``csrc/<source>.cu``: ``ptxas``' registers, spill
+    bytes and static shared memory (-Xptxas -v), and from ``cuobjdump
+    -sass`` the tensor-core
     instructions (HGMMA for wgmma, HMMA for mma.sync), the highest register
     index and the local-memory stores. ``short`` names a kernel from its
     mangled name."""
@@ -294,6 +309,9 @@ def build_facts(source, short):
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             facts[fn]["ptxas_registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and fn:
+            facts[fn]["static_smem"] = int(m.group(1))
     for body in re.split(r"\n\s+Function : ", sass_of(source))[1:]:
         fn = short(body.split("\n")[0].strip())
         facts.setdefault(fn, {}).update(
@@ -341,6 +359,29 @@ def scan_build_facts():
     mma = facts["linear_scan"].get("gla_scan_mma", {})
     if not mma.get("hmma"):
         _fail(f"no HMMA in the tensor-core GLA kernel: {facts}")
+    return facts
+
+
+def shuffle_build_facts():
+    """The shuffle kernels' build facts: dispatch's walk and direct kernels
+    and combine, by data (and gate) type. None takes dynamic shared memory
+    (the launches pass 0 bytes); the walk kernel's hit list is static."""
+    def short(mangled):
+        m = re.search(r"\d+(dispatch_walk|dispatch_direct|combine_kernel)"
+                      r"I(\w+?)EEv", mangled)
+        if not m:
+            return mangled
+        # S1_ names the first type again (bf16 data with bf16 gates)
+        args = ["bf16" if a in ("13__nv_bfloat16", "S1_") else
+                "f32" if a == "f" else f"KG={a[2:-1]}"
+                for a in re.findall(r"13__nv_bfloat16|S1_|Li\d+E|f",
+                                    m.group(2))]
+        return f"{m.group(1)}<{','.join(args)}>"
+
+    facts = build_facts("shuffle_dispatch", short)
+    for f in facts.values():
+        f.setdefault("static_smem", 0)            # ptxas names none
+        f["dynamic_smem"] = 0
     return facts
 
 
@@ -807,10 +848,70 @@ def served_routing(rng, B, T, E, K, C):
     return flat.int().to(DEV), slot.to(DEV)
 
 
+def gather_or_fail(x, eid, slot, R, C, what):
+    """Under served routing every kept pair has a row of its own: dispatch
+    must be the gather of the kept tokens' x at their rows, bit for bit,
+    and 0.0 in every other row."""
+    out = dispatch(x, eid, slot, R, C, impl="kernel")
+    kept = (slot >= 0) & (slot < C)
+    rows = (eid.long() * C + slot.long())[kept]
+    if torch.unique(rows).numel() != rows.numel():
+        _fail(f"dispatch {what}: served rows are not unique")
+    expect = torch.zeros((R * C, x.shape[1]), dtype=x.dtype, device=DEV)
+    expect[rows] = x.index_select(0, torch.nonzero(kept)[:, 0])
+    if not torch.equal(out.reshape(R * C, -1), expect):
+        _fail(f"dispatch {what}: not the gather of the kept tokens")
+
+
+def in_token_order(x, eid, slot, E, C):
+    """Each row's fp32 sum of x over its pairs, one after another in pair
+    (so token) order as numpy's cumsum takes them, in x's dtype [E, C, D]."""
+    xs = x.float().cpu().numpy()
+    e = eid.reshape(-1).cpu().numpy()
+    rows = e * C + slot.reshape(-1).cpu().numpy()
+    out = np.zeros((E * C, xs.shape[1]), np.float32)
+    for row in np.unique(rows):
+        toks = np.nonzero(rows == row)[0] // eid.shape[1]
+        out[row] = np.cumsum(xs[toks], axis=0, dtype=np.float32)[-1]
+    return torch.from_numpy(out.reshape(E, C, -1)).to(DEV, x.dtype)
+
+
+def check_overflow(rng, dtype):
+    """OVERFLOW_CASES on the walk route: bits equal the sequential sum in
+    token order (normal draws), and the plain version within the reference's
+    tolerance where x holds small integers (every fp32 partial sum exact,
+    so any summation order gives the same value). Returns the max abs
+    errors against the plain version."""
+    errs = {}
+    for kind, T, D, E, K, C in OVERFLOW_CASES:
+        if kind == "one row":
+            eid = torch.zeros((T, K), dtype=torch.int32, device=DEV)
+            slot = eid.clone()
+        else:
+            eid, slot = (torch.from_numpy(rng.integers(0, n, size=(T, K))
+                                          .astype(np.int32)).to(DEV)
+                         for n in (E, C))
+        if shuffle_kernel.dispatch_route(T * K) != "walk":
+            _fail(f"overflow {kind}: not on the walk route")
+        x = rand(rng, (T, D), dtype)
+        out = dispatch(x, eid, slot, E, C, impl="kernel")
+        if not torch.equal(out, in_token_order(x, eid, slot, E, C)):
+            _fail(f"dispatch overflow {kind} {dtype}: not the sum in token "
+                  f"order")
+        xi = torch.from_numpy(rng.integers(-8, 9, size=(T, D))).to(DEV, dtype)
+        errs[f"overflow {kind} {dtype}"] = close_or_fail(
+            dispatch(xi, eid, slot, E, C, impl="kernel"),
+            dispatch(xi, eid, slot, E, C, impl="xla"), SHUFFLE_TOL[dtype],
+            f"dispatch overflow {kind} {dtype}")
+    return errs
+
+
 def check_shuffle(rng):
-    """The dispatch and combine kernels against their plain versions, then
-    timed at grok-1-314b's served prefill (4 rows x 512 tokens, top-2 of 8
-    experts, C = 160, D = 6144, bf16) and decode (T = 1, C = 4)."""
+    """The dispatch and combine kernels against their plain versions (and
+    dispatch past its hit list), then at grok-1-314b's served prefill (4
+    rows x 512 tokens, top-2 of 8 experts, C = 160, D = 6144, bf16) and
+    decode (T = 1, C = 4): dispatch bit for bit the gather of the kept
+    tokens, and timed."""
     worst = {"dispatch": {}, "combine": {}}
 
     def note(key, errs):
@@ -833,6 +934,8 @@ def check_shuffle(rng):
                    torch.ones((T, 1), device=DEV), T, impl="kernel")
     torch.cuda.synchronize()
     worst["combine"]["round trip"] = close_or_fail(back, x, 1e-6, "round trip")
+    for dtype in (torch.float32, torch.bfloat16):
+        worst["dispatch"].update(check_overflow(rng, dtype))
     B, E, K, D = 4, 8, 2, 6144
     entries = {"dispatch": {}, "combine": {}}
     work = {}
@@ -845,6 +948,7 @@ def check_shuffle(rng):
             errs = shuffle_close(x, y, gates.float(), eid, slot, R, C,
                                  f"served T={T} {dtype}")
             note(f"served T={T} {dtype}", errs)
+            gather_or_fail(x, eid, slot, R, C, f"served T={T} {dtype}")
         # timed in bf16, the served dtype, with bf16 gates as the MoE block
         # passes them
         kept = (slot >= 0) & (slot < C)
@@ -883,7 +987,23 @@ def check_shuffle(rng):
                 ms=time_ms(kern), call_ms=time_ms(kern, spin=False),
                 plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib),
                 bound_ms=bound_ms, bound_by=bound_by)
+        entries["dispatch"][f"T={T}"]["kernel_route"] = \
+            shuffle_kernel.dispatch_route(N * K)
         del x, y, mg, flat_x
+    # where dispatch's time goes: the prefill's routing at D = 8 (the same
+    # grid and walk, one 16-byte piece a row: walk_ms), and a launch with
+    # next to nothing to move (the direct route on one row of 8:
+    # launch_floor_ms). Their own generator, so that the later phases'
+    # inputs stay those of the earlier slices
+    frng = np.random.default_rng(17)
+    eid, slot = served_routing(frng, B, 512, E, K, 160)
+    x8 = rand(frng, (B * 512, 8), torch.bfloat16)
+    entries["dispatch"]["T=512"]["walk_ms"] = time_ms(
+        lambda: dispatch(x8, eid, slot, B * E, 160, impl="kernel"))
+    one = torch.zeros((1, 1), dtype=torch.int32, device=DEV)
+    x1 = rand(frng, (1, 8), torch.bfloat16)
+    entries["dispatch"]["T=1"]["launch_floor_ms"] = time_ms(
+        lambda: dispatch(x1, one, one, 1, 1, impl="kernel"))
     log("shuffle_work", json.dumps(work))
     out = []
     for name, line in (("dispatch", 51), ("combine", 105)):
@@ -1119,7 +1239,7 @@ def main():
     lap("build")
     log("build", json.dumps(dict(seconds=phase_s["build"], per_source=built)))
     _DISASSEMBLY.update(start_disassembly(
-        ("flash_attention", "linear_scan", "diag_scan")))
+        ("flash_attention", "linear_scan", "diag_scan", "shuffle_dispatch")))
     rng = np.random.default_rng(42)
     kernels = [check_flash(rng), check_paged(rng), check_gla(rng),
                check_diag(rng), *check_shuffle(rng)]
@@ -1128,6 +1248,8 @@ def main():
     log("flash_build", json.dumps(flash_build))
     scan_build = scan_build_facts()
     log("scan_build", json.dumps(scan_build))
+    shuffle_build = shuffle_build_facts()
+    log("shuffle_build", json.dumps(shuffle_build))
     lap("build facts")
     cfg = get_config("qwen3-0.6b")
     rcfg = get_config("rwkv6-3b")
@@ -1157,7 +1279,7 @@ def main():
     def zero_counts():
         for fn in counted:
             fn.launches = 0
-        for fn in (flash_attention, gla_scan, diag_scan):
+        for fn in (flash_attention, gla_scan, diag_scan, dispatch):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
     def free():
@@ -1232,10 +1354,15 @@ def main():
                 for i in range(8)]
     per_batch = kcfg.n_layers * (1 + 32)     # prefill and 32 decode steps
     zero_counts()
+    # dispatch: the walk in prefill (2048 pairs a batch row), the direct
+    # route in decode (8 pairs)
     kloop = serve(kcfg, kprompts, {dispatch: per_batch, combine: per_batch,
                                    flash_attention: kcfg.n_layers},
-                  params=kparams)
+                  params=kparams,
+                  routes={dispatch: {"walk": kcfg.n_layers,
+                                     "direct": kcfg.n_layers * 32}})
     launches["dispatch"] = {kcfg.name: dispatch.launches}
+    shuffle_routes = {kcfg.name: dict(dispatch.launches_by_route)}
     launches["combine"] = {kcfg.name: combine.launches}
     launches["flash_attention"][kcfg.name] = flash_attention.launches
     flash_routes[kcfg.name] = dict(flash_attention.launches_by_route)
@@ -1247,6 +1374,11 @@ def main():
     for name, lib in (("gla_scan", "linear_scan"), ("diag_scan", "diag_scan")):
         next(k for k in kernels if k["name"] == name).update(
             launches_by_route=scan_routes[name], build=scan_build[lib])
+    next(k for k in kernels if k["name"] == "dispatch").update(
+        launches_by_route=shuffle_routes,
+        build={f: v for f, v in shuffle_build.items() if "dispatch" in f})
+    next(k for k in kernels if k["name"] == "combine").update(
+        build={f: v for f, v in shuffle_build.items() if "combine" in f})
     for k in kernels:
         k["launches_by_path"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]].values())

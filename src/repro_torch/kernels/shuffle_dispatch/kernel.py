@@ -4,8 +4,9 @@
 They replace the Pallas TPU kernels of the same names
 (``repro/kernels/shuffle_dispatch/kernel.py``). The source note in the
 ``.cu`` file says what bounds them on the H100 and how their design deals
-with that. ``ops.dispatch`` and ``ops.combine`` are the wrappers that
-dispatch and count launches.
+with that. Dispatch has two routes, chosen by ``dispatch_route`` from the
+number of pairs alone. ``ops.dispatch`` and ``ops.combine`` are the wrappers
+that dispatch and count launches.
 """
 from __future__ import annotations
 
@@ -20,11 +21,28 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "shuffle_dispatch_fwd": ([_I] + [_P] * 4 + [_I] * 5 + [_P], _I),
     "shuffle_combine_fwd": ([_I, _I] + [_P] * 5 + [_I] * 5 + [_P], _I),
+    "shuffle_dispatch_route": ([ctypes.c_longlong], _I),
 }
+# csrc/shuffle_dispatch.cu: a block walks the assignment for its rows, or
+# (few pairs) each warp reads the pairs straight
+DISPATCH_ROUTES = ("walk", "direct")
+DIRECT_MAX_PAIRS = 64  # DIRECT_MAX_PAIRS
 
 
 def _lib():
     return _build.load("shuffle_dispatch", _SIGNATURES)
+
+
+def dispatch_route(pairs: int) -> str:
+    """The kernel a dispatch of ``pairs`` = N * K pairs launches:
+    ``"direct"`` for at most ``DIRECT_MAX_PAIRS`` (a decode step's few
+    tokens: no walk, no barrier), ``"walk"`` otherwise (a prefill)."""
+    return "direct" if pairs <= DIRECT_MAX_PAIRS else "walk"
+
+
+def dispatch_route_built(pairs: int) -> str:
+    """``dispatch_route`` as the built library computes it."""
+    return DISPATCH_ROUTES[_lib().shuffle_dispatch_route(pairs)]
 
 
 def check_assignment(what: str, device: torch.device, expert_id: torch.Tensor,
@@ -68,9 +86,10 @@ def _check_data(what: str, name: str, t: torch.Tensor, dim: int) -> None:
 def dispatch_kernel(x: torch.Tensor, expert_id: torch.Tensor,
                     slot: torch.Tensor, num_experts: int,
                     capacity: int) -> torch.Tensor:
-    """Launch the CUDA kernel. x: [N, D] contiguous CUDA tensor (float32 or
-    bfloat16); expert_id, slot: [N, K] contiguous int32 on x's device.
-    Returns the buffers [E, C, D] in x's dtype."""
+    """Launch the CUDA kernel of ``dispatch_route(N * K)``, once. x: [N, D]
+    contiguous CUDA tensor (float32 or bfloat16); expert_id, slot: [N, K]
+    contiguous int32 on x's device. Returns the buffers [E, C, D] in x's
+    dtype."""
     _check_data("dispatch", "x", x, 2)
     check_assignment("dispatch", x.device, expert_id, slot)
     if expert_id.shape[0] != x.shape[0]:

@@ -11,18 +11,30 @@ TPU kernels ``dispatch_kernel`` and ``combine_kernel`` in
 ``repro/kernels/shuffle_dispatch/kernel.py``. Both move rows and add a few
 of them, so their floor on the H100 is memory: at grok-1-314b's prefill
 (2048 tokens, top-2, 32 buffers of 160 rows of 6144, bf16) dispatch moves
-88 MB (0.026 ms at 3.35 TB/s) and combine 75 MB (0.023 ms). The TPU kernels
-turn both into one-hot mask products on the MXU; on Hopper they are
-gathers. Dispatch is output-stationary: a block owns eight (expert, slot)
-rows and a column tile, walks the assignment in token order and adds the x
-rows that land on its rows into an fp32 accumulator in shared memory, so
-repeated slots sum as the contract says, in an order that does not depend on
-scheduling, with no atomics; empty rows come out as zeros. Combine gathers
-each token's K rows and sums gate * row in fp32. Rows move in 16-byte loads.
+88 MB (0.026 ms at 3.35 TB/s) and combine 75 MB (0.023 ms); at its decode
+(4 tokens) one launch sets the time. The TPU kernels turn both into one-hot
+mask products on the MXU; on Hopper they are gathers that sum in registers.
+Dispatch is output-stationary and has two routes (``kernel.dispatch_route``,
+by the number of pairs). ``walk`` (a prefill): one block of 1024 threads an
+SM, each owning an equal run of at most 64 (expert, slot) rows over the whole
+width (39 at grok's prefill); its threads read the assignment once with
+16-byte loads, and one block-wide scan lists the hits on its rows in token
+order in shared memory. A row with at most one listed pair (every row under
+served routing) is then a copy of that x row or zeros, each lane keeping 8
+16-byte loads in flight; any other row is summed by a warp in fp32
+registers, walking its hits in order. Hits past the list's 1024 entries are
+found again, in order, by the warp of their row. ``direct`` (at most 64
+pairs, a decode step): no walk and no barrier; each warp reads the pairs
+straight and adds its row's hits. Either way repeated slots sum in token
+order, the bits do not depend on scheduling, and no atomics touch the data.
+Combine: a thread takes a 16-byte piece of a token's row, reads the token's
+ids and gates for up to four pairs at once (two at grok's top-2), issues
+those rows' loads together and sums gate * row in fp32 in k order.
 
 ``impl="kernel"`` takes the plain version only when the tensors lie on the
 CPU. On CUDA tensors it launches the kernel or raises; it never falls back.
-``dispatch.launches`` and ``combine.launches`` count kernel launches.
+``dispatch.launches`` and ``combine.launches`` count kernel launches, and
+``dispatch.launches_by_route`` splits dispatch's by route.
 """
 from __future__ import annotations
 
@@ -31,7 +43,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .kernel import combine_kernel, dispatch_kernel
+from .kernel import (DISPATCH_ROUTES, combine_kernel, dispatch_kernel,
+                     dispatch_route)
 from .ref import combine_ref, dispatch_ref
 
 
@@ -86,6 +99,7 @@ def dispatch(x: torch.Tensor, expert_id: torch.Tensor, slot: torch.Tensor,
         out = dispatch_kernel(x.contiguous(), expert_id.int().contiguous(),
                               slot.int().contiguous(), num_experts, capacity)
         dispatch.launches += 1
+        dispatch.launches_by_route[dispatch_route(expert_id.numel())] += 1
         return out
     if impl == "xla":
         return dispatch_ref(x, expert_id, slot, num_experts, capacity)
@@ -93,6 +107,7 @@ def dispatch(x: torch.Tensor, expert_id: torch.Tensor, slot: torch.Tensor,
 
 
 dispatch.launches = 0
+dispatch.launches_by_route = dict.fromkeys(DISPATCH_ROUTES, 0)
 
 
 def combine(y: torch.Tensor, expert_id: torch.Tensor, slot: torch.Tensor,

@@ -24,6 +24,7 @@ from repro_torch.kernels.linear_scan import kernel as scan_kernel
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan
 from repro_torch.kernels.linear_scan.ref import gla_scan_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.shuffle_dispatch import kernel as shuffle_kernel
 from repro_torch.kernels.shuffle_dispatch.ops import (combine, compute_slots,
                                                       dispatch)
 from repro_torch.launch.serve import Request, ServeLoop
@@ -106,6 +107,16 @@ SHUFFLE_CASES = [
 ]
 SHUFFLE_KINDS = ("slots", "drops", "repeats")
 SHUFFLE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # the reference's MoE
+# dispatch's walk route lists at most 1024 hits a block (HIT_CAP in
+# csrc/shuffle_dispatch.cu; its blocks own 16 rows): "one row" sends all N
+# tokens' K pairs to (e = 0, c = 0); "spread" draws every pair's expert and
+# slot at random over a few rows, so that each block's rows collect several
+# times the list, over the whole token range
+OVERFLOW_CASES = [
+    # kind, T, D, E, K, C
+    ("one row", 4096, 64, 4, 2, 8),
+    ("spread", 3001, 40, 3, 3, 8),
+]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -315,10 +326,13 @@ def test_shuffle_kernels_match_plain(case, kind, dtype, cuda_device):
     x, y = (torch.from_numpy(a).to(cuda_device, dt) for a in (x, y))
     eid, slot = (torch.from_numpy(a).to(cuda_device) for a in (eid, slot))
     tol = dict(rtol=SHUFFLE_TOL[dtype], atol=SHUFFLE_TOL[dtype])
-    before = dispatch.launches
+    route = shuffle_kernel.dispatch_route(T * K)
+    before = dispatch.launches, dispatch.launches_by_route[route]
     out = dispatch(x, eid, slot, E, C, impl="kernel")
     torch.cuda.synchronize()
-    assert dispatch.launches == before + 1 and out.dtype == dt
+    assert (dispatch.launches, dispatch.launches_by_route[route]) == \
+        (before[0] + 1, before[1] + 1) and out.dtype == dt
+    assert route == ("direct" if T * K <= 64 else "walk")
     _close(out, dispatch(x, eid, slot, E, C, impl="xla"), **tol)
     for g_dt in {torch.float32, dt}:
         g = torch.from_numpy(gates).to(cuda_device, g_dt)
@@ -327,6 +341,103 @@ def test_shuffle_kernels_match_plain(case, kind, dtype, cuda_device):
         torch.cuda.synchronize()
         assert combine.launches == before + 1 and out.dtype == dt
         _close(out, combine(y, eid, slot, g, T, impl="xla"), **tol)
+
+
+def _served_routing(rng, B, T, E, K, C, device):
+    """grok-1-314b's routing as the MoE block hands it to the kernels: K
+    distinct experts of E a token, row b's ids offset by b * E, slots from
+    ``compute_slots`` over the B * E buffers (at most one pair a row)."""
+    eid = np.argsort(rng.random((B, T, E)), axis=2)[..., :K]
+    flat = torch.from_numpy(eid + E * np.arange(B)[:, None, None]).reshape(
+        B * T, K).int()
+    return flat.to(device), compute_slots(flat, B * E, C).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,C", [(512, 160), (1, 4)])
+def test_served_dispatch_is_the_gather(T, C, dtype, cuda_device):
+    """At grok-1-314b's served prefill and decode (4 rows x 8 experts,
+    top-2, D = 6144) every kept pair has a row of its own, so dispatch is a
+    gather: each kept token's x at its row, bit for bit, and 0.0 in every
+    other row."""
+    B, E, K, D = 4, 8, 2, 6144
+    rng = np.random.default_rng(T)
+    eid, slot = _served_routing(rng, B, T, E, K, C, cuda_device)
+    x = torch.from_numpy(rng.normal(size=(B * T, D))).to(cuda_device,
+                                                          DTYPES[dtype])
+    route = shuffle_kernel.dispatch_route(eid.numel())
+    before = dispatch.launches_by_route[route]
+    out = dispatch(x, eid, slot, B * E, C, impl="kernel")
+    torch.cuda.synchronize()
+    assert dispatch.launches_by_route[route] == before + 1
+    assert route == ("walk" if T > 1 else "direct")
+    kept = (slot >= 0) & (slot < C)
+    rows = (eid.long() * C + slot.long())[kept]
+    assert torch.unique(rows).numel() == rows.numel()
+    expect = torch.zeros((B * E * C, D), dtype=x.dtype, device=cuda_device)
+    expect[rows] = x.index_select(0, torch.nonzero(kept)[:, 0])
+    assert torch.equal(out.reshape(B * E * C, D), expect)
+
+
+def _overflow_routing(rng, kind, T, E, K, C):
+    if kind == "one row":
+        return np.zeros((T, K), np.int32), np.zeros((T, K), np.int32)
+    return (rng.integers(0, E, size=(T, K)).astype(np.int32),
+            rng.integers(0, C, size=(T, K)).astype(np.int32))
+
+
+def _in_token_order(x, eid, slot, E, C):
+    """Each row's fp32 sum of x over its pairs taken one after another in
+    pair (so token) order, as numpy's cumsum takes them, rounded to x's
+    dtype: the sum as the kernel defines it, [E, C, D]."""
+    xs = x.float().cpu().numpy()
+    e, s = eid.reshape(-1), slot.reshape(-1)
+    K = eid.shape[1]
+    out = np.zeros((E * C, xs.shape[1]), np.float32)
+    for row in np.unique(e * C + s):
+        toks = np.nonzero(e * C + s == row)[0] // K
+        out[row] = np.cumsum(xs[toks], axis=0, dtype=np.float32)[-1]
+    return torch.from_numpy(out.reshape(E, C, -1)).to(x.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", OVERFLOW_CASES, ids=lambda c: c[0])
+def test_dispatch_hit_list_overflow(case, dtype, cuda_device):
+    """Rows that collect more pairs than the walk's hit list holds: the sum
+    keeps its token order across the list and the pairs found past it
+    (bits equal a sequential fp32 sum), and it equals the plain version at
+    the reference's tolerance. For the second check x holds small integers:
+    every fp32 partial sum is then exact, so the plain version's other
+    summation order gives the same value (with normal draws, thousands of
+    terms in one row differ by more than 1e-5 between any two orders)."""
+    kind, T, D, E, K, C = case
+    rng = np.random.default_rng(T)
+    eid, slot = _overflow_routing(rng, kind, T, E, K, C)
+    assert shuffle_kernel.dispatch_route(T * K) == "walk"
+    dt = DTYPES[dtype]
+    eid, slot = (torch.from_numpy(a).to(cuda_device) for a in (eid, slot))
+    x = torch.from_numpy(rng.normal(size=(T, D))).to(cuda_device, dt)
+    before = dispatch.launches_by_route["walk"]
+    out = dispatch(x, eid, slot, E, C, impl="kernel")
+    torch.cuda.synchronize()
+    assert dispatch.launches_by_route["walk"] == before + 1
+    assert torch.equal(out.cpu(), _in_token_order(x, eid.cpu().numpy(),
+                                                  slot.cpu().numpy(), E, C))
+    xi = torch.from_numpy(rng.integers(-8, 9, size=(T, D))).to(cuda_device,
+                                                                dt)
+    tol = dict(rtol=SHUFFLE_TOL[dtype], atol=SHUFFLE_TOL[dtype])
+    _close(dispatch(xi, eid, slot, E, C, impl="kernel"),
+           dispatch(xi, eid, slot, E, C, impl="xla"), **tol)
+
+
+@pytest.mark.cuda
+def test_dispatch_route_matches_the_library(cuda_device):
+    """The wrapper counts each launch under the route the library takes."""
+    for pairs in (0, 1, 8, 63, 64, 65, 128, 4096, 2 ** 31 - 1):
+        assert shuffle_kernel.dispatch_route_built(pairs) == \
+            shuffle_kernel.dispatch_route(pairs)
 
 
 @pytest.mark.cuda

@@ -24,8 +24,8 @@ from repro_torch.kernels.shuffle_dispatch import kernel as shuffle_kernel
 from repro_torch.kernels.shuffle_dispatch.ops import (combine, compute_slots,
                                                       dispatch,
                                                       host_dispatch_plan)
-from test_torch_cuda import (SHUFFLE_CASES, SHUFFLE_KINDS, SHUFFLE_TOL,
-                             shuffle_inputs)
+from test_torch_cuda import (OVERFLOW_CASES, SHUFFLE_CASES, SHUFFLE_KINDS,
+                             SHUFFLE_TOL, shuffle_inputs)
 
 torch.set_num_threads(2)
 
@@ -179,3 +179,41 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         dispatch(x, ids, ids, 2, 4, impl="pallas")
     with pytest.raises(ValueError, match="num_tokens"):
         combine(torch.zeros(2, 4, 8), ids, ids, torch.zeros(4, 2), 3)
+
+
+@pytest.mark.parametrize("pairs,route", [
+    (4 * 512 * 2, "walk"),       # grok-1-314b's served prefill
+    (4 * 1 * 2, "direct"),       # and its decode step
+    (0, "direct"), (1, "direct"),
+    (shuffle_kernel.DIRECT_MAX_PAIRS, "direct"),     # the boundary
+    (shuffle_kernel.DIRECT_MAX_PAIRS + 1, "walk"),
+    (2 ** 31 - 1, "walk"),
+])
+def test_dispatch_route_at_the_served_shapes_and_the_boundary(pairs, route):
+    """The wrapper picks dispatch's kernel from the number of pairs alone:
+    a decode step's few pairs go straight to the rows, a prefill's through
+    the walk."""
+    assert shuffle_kernel.dispatch_route(pairs) == route
+    assert route in shuffle_kernel.DISPATCH_ROUTES
+
+
+def test_card_cases_reach_both_dispatch_routes():
+    """The card tests' cases launch each route: the served decode and the
+    round trip take ``direct``, the reference's cases, the served prefill
+    and the hit-list overflows ``walk``."""
+    routes = {shuffle_kernel.dispatch_route(T * K)
+              for T, D, E, K, C in SHUFFLE_CASES}
+    assert routes == set(shuffle_kernel.DISPATCH_ROUTES)
+    assert {shuffle_kernel.dispatch_route(T * K)
+            for _, T, D, E, K, C in OVERFLOW_CASES} == {"walk"}
+    assert shuffle_kernel.dispatch_route(32 * 1) == "direct"    # round trip
+
+
+def test_dispatch_on_cpu_counts_no_route():
+    """On CPU tensors the wrapper takes the plain version and counts no
+    launch on any route."""
+    x = torch.ones(4, 8)
+    ids = torch.zeros(4, 2, dtype=torch.int32)
+    before = dict(dispatch.launches_by_route)
+    dispatch(x, ids, ids, 2, 4, impl="kernel")
+    assert dispatch.launches_by_route == before
