@@ -17,13 +17,22 @@ non-zero exit):
    scan's FMA and tensor-core kernels; fails without HMMA in the latter),
    and of the shuffle kernels (``shuffle_build``: dispatch's walk and
    direct kernels and combine, with their static and dynamic shared
-   memory);
+   memory), and of the paged kernels (``paged_build``: a bf16 kernel for
+   each head-dim bound and an fp32 kernel for each group bound, with the
+   dynamic shared memory a block asks for at the served geometries; fails
+   without HMMA in a bf16 kernel);
    the disassembly runs in the background during phase 3 and both lines
    are logged after it;
 3. each kernel against its plain PyTorch version on the card: the reference
    test cases in fp32 and bf16, and the serving paths' own shapes, with
    CUDA-event timings of the kernel, its plain version and (flash) SDPA as a
-   yardstick that the port never calls; flash on both routes (fp32 and
+   yardstick that the port never calls; paged attention at qwen3-0.6b's
+   decode read over an fp32 and a bf16 pool, a long bf16 batch (32
+   sequences of 2048-4096 keys), glm4-9b's group (32 query heads over 2
+   kv heads) and recurrentgemma-9b's (16 over 1 of 256), each also held to
+   a per-sequence relative error that one dropped chunk of keys fails, with
+   dense SDPA over the gathered K/V as a yardstick that is not the same
+   function; flash on both routes (fp32 and
    D % 8 != 0 scalar, bf16 wgmma) over the reference's cases and the edges
    of its tiles and masks, and timed at the prefills of qwen3-0.6b,
    recurrentgemma-9b (D = 256, one kv head, window 2048) and grok-1-314b
@@ -48,7 +57,8 @@ non-zero exit):
    prefill through the flash kernel;
 5. KV pool: the served prompts' K/V written into a ``PagedKVCache`` at
    qwen3's geometry, evicted and restored, and read in place by the paged
-   kernel, against its plain version and dense attention;
+   kernel, against its plain version and dense attention: exactly 84
+   launches (3 attended batches of 28 layers);
 6. profile: host wall time, device busy time and idle share of one warm
    prefill and one warm decode step of qwen3-0.6b (torch.profiler);
 7. serve: full-width rwkv6-3b ``ServeLoop`` (32 layers, bf16) answers 8
@@ -86,6 +96,10 @@ last line is ``{"ok": true, "device":
 {...}}``. Without CUDA, or without
 the rest of the repo beside it, the script exits non-zero and prints no
 result.
+
+``tools/paged_shapes.py`` times the paged kernel alone at this script's
+paged shapes (``paged_cases``, ``paged_shape``), with another checkout's
+``repro_torch`` or with the ring filled by ``cp.async`` only.
 """
 import atexit
 import gc
@@ -119,6 +133,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.linear_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import gla_scan_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import kernel as paged_kernel  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_attention  # noqa: E402
 from repro_torch.kernels.shuffle_dispatch import kernel as shuffle_kernel  # noqa: E402
 from repro_torch.kernels.shuffle_dispatch.ops import (  # noqa: E402
@@ -131,6 +146,9 @@ DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+# the paged kernel's timed shapes, besides TOL: each sequence's relative
+# (Frobenius) error over its heads, which one dropped chunk of keys exceeds
+PAGED_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 POOL_TOL = 2e-5
 GLA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # the reference's
 SHUFFLE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # the reference's
@@ -385,6 +403,36 @@ def shuffle_build_facts():
     return facts
 
 
+def paged_build_facts():
+    """The paged kernels' build facts (bf16 by its head-dim bound DM, fp32
+    by its group bound GB) and the dynamic shared memory a block asks for at
+    the served geometries (the library's count, the one its launch passes).
+    Fails unless every bf16 kernel has HMMA instructions."""
+    def short(mangled):
+        m = re.search(r"paged_attention_kernelI(13__nv_bfloat16|f)Li(\d+)ELi"
+                      r"(\d+)E", mangled)
+        if not m:
+            return mangled
+        return (f"paged<bf16,DM={m.group(2)}>" if m.group(1) != "f"
+                else f"paged<f32,GB={m.group(3)}>")
+
+    facts = build_facts("paged_attention", short)
+    for f in facts.values():
+        f.setdefault("static_smem", 0)            # ptxas names none
+    for fn, f in facts.items():
+        if "bf16" in fn and not f.get("hmma"):
+            _fail(f"no HMMA in the bf16 paged kernel {fn}: {facts}")
+    facts["dynamic_smem"] = {
+        f"{name} {'fp32' if dtype == torch.float32 else 'bf16'}":
+            paged_kernel.smem_bytes(dtype, G, D)
+        for name, G, D in (("qwen3 G=2 D=128", 2, 128),
+                           ("grok G=6 D=128", 6, 128),
+                           ("glm4 G=16 D=128", 16, 128),
+                           ("recurrentgemma G=16 D=256", 16, 256))
+        for dtype in (torch.float32, torch.bfloat16)}
+    return facts
+
+
 # -- phase 3: kernels against their plain versions ------------------------------
 def check_flash(rng):
     worst = {}
@@ -507,7 +555,7 @@ def check_paged(rng):
             ref = paged_attention(q, kv, bt, ln, impl="xla")
             err = close_or_fail(out, ref, TOL[dtype], f"paged {case} {dtype}")
             worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
-        # long sequences: several pages per split block (double-buffered)
+        # long sequences: many chunks per split block
         q, kv, bt, ln = paged_inputs(rng, 2, 4, 1, 128, 600, 16, [7999, 3001],
                                      dtype)
         out = paged_attention(q, kv, bt, ln, impl="kernel")
@@ -519,34 +567,136 @@ def check_paged(rng):
     # page 64, ragged lengths up to max_len 552, tables in random slot order
     B, H, KH, D, P, page = 4, 16, 8, 128, 40, 64
     lengths = [552, 471, 300, 65]
-    out = None
+    slice_inputs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        q, kv, bt, ln = paged_inputs(rng, B, H, KH, D, P, page, lengths, dtype)
-        out = paged_attention(q, kv, bt, ln, impl="kernel")
-        torch.cuda.synchronize()
-        ref = paged_attention(q, kv, bt, ln, impl="xla")
-        err = close_or_fail(out, ref, TOL[dtype], f"paged slice shape {dtype}")
-        worst[f"slice {dtype}"] = err
-    bt_d = torch.as_tensor(bt, device=DEV)
-    ln_d = torch.as_tensor(ln, device=DEV)
-    def run():
-        return paged_attention(q, kv, bt_d, ln_d, impl="kernel")
-
-    kernel_ms, call_ms = time_ms(run), time_ms(run, spin=False)
-    plain_ms = time_ms(lambda: paged_attention(q, kv, bt_d, ln_d, impl="xla"))
-    tokens = int(sum(lengths))                       # live K/V rows
-    nbytes = (tokens * 2 * KH * D + 2 * q.numel()) * kv.element_size() \
-        + bt.nbytes + ln.nbytes
-    bound_ms, bound_by = bound(nbytes, 4 * H * D * tokens, torch.float32)
+        slice_inputs[dtype] = paged_inputs(rng, B, H, KH, D, P, page, lengths,
+                                           dtype)
+    shapes = {name: paged_shape(*inputs)
+              for name, inputs in paged_cases(slice_inputs).items()}
+    for name, entry in shapes.items():
+        worst[name] = entry["max_abs_err"]
+    top = shapes["slice fp32"]
     return dict(name="paged_attention", route="cuda",
                 source="src/repro_torch/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention/kernel.py:79",
-                shape=f"B={B} H={H} KH={KH} D={D} page={page} "
-                      f"lengths={lengths} fp32",
-                max_abs_err=err, tolerance=TOL[torch.float32],
-                cases_max_abs_err=worst, ms=kernel_ms, kernel_ms=kernel_ms,
-                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                shape=top["shape"], tolerance=TOL[torch.float32],
+                cases_max_abs_err=worst, max_abs_err=top["max_abs_err"],
+                ms=top["kernel_ms"], kernel_ms=top["kernel_ms"],
+                call_ms=top["call_ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=None, shapes=shapes)
+
+
+def paged_long_inputs(B, H, KH, D, page, dtype, seed):
+    """B sequences of lengths drawn from integers(2048, 4097) with the
+    phase's seed (its own generator, so that the later kernels' inputs stay
+    those of the earlier slices), each on its own pages of a pool of B * 64
+    pages drawn on the card, tables in random page order."""
+    lrng = np.random.default_rng(seed)
+    lengths = [int(n) for n in lrng.integers(2048, 4097, size=B)]
+    width = 4096 // page
+    P = B * width
+    gen = torch.Generator(DEV).manual_seed(seed)
+    kv = torch.randn((P, page, 2, KH, D), generator=gen, device=DEV,
+                     dtype=dtype)
+    q = torch.randn((B, H, D), generator=gen, device=DEV, dtype=dtype)
+    perm = lrng.permutation(P).astype(np.int32)
+    bt = np.full((B, width), -1, np.int32)
+    for b, n in enumerate(lengths):
+        npages = -(-n // page)
+        bt[b, :npages] = perm[b * width:b * width + npages]
+    return q, kv, bt, np.asarray(lengths, np.int32)
+
+
+def paged_cases(slice_inputs):
+    """The paged kernel's timed shapes: qwen3-0.6b's served decode read
+    (B=4, page 64, lengths 552/471/300/65) over an fp32 pool (the served
+    one) and a bf16 one, a long bf16 batch at qwen3's geometry (B=32,
+    lengths 2048-4096), glm4-9b's group (32 query heads over 2 kv heads)
+    and recurrentgemma-9b's (16 over 1 of 256, the ring filled by
+    ``cp.async``) at the same lengths."""
+    return {
+        "slice fp32": slice_inputs[torch.float32],
+        "slice bf16": slice_inputs[torch.bfloat16],
+        "long bf16": paged_long_inputs(32, 16, 8, 128, 64, torch.bfloat16, 42),
+        "glm4 group bf16": paged_long_inputs(32, 32, 2, 128, 64,
+                                             torch.bfloat16, 42),
+        "recurrentgemma group bf16": paged_long_inputs(32, 16, 1, 256, 64,
+                                                       torch.bfloat16, 42),
+    }
+
+
+def seq_rel_err(out, ref):
+    """The largest relative (Frobenius) error of one sequence's output."""
+    out, ref = out.float().flatten(1), ref.float().flatten(1)
+    return float(((out - ref).norm(dim=1) / ref.norm(dim=1)).max())
+
+
+def paged_shape(q, kv, bt, ln):
+    """The paged kernel at one shape: its error against the plain version,
+    within TOL and, per sequence, within PAGED_REL_TOL, which the plain
+    version with one chunk of keys dropped (the longest sequence's last 32,
+    the smaller chunk of the two routes) must fail; kernel_ms, call_ms,
+    plain_ms, the bound and, as a yardstick that the port never calls,
+    dense SDPA on the same K/V already gathered into [B, KH, T, D] with a
+    key mask (not the same function: the gather is not timed)."""
+    B, H, D = q.shape
+    P, page, _, KH, _ = kv.shape
+    dtype = q.dtype
+    lengths = [int(n) for n in ln]
+    bt_d, ln_d = torch.as_tensor(bt, device=DEV), torch.as_tensor(ln, device=DEV)
+    entry = dict(shape=f"B={B} H={H} KH={KH} D={D} page={page} "
+                       f"{'fp32' if dtype == torch.float32 else 'bf16'} "
+                       f"pool of {P} pages, lengths "
+                       + (str(lengths) if B <= 4 else
+                          f"{min(lengths)}-{max(lengths)} (sum "
+                          f"{sum(lengths)})"),
+                 tolerance=TOL[dtype], rel_tolerance=PAGED_REL_TOL[dtype])
+    tokens = sum(lengths)                            # live K/V rows
+    nbytes = (tokens * 2 * KH * D + 2 * q.numel()) * kv.element_size() \
+        + bt.nbytes + ln.nbytes
+    entry["bound_ms"], entry["bound_by"] = bound(nbytes, 4 * H * D * tokens,
+                                                 dtype)
+    got = paged_attention(q, kv, bt_d, ln_d, impl="kernel")
+    torch.cuda.synchronize()
+    ref = paged_attention(q, kv, bt_d, ln_d, impl="xla")
+    entry["max_abs_err"] = close_or_fail(got, ref, TOL[dtype], f"paged "
+                                         f"{entry['shape']}")
+    entry["rel_err"] = seq_rel_err(got, ref)
+    if entry["rel_err"] > PAGED_REL_TOL[dtype]:
+        _fail(f"paged {entry['shape']}: a sequence's relative error "
+              f"{entry['rel_err']} over {PAGED_REL_TOL[dtype]}")
+    short = ln.copy()             # 32 keys: the fp32 route's chunk, half bf16's
+    short[int(np.argmax(ln))] -= 32
+    entry["dropped_chunk_rel_err"] = seq_rel_err(paged_attention(
+        q, kv, bt_d, torch.as_tensor(short, device=DEV), impl="xla"), ref)
+    if entry["dropped_chunk_rel_err"] <= PAGED_REL_TOL[dtype]:
+        _fail(f"paged {entry['shape']}: the check passes a dropped chunk "
+              f"({entry['dropped_chunk_rel_err']})")
+    del got, ref
+
+    def run():
+        return paged_attention(q, kv, bt_d, ln_d, impl="kernel")
+
+    entry["kernel_ms"] = entry["ms"] = time_ms(run)
+    entry["call_ms"] = time_ms(run, spin=False)
+    entry["plain_ms"] = time_ms(
+        lambda: paged_attention(q, kv, bt_d, ln_d, impl="xla"),
+        reps=5 if B > 4 else 20)
+    # the yardstick: dense [B, KH, T, D] K and V, a key mask by length
+    T = bt.shape[1] * page
+    dense = kv[bt_d.clamp_min(0).long()]            # [B, pages, page, 2, KH, D]
+    k = dense[..., 0, :, :].reshape(B, T, KH, D).transpose(1, 2).contiguous()
+    v = dense[..., 1, :, :].reshape(B, T, KH, D).transpose(1, 2).contiguous()
+    del dense
+    mask = (torch.arange(T, device=DEV)[None, :] < ln_d[:, None].long()
+            )[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entry["yardstick"] = "dense SDPA, not the same function"
+    entry["yardstick_ms"] = time_ms(
+        lambda: sdpa(q4, k, v, attn_mask=mask, enable_gqa=True))
+    return entry
 
 
 def gla_inputs(rng, B, T, Dk, Dv, w0, dtype, rk_scale=1.0):
@@ -1239,7 +1389,8 @@ def main():
     lap("build")
     log("build", json.dumps(dict(seconds=phase_s["build"], per_source=built)))
     _DISASSEMBLY.update(start_disassembly(
-        ("flash_attention", "linear_scan", "diag_scan", "shuffle_dispatch")))
+        ("flash_attention", "paged_attention", "linear_scan", "diag_scan",
+         "shuffle_dispatch")))
     rng = np.random.default_rng(42)
     kernels = [check_flash(rng), check_paged(rng), check_gla(rng),
                check_diag(rng), *check_shuffle(rng)]
@@ -1250,6 +1401,8 @@ def main():
     log("scan_build", json.dumps(scan_build))
     shuffle_build = shuffle_build_facts()
     log("shuffle_build", json.dumps(shuffle_build))
+    paged_build = paged_build_facts()
+    log("paged_build", json.dumps(paged_build))
     lap("build facts")
     cfg = get_config("qwen3-0.6b")
     rcfg = get_config("rwkv6-3b")
@@ -1293,6 +1446,9 @@ def main():
     zero_counts()
     loop = serve(cfg, prompts, {flash_attention: cfg.n_layers}, hbm_pages=18)
     kv_pool(loop, cfg, prompts, rng)
+    if paged_attention.launches != 3 * cfg.n_layers:   # 3 attended batches
+        _fail(f"paged_attention: {paged_attention.launches} launches on the "
+              f"{cfg.name} path, not {3 * cfg.n_layers}")
     launches = {"flash_attention": {cfg.name: flash_attention.launches},
                 "paged_attention": {cfg.name: paged_attention.launches}}
     flash_routes = {cfg.name: dict(flash_attention.launches_by_route)}
@@ -1379,6 +1535,8 @@ def main():
         build={f: v for f, v in shuffle_build.items() if "dispatch" in f})
     next(k for k in kernels if k["name"] == "combine").update(
         build={f: v for f, v in shuffle_build.items() if "combine" in f})
+    next(k for k in kernels if k["name"] == "paged_attention").update(
+        build=paged_build)
     for k in kernels:
         k["launches_by_path"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]].values())

@@ -11,7 +11,8 @@ that dispatches and counts launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 
@@ -20,34 +21,72 @@ from .. import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "paged_attention_fwd": ([_I] + [_P] * 8 + [_I] * 8 + [_F, _P], _I),
+    "paged_attention_fwd": ([_I] + [_P] * 5 + [_I] * 8 + [_F, _P], _I),
+    "paged_attention_capacity": ([_I] * 5 + [_P], _I),
+    "paged_attention_smem": ([_I] * 3 + [_P], _I),
 }
-GD_MAX = 1024                  # csrc/paged_attention.cu GD_MAX (G * D)
-SPLITS_MAX = 64                # csrc/paged_attention.cu SPLITS_MAX
-SMEM_MAX = 232448              # bytes of shared memory one block may use
-BLOCKS_PER_SM = 2              # split target: about this many blocks per SM
+# csrc/paged_attention.cu's limits and the chunk of keys a ring stage holds
+G_MAX = 16                     # query heads a kv head
+D_MAX = 256                    # head dim
+SPLITS_MAX = 8                 # blocks of a cluster (the portable size)
+CHUNK = {4: 32, 2: 64}         # keys a stage, by element size
+WAVES = 2.5                    # split plan, many pairs: waves of blocks
+MIN_CHUNKS_PER_BLOCK = 3       # split plan, few pairs: one wave of such blocks
+GRID_DIM_MAX = 65535           # B (grid z) and KH (grid x), as checked in C
+KEYS_MAX = 1 << 30             # max_pages * page
 
 
-def smem_bytes(G: int, D: int, page: int, elem: int, stages: int = 2) -> int:
-    """Shared memory of one split block (csrc/paged_attention.cu
-    smem_bytes): ``stages`` copies of a page's K and V rows in the input
-    type, then fp32 scratch."""
-    return 2 * stages * page * D * elem + 4 * (G * D + G * page + 3 * G)
+def split_plan(B: int, KH: int, max_pages: int, page: int, elem: int,
+               capacity: Callable[[int], int]):
+    """(splits, chunks_per_split): ``splits`` blocks, one cluster, share a
+    (sequence, kv head) and take its live chunks of keys in turn, so a block
+    walks at most ``chunks_per_split`` (the widest table's share) and a
+    shorter sequence less. ``capacity(s)`` is how many blocks in clusters of
+    ``s`` the card runs at once. Measured on the H100 (PERF.md): with
+    many (sequence, kv head) pairs, about WAVES waves of blocks even out
+    ragged lengths; with few, one wave of blocks of at least
+    MIN_CHUNKS_PER_BLOCK chunks each is fastest (a block that waits for a
+    second wave costs a whole block's time)."""
+    chunks = -(-max_pages * page // CHUNK[elem])
+    pairs = max(B * KH, 1)
+    top = max(1, min(SPLITS_MAX, chunks))
+    if 2 * pairs > capacity(1):
+        splits = int(WAVES * capacity(1) // pairs)
+    else:
+        splits = max([s for s in range(1, top + 1) if pairs * s <= capacity(s)],
+                     default=1)
+        splits = min(splits, -(-chunks // MIN_CHUNKS_PER_BLOCK))
+    splits = max(1, min(splits, top))
+    return splits, max(1, -(-chunks // splits))
 
 
-def split_plan(B: int, KH: int, max_pages: int, num_sms: int):
-    """(splits, pages_per_split): about BLOCKS_PER_SM blocks per SM over the
-    (sequence, kv head, split) grid, with no split left without a table
-    entry."""
-    want = -(-BLOCKS_PER_SM * num_sms // max(B * KH, 1))
-    splits = max(1, min(want, max_pages, SPLITS_MAX))
-    pages_per_split = -(-max_pages // splits) if max_pages else 1
-    splits = max(1, -(-max_pages // pages_per_split))
-    return splits, pages_per_split
+@functools.lru_cache(maxsize=None)
+def _capacity(device: int, dtype_code: int, G: int, D: int, splits: int) -> int:
+    """Blocks in clusters of ``splits`` that the card runs at once for this
+    geometry (the occupancy API, through the library)."""
+    lib = _lib()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.paged_attention_capacity(dtype_code, G, 1, D, splits,
+                                           ctypes.byref(n))
+    _build.check(lib, err, "paged_attention_capacity")
+    return n.value * splits
 
 
 def _lib():
     return _build.load("paged_attention", _SIGNATURES)
+
+
+def smem_bytes(dtype: torch.dtype, G: int, D: int) -> int:
+    """Dynamic shared memory one block takes for a group of G query heads
+    of D (the library's own count, the one its launch passes); raises past
+    the kernel's limits."""
+    lib = _lib()
+    n = ctypes.c_int(0)
+    _build.check(lib, lib.paged_attention_smem(_DTYPE_CODE[dtype], G, D,
+                                               ctypes.byref(n)),
+                 "paged_attention_smem")
+    return n.value
 
 
 def check_kernel_inputs(q: torch.Tensor, kv_pages: torch.Tensor,
@@ -92,47 +131,49 @@ def check_kernel_inputs(q: torch.Tensor, kv_pages: torch.Tensor,
                          f"{tuple(block_tables.shape)} must be [B, max_pages]"
                          f" and lengths {tuple(lengths.shape)} [B], B={B}")
     G = H // KH
-    if G * D > GD_MAX:
-        raise ValueError(f"paged_attention kernel: G*D = {G * D} over the "
-                         f"kernel's limit {GD_MAX}")
+    if G > G_MAX or D > D_MAX:
+        raise ValueError(f"paged_attention kernel: a group of {G} query heads"
+                         f" of {D} is past the kernel's limits ({G_MAX} heads"
+                         f" of at most {D_MAX})")
+    if B > GRID_DIM_MAX or KH > GRID_DIM_MAX:
+        raise ValueError(f"paged_attention kernel: B ({B}) and KH ({KH}) "
+                         f"must be at most {GRID_DIM_MAX}")
+    if block_tables.shape[1] * page > KEYS_MAX:
+        raise ValueError(f"paged_attention kernel: a table of "
+                         f"{block_tables.shape[1]} pages of {page} is over "
+                         f"{KEYS_MAX} keys")
     elem = kv_pages.element_size()
-    if (D * elem) % 16 or kv_pages.data_ptr() % 16:
+    if (D * elem) % 16 or kv_pages.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError(f"paged_attention kernel: K/V rows must be whole "
                          f"16-byte chunks on a 16-byte boundary (D={D}, "
                          f"{elem}-byte elements)")
-    need = smem_bytes(G, D, page, elem)     # double-buffered, the larger case
-    if need > SMEM_MAX:
-        raise ValueError(f"paged_attention kernel: page {page} x D {D} needs "
-                         f"{need} bytes of shared memory, over {SMEM_MAX}")
 
 
 def paged_attention_kernel(q: torch.Tensor, kv_pages: torch.Tensor,
                            block_tables: torch.Tensor, lengths: torch.Tensor,
                            *, scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the CUDA kernel. q: [B, H, D]; kv_pages: [P, page, 2, KH, D]
-    of q's dtype; block_tables: [B, max_pages] int32; lengths: [B] int32;
-    all contiguous on one CUDA device. Returns [B, H, D]."""
+    """Launch the CUDA kernel, once. q: [B, H, D]; kv_pages: [P, page, 2,
+    KH, D] of q's dtype; block_tables: [B, max_pages] int32; lengths: [B]
+    int32; all contiguous on one CUDA device. Returns [B, H, D]."""
     check_kernel_inputs(q, kv_pages, block_tables, lengths)
     B, H, D = q.shape
     page, KH = kv_pages.shape[1], kv_pages.shape[3]
-    G, max_pages = H // KH, block_tables.shape[1]
+    max_pages = block_tables.shape[1]
     if scale is None:
         scale = D ** -0.5
-    num_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits, pages_per_split = split_plan(B, KH, max_pages, num_sms)
+    code, G = _DTYPE_CODE[q.dtype], H // KH
+    device = q.device.index if q.device.index is not None else \
+        torch.cuda.current_device()
+    splits, _ = split_plan(B, KH, max_pages, page, q.element_size(),
+                           lambda s: _capacity(device, code, G, D, s))
     out = torch.empty_like(q)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m = torch.empty((B, KH, splits, G), **f32)
-    part_l = torch.empty((B, KH, splits, G), **f32)
-    part_acc = torch.empty((B, KH, splits, G, D), **f32)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.paged_attention_fwd(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), kv_pages.data_ptr(),
+            code, q.data_ptr(), kv_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            B, H, KH, D, page, max_pages, splits, pages_per_split,
+            B, H, KH, D, kv_pages.shape[0], page, max_pages, splits,
             float(scale), stream)
     _build.check(lib, err, "paged_attention_fwd")
     return out

@@ -4,17 +4,18 @@ Kernel source note. The kernel (``csrc/paged_attention.cu``, launched by
 ``kernel.paged_attention_kernel``) replaces the Pallas TPU kernel
 ``paged_attention_kernel`` in ``repro/kernels/paged_attention/kernel.py``.
 Decode attention is bound by memory on the H100: it reads every live K/V
-byte of the pool once and does 4 flops per K/V element pair, so its floor is
-the live K/V bytes over 3.35 TB/s. The design reads pages in place through
-the block table (no gather into a dense buffer) and keeps the memory system
-busy by splitting each sequence's pages (flash-decoding): a block takes a
-run of table entries of one (sequence, kv head), computes the G query heads
-that share that kv head (each K/V byte is read once for all of them) and
-writes a partial (m, l, acc); a second kernel, ``paged_combine_kernel``,
-merges the splits. ``kernel.split_plan`` sizes the split to about two
-blocks per SM. Each page's K and V rows are staged in shared memory with
-16-byte ``cp.async`` copies, double-buffered only when a split holds more
-than one page. The ``.cu`` header has the details.
+byte of the pool once and does 4 G flops per K/V element pair, so its floor
+is the live K/V bytes over 3.35 TB/s. The design reads pages in place
+through the block table (no gather into a dense buffer) and makes one launch
+a call: a thread-block cluster of up to 8 blocks shares a (sequence, kv
+head), its blocks take that sequence's live keys in turn, and they merge
+their softmax statistics through distributed shared memory at the end
+(``kernel.split_plan`` sizes the cluster from how many the card runs at
+once). Each block streams its K and V rows through a 3-stage ring in
+shared memory, filled by the copy engine (TMA boxes of a page's rows) or,
+where a box cannot hold a row, by 16-byte ``cp.async`` copies; a bf16 pool
+is scored and summed on tensor cores (``mma.sync``), an fp32 pool in fp32
+FMAs with a lane a key. The ``.cu`` header has the details.
 
 ``impl="kernel"`` takes the plain version (``ref.paged_attention_ref``) only
 when the tensors lie on the CPU. On CUDA tensors it launches the kernel or

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.core import PagedKVCache
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.kernel import (kernel_route,
                                                         wgmma_tiles)
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -23,6 +24,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.linear_scan import kernel as scan_kernel
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan
 from repro_torch.kernels.linear_scan.ref import gla_scan_ref
+from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.shuffle_dispatch import kernel as shuffle_kernel
 from repro_torch.kernels.shuffle_dispatch.ops import (combine, compute_slots,
@@ -253,6 +255,125 @@ def test_paged_kernel_matches_plain(case, dtype, cuda_device):
     torch.cuda.synchronize()
     assert paged_attention.launches == before + 1
     _close(out, paged_attention(q, kv, bt, lens, impl="xla"), **_tol(dtype))
+
+
+def _paged_tables(rng, P, page, lengths, width, shared=False):
+    """Tables [B, width] of distinct random pages for each sequence's live
+    pages and -1 after them; ``shared``: sequence 1 reads sequence 0's pages
+    as its own first pages."""
+    bt = np.full((len(lengths), width), -1, np.int32)
+    for b, n in enumerate(lengths):
+        bt[b, :-(-n // page)] = rng.choice(P, size=-(-n // page), replace=False)
+    if shared:
+        k = min(-(-lengths[0] // page), -(-lengths[1] // page))
+        bt[1, :k] = bt[0, :k]
+    return bt
+
+
+# the served groups (G = H / KH, D) and the edges of the key loop; the
+# copy engine (TMA) fills the ring except at D = 256 and at page 4, which
+# take the kernel's cp.async route
+PAGED_GEOMETRY_CASES = {
+    # name: (H, KH, D, P, page, lengths, table width, shared pages)
+    "glm4 G=16": (32, 2, 128, 40, 64, [552, 300, 65], 9, False),
+    "recurrentgemma G=16 D=256": (16, 1, 256, 40, 64, [470, 129], 8, False),
+    "ServingTier fp32 G=1 D=4 page 4": (2, 2, 4, 30, 4, [9, 4, 17], 6, False),
+    "grok G=6": (48, 8, 128, 24, 64, [300, 64], 5, False),
+    "long ragged, many splits": (16, 8, 128, 400, 16, [3000, 17, 1500, 800],
+                                 188, False),
+    "length 1 and page multiples": (4, 2, 64, 30, 16, [1, 16, 64, 128], 8,
+                                    False),
+    "-1 after live pages, shared pages": (8, 2, 32, 20, 8, [40, 23, 7], 9,
+                                          True),
+    "bf16 D % 16 == 8": (4, 1, 24, 12, 8, [30, 5], 4, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [
+    (name, dtype) for name, case in PAGED_GEOMETRY_CASES.items()
+    for dtype in ("float32", "bfloat16")
+    if dtype == "float32" or case[2] % 8 == 0])   # bf16 rows of 16-byte pieces
+def test_paged_kernel_geometries(name, dtype, cuda_device):
+    """Every query-head group the JAX package's configs give (up to G = 16,
+    D = 256), ServingTier's default pool (fp32 only: a bf16 row of D = 4 is
+    not whole 16-byte pieces, and the kernel raises there) and the key
+    loop's edges, against the plain version at the reference's tolerances,
+    one launch each."""
+    H, KH, D, P, page, lengths, width, shared = PAGED_GEOMETRY_CASES[name]
+    rng = np.random.default_rng(18)
+    B = len(lengths)
+    q = torch.from_numpy(rng.normal(size=(B, H, D))).to(cuda_device,
+                                                        DTYPES[dtype])
+    kv = torch.from_numpy(rng.normal(size=(P, page, 2, KH, D))).to(
+        cuda_device, DTYPES[dtype])
+    bt = _paged_tables(rng, P, page, lengths, width, shared)
+    lens = np.asarray(lengths, np.int32)
+    before = paged_attention.launches
+    out = paged_attention(q, kv, bt, lens, impl="kernel")
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    _close(out, paged_attention(q, kv, bt, lens, impl="xla"), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_length_zero_gives_zero(dtype, cuda_device):
+    """A sequence of length 0 gives 0 (the TPU kernel's answer); the others
+    in the batch are unaffected."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(3, 16, 128))).to(cuda_device,
+                                                           DTYPES[dtype])
+    kv = torch.from_numpy(rng.normal(size=(12, 16, 2, 1, 128))).to(
+        cuda_device, DTYPES[dtype])
+    bt = _paged_tables(rng, 12, 16, [40, 1, 33], 3)
+    lens = np.array([40, 0, 33], np.int32)
+    out = paged_attention(q, kv, bt, lens, impl="kernel")
+    torch.cuda.synchronize()
+    assert not out[1].any()
+    ref = paged_attention(q, kv, bt, lens, impl="xla")
+    _close(out[[0, 2]], ref[[0, 2]], **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,D", [(2, 128), (6, 128), (16, 128), (16, 256),
+                                 (1, 4), (16, 8)])
+def test_paged_smem_fits_the_card(G, D, dtype, cuda_device):
+    """The shared memory a block takes at each served group (the library's
+    own count, the one its launch passes) fits the card's opt-in limit, and
+    past the kernel's limits the library gives none."""
+    props = torch.cuda.get_device_properties(cuda_device)
+    n = paged_kernel.smem_bytes(DTYPES[dtype], G, D)
+    assert 0 < n <= props.shared_memory_per_block_optin
+    with pytest.raises(_build.KernelLaunchError, match="paged_attention_smem"):
+        paged_kernel.smem_bytes(DTYPES[dtype], paged_kernel.G_MAX + 1, D)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_is_one_device_kernel(cuda_device):
+    """One wrapper call is exactly one device kernel: the splits merge
+    inside it, with no combine kernel and no fill of a workspace."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.normal(size=(4, 16, 128))).to(
+        cuda_device, torch.bfloat16)
+    kv = torch.from_numpy(rng.normal(size=(40, 64, 2, 8, 128))).to(
+        cuda_device, torch.bfloat16)
+    bt = torch.as_tensor(_paged_tables(rng, 40, 64, [552, 471, 300, 65], 9),
+                         device=cuda_device)
+    lens = torch.tensor([552, 471, 300, 65], dtype=torch.int32,
+                        device=cuda_device)
+    paged_attention(q, kv, bt, lens, impl="kernel")     # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        paged_attention(q, kv, bt, lens, impl="kernel")
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in kernels) == 1, [(e.key, e.count)
+                                                for e in kernels]
+    assert "paged_attention_kernel" in kernels[0].key
 
 
 @pytest.mark.cuda

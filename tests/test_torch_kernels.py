@@ -230,7 +230,8 @@ def _paged_inputs(case, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("case", PAGED_CASES + [
+    (2, 32, 2, 32, 16, 8, 4)])                  # glm4-9b's group: G = 16
 def test_paged_plain_paths_match_jax(case, dtype):
     jq, q, jkv, kv, bt, ln = _paged_inputs(case, dtype, seed=42)
     ref = jax_paged_ref(jq, jkv, jnp.asarray(bt), jnp.asarray(ln))
@@ -265,7 +266,8 @@ def test_paged_length_zero_documented_disagreement():
 
 
 @pytest.mark.parametrize("bad", ["device", "dtype_mix", "index_dtype",
-                                 "group_width"])
+                                 "group_width", "group_17", "head_dim",
+                                 "bf16_row"])
 def test_paged_kernel_raises_on_what_it_does_not_take(bad):
     q = torch.zeros(2, 4, 16)
     kv = torch.zeros(4, 8, 2, 2, 16)
@@ -275,8 +277,15 @@ def test_paged_kernel_raises_on_what_it_does_not_take(bad):
         kv = kv.bfloat16()
     elif bad == "index_dtype":
         bt = bt.long()
-    elif bad == "group_width":
+    elif bad == "group_width":                  # G = 64, past G_MAX = 16
         q, kv = torch.zeros(2, 64, 128), torch.zeros(4, 8, 2, 1, 128)
+    elif bad == "group_17":
+        q, kv = torch.zeros(2, 17, 64), torch.zeros(4, 8, 2, 1, 64)
+    elif bad == "head_dim":                     # D past D_MAX = 256, G = 1
+        q, kv = torch.zeros(2, 2, 264), torch.zeros(4, 8, 2, 2, 264)
+    elif bad == "bf16_row":                     # 8-byte bf16 rows
+        q, kv = torch.zeros(2, 2, 4).bfloat16(), \
+            torch.zeros(4, 4, 2, 2, 4).bfloat16()
     if bad == "device":
         with pytest.raises(ValueError, match="not a CUDA device"):
             paged_kernel.paged_attention_kernel(q, kv, bt, ln)
@@ -290,12 +299,45 @@ def test_paged_kernel_raises_on_what_it_does_not_take(bad):
 @pytest.mark.parametrize("B,KH,max_pages", [(4, 8, 9), (1, 1, 200), (64, 8, 3),
                                             (2, 2, 0), (3, 1, 6)])
 def test_paged_split_plan_covers_the_table(B, KH, max_pages):
-    splits, per = paged_kernel.split_plan(B, KH, max_pages, num_sms=132)
-    assert 1 <= splits <= paged_kernel.SPLITS_MAX and per >= 1
-    assert splits * per >= max_pages              # every entry has a split
-    assert (splits - 1) * per < max(max_pages, 1)  # no split is empty
-    if (B, KH, max_pages) == (4, 8, 9):
-        assert (splits, per) == (9, 1)            # the slice: a page a block
+    """A cluster of ``splits`` blocks divides a sequence's live chunks of
+    keys evenly: the widest table's chunks all have a block, and none of its
+    blocks is left without one."""
+    def capacity(s):                  # the H100's 132 SMs, 2 blocks each
+        return 264 - 264 % s
+
+    for elem in (4, 2):
+        splits, per = paged_kernel.split_plan(B, KH, max_pages, 64, elem,
+                                              capacity)
+        chunks = -(-max_pages * 64 // paged_kernel.CHUNK[elem])
+        assert 1 <= splits <= paged_kernel.SPLITS_MAX and per >= 1
+        assert splits * per >= chunks             # every chunk has a block
+        assert splits <= max(chunks, 1)           # no block is empty
+        if B * KH * 2 <= capacity(1):
+            assert B * KH * splits <= capacity(splits)    # one wave
+        if (B, KH, max_pages, elem) == (4, 8, 9, 4):
+            assert (splits, per) == (6, 3)        # the slice: 18 chunks
+
+
+def test_paged_kernel_takes_every_served_group():
+    """The groups of the JAX package's configs (qwen3 2, grok 6, glm4 16 at
+    D = 128; recurrentgemma 16 at D = 256) and ServingTier's default fp32
+    pool (G = 1, D = 4, page 4) pass the checks in both types where the rows
+    are whole 16-byte pieces; the parent kernel refused G * D > 1024. (The
+    shared memory each takes is the library's count, checked on the card:
+    tests/test_torch_cuda.py test_paged_smem_fits_the_card.)"""
+    cases = [(16, 8, 128, 64), (48, 8, 128, 64), (32, 2, 128, 64),
+             (16, 1, 256, 64), (2, 2, 4, 4)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+        for H, KH, D, page in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                if D * (4 if dtype == torch.float32 else 2) % 16:
+                    continue
+                paged_kernel.check_kernel_inputs(
+                    torch.zeros(2, H, D, dtype=dtype),
+                    torch.zeros(3, page, 2, KH, D, dtype=dtype),
+                    torch.zeros(2, 3, dtype=torch.int32),
+                    torch.ones(2, dtype=torch.int32))
 
 
 # -- build ---------------------------------------------------------------------------
