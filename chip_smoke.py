@@ -77,14 +77,31 @@ non-zero exit):
     prompt tokens and 32 new tokens with the default pool, every MoE layer's
     dispatch and combine through the shuffle kernels in prefill and in
     every decode step, prefill attention through the flash kernel;
-12. profile: as phase 6, for grok-1-314b.
+12. profile: as phase 6, for grok-1-314b;
+13. serving tier: the port's ``ServingTier`` at qwen3-0.6b's KV geometry
+    (28 layers, page 64, 8 kv heads of 128, fp32: 14.68 MB a page slab)
+    over a four-node inproc cluster, 32 pool pages a node on the card:
+    16 sessions of 448-960 prompt tokens admitted and decoded 16 steps,
+    so that Eq.-1 evictions, level-2 host slabs and level-3 spills to
+    another node all happen; ``attend(impl="kernel")`` at every layer over
+    per-shard batches whose pages fit the pool, held to ``attend(impl=
+    "xla")`` and to dense fp64 attention over the oracle's K/V at 2e-5;
+    every session verified byte for byte; one session's primary killed,
+    4 more decode steps (failover), attend and verify again; then a
+    four-node proc cluster forked after CUDA is up, a SIGKILL mid-decode,
+    failover, verify and attend, failing unless ``close()`` leaves no child
+    and no shared-memory segment and no rpc value was refused; one attend
+    launch timed beside its bound.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5
 (flash and paged attention: the qwen3 path), zeroed again just before phase
 7 and read just after it (the GLA scan: the rwkv6-3b path), again just
 before phase 9 and read just after it (the diagonal scan and flash: the
 recurrentgemma-9b path), and again just before phase 11 and read just after
-it (dispatch, combine and flash: the grok-1-314b path). Each serve phase
+it (dispatch, combine and flash: the grok-1-314b path), and again just
+before phase 13 and read just after it (paged attention: the
+``ServingTier`` path, exactly one launch a shard of each ``attend`` call,
+counted from the tier's sessions at the call). Each serve phase
 fails unless every kernel of its path made exactly the launches its layers
 and batches call for, every flash launch of a serve phase on the wgmma
 route, every GLA launch on the tensor-core route, and the diagonal scan's
@@ -140,6 +157,9 @@ from repro_torch.kernels.shuffle_dispatch.ops import (  # noqa: E402
     combine, compute_slots, dispatch)
 from repro_torch.launch.serve import Request, ServeLoop  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.runtime.cluster import Cluster  # noqa: E402
+from repro_torch.runtime.rpc import pickle_fallbacks  # noqa: E402
+from repro_torch.runtime.serving import ServingTier, token_value  # noqa: E402
 
 DEV = torch.device("cuda")
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input type
@@ -1306,6 +1326,226 @@ def kv_pool(loop, cfg, prompts, rng):
     log("kv_pool", json.dumps(dict(max_abs_err=worst, tolerance=POOL_TOL, **st)))
 
 
+# -- phase 13: the serving tier at qwen3-0.6b's KV geometry -------------------------
+TIER_POOL_PAGES = 32       # a node's device pool: 32 fp32 slabs of 14.68 MB
+TIER_SESSIONS = 16
+TIER_PROMPTS = (448, 960)  # prompt tokens: 7 to 15 pages of 64
+TIER_HOST_SLABS = 8        # a shard's host budget, in slabs: level 3 fires
+TIER_DECODE, TIER_FAILOVER_DECODE = 16, 4
+
+
+def tier_batches(tier):
+    """Per-shard batches of sessions whose pages fit the shard's pool
+    together: a restore inside one table may evict a page that another
+    table of the same batch points at (exclude_set is ignored, as in the
+    reference)."""
+    by_node = {}
+    for s, sess in sorted(tier.sessions.items()):
+        by_node.setdefault(sess.node, []).append(s)
+    batches = []
+    for _node, seqs in sorted(by_node.items()):
+        cur, used = [], 0
+        for s in seqs:
+            n = tier._pages_for(tier.sessions[s].length)
+            if cur and used + n > tier.hbm_pages_per_node:
+                batches.append(cur)
+                cur, used = [], 0
+            cur.append(s)
+            used += n
+        batches.append(cur)
+    return batches
+
+
+def tier_dense(tier, s):
+    """fp64 softmax attention of session s's q over its K/V as the oracle
+    (``expected_slabs``, not the pool) has them: [L, KH, D]."""
+    n = tier.sessions[s].length
+    kv = torch.from_numpy(np.concatenate(tier.expected_slabs(s), axis=1)
+                          [:, :n]).to(DEV, torch.float64)   # [L, n, 2, KH, D]
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    q = torch.full((tier.kv_heads, tier.head_dim),
+                   float(np.float32(token_value(s, n))), dtype=torch.float64,
+                   device=DEV)
+    p = torch.softmax(torch.einsum("hd,lthd->lht", q, k)
+                      * tier.head_dim ** -0.5, dim=-1)
+    return torch.einsum("lht,lthd->lhd", p, v).cpu()
+
+
+def tier_attend(tier, want):
+    """``attend(impl="kernel")`` at every layer over every per-shard batch,
+    held to ``attend(impl="xla")`` and, where the batch's pages fit the
+    pool, to dense fp64 attention over the oracle's K/V, at POOL_TOL (a
+    session longer than the pool has its own pages evict one another while
+    its table is built, so kernel and plain version read the same stale
+    slots). ``want["paged"]`` gains the launches each call must make: one
+    a shard, counted from ``tier.sessions``. Returns the largest error and
+    the sessions held to the dense answer."""
+    worst, dense_checked = 0.0, []
+    for batch in tier_batches(tier):
+        fits = sum(tier._pages_for(tier.sessions[s].length)
+                   for s in batch) <= tier.hbm_pages_per_node
+        dense = {s: tier_dense(tier, s) for s in batch} if fits else {}
+        dense_checked += sorted(dense)
+        for layer in range(tier.num_layers):
+            want["paged"] += len({tier.sessions[s].node for s in batch})
+            ker = tier.attend(batch, layer, impl="kernel")
+            plain = tier.attend(batch, layer, impl="xla")
+            for s in batch:
+                got = torch.from_numpy(ker[s])
+                worst = max(worst, close_or_fail(
+                    got, torch.from_numpy(plain[s]), POOL_TOL,
+                    f"tier layer {layer} seq {s} vs plain"))
+                if s in dense:
+                    worst = max(worst, close_or_fail(
+                        got, dense[s][layer], POOL_TOL,
+                        f"tier layer {layer} seq {s} vs dense"))
+    return worst, dense_checked
+
+
+def tier_settle(tier):
+    """Wait until no level-3 copy is in flight on any shard."""
+    for shard in tier._shards.values():
+        while shard.store._inflight:
+            tier.cluster.transfer.drain(timeout=60.0)
+            shard.store._reap()
+
+
+def tier_counters(tier):
+    """The tier's stats, each shard's pager (pool) and spill (store)
+    counters, and each live node's replication: its replica and level-3
+    blobs and the bytes its pool holds for them."""
+    nodes = {}
+    for nid, rep in tier.cluster.pressure_report().items():
+        if nid not in tier.cluster.nodes:     # -1: the cluster's own manager
+            continue
+        sets = tier.cluster.nodes[nid].pool.paging.sets
+        nodes[nid] = dict(
+            replica_blobs=sum(n.startswith("kvrep/") for n in sets),
+            spill_blobs=sum(n.startswith("kvspill/") for n in sets),
+            resident_bytes=rep["resident"], spilled_bytes=rep["spilled"],
+            reserved_bytes=rep["reserved"], refused=rep["refused"],
+            forced=rep["forced"])
+    return dict(tier=dict(tier.stats), nodes=nodes, shards={
+        node: dict(pool=dict(sh.cache.stats), store=dict(sh.store.stats),
+                   host_bytes=sh.store.host_bytes,
+                   resident_pages=sh.cache.resident_pages())
+        for node, sh in sorted(tier._shards.items())})
+
+
+def tier_verify(tier, what):
+    for s in sorted(tier.sessions):
+        if not tier.verify(s):
+            _fail(f"tier {what}: session {s} differs from the oracle")
+
+
+def tier_inproc(cfg, want):
+    """qwen3-0.6b's KV in the tier's own fp32 on a four-node inproc cluster:
+    admit TIER_SESSIONS prompts, decode, attend and verify, kill one
+    session's primary, decode (failover), attend and verify again. Returns
+    the report, the live tier and its cluster (for the timed launch)."""
+    rng = np.random.default_rng(1300)
+    prompts = {s: int(n) for s, n in enumerate(
+        rng.integers(TIER_PROMPTS[0], TIER_PROMPTS[1] + 1, TIER_SESSIONS))}
+    geometry = dict(num_layers=cfg.n_layers, page_tokens=cfg.page_size,
+                    kv_heads=cfg.kv_heads, head_dim=cfg.resolved_head_dim)
+    slab_nbytes = int(np.prod(list(geometry.values()))) * 2 * 4
+    cluster = Cluster(4, node_capacity=3 << 30, page_size=1 << 20,
+                      replication_factor=1, admission=True)
+    tier = ServingTier(cluster, hbm_pages_per_node=TIER_POOL_PAGES,
+                       host_budget_bytes=TIER_HOST_SLABS * slab_nbytes,
+                       dtype=np.float32, device="cuda", **geometry)
+    report = dict(sessions=TIER_SESSIONS, prompts=prompts,
+                  slab_mb=tier.slab_nbytes / 1e6,
+                  pool_gb=4 * TIER_POOL_PAGES * tier.slab_nbytes / 1e9,
+                  host_budget_mb=tier.host_budget_bytes / 1e6)
+    t0 = time.perf_counter()
+    plan = tier.admit(prompts)
+    report["diversions"] = {s: list(d) for s, d in plan.diversions.items()}
+    report["admit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tier.decode(sorted(prompts), steps=TIER_DECODE)
+    report["decode_s"] = time.perf_counter() - t0
+    tier_settle(tier)
+    report["after_decode"] = tier_counters(tier)
+    stores = [sh.store.stats for sh in tier._shards.values()]
+    pools = [sh.cache.stats for sh in tier._shards.values()]
+    if not (sum(p["offloads"] for p in pools) > 0
+            and sum(st["host_puts"] for st in stores) > 0
+            and sum(st["remote_spills"] for st in stores) > 0):
+        _fail(f"tier: spills did not reach level 3: {report['after_decode']}")
+    t0 = time.perf_counter()
+    report["max_abs_err"], dense_checked = tier_attend(tier, want)
+    report["attend_s"] = time.perf_counter() - t0
+    if sorted(dense_checked) != sorted(prompts):
+        _fail(f"tier: only sessions {dense_checked} held to the dense answer")
+    t0 = time.perf_counter()
+    tier_verify(tier, "after decode")
+    report["verify_s"] = time.perf_counter() - t0
+    victim = tier.sessions[0].node
+    cluster.kill_node(victim)
+    report["killed_node"] = victim
+    tier.decode(sorted(prompts), steps=TIER_FAILOVER_DECODE)
+    if tier.stats["failovers"] < 1:
+        _fail(f"tier: no failover after node {victim} died: {tier.stats}")
+    err, dense_checked = tier_attend(tier, want)
+    report["max_abs_err"] = max(report["max_abs_err"], err)
+    if sorted(dense_checked) != sorted(prompts):
+        _fail(f"tier: only sessions {dense_checked} held to the dense answer "
+              f"after the failover")
+    tier_verify(tier, "after failover")
+    tier_settle(tier)
+    report["after_failover"] = tier_counters(tier)
+    return report, tier, cluster
+
+
+def tier_proc(want):
+    """The tier on the card over a four-node proc cluster, its node
+    processes forked after CUDA is up: admit, decode, a SIGKILL of a
+    session's primary mid-decode, failover, verify, attend. Fails unless
+    close() leaves no child and no shared-memory segment, and no envelope
+    value was refused as non-JSON."""
+    before = pickle_fallbacks()
+    cluster = Cluster(4, backend="proc", node_capacity=8 << 20,
+                      page_size=1 << 14, replication_factor=1, admission=True)
+    try:
+        tier = ServingTier(cluster, hbm_pages_per_node=3,
+                           host_budget_bytes=1024, device="cuda")
+        tier.admit({1: 10, 2: 6})
+        tier.decode([1, 2], steps=4)
+        victim = tier.sessions[1].node
+        tier.add_fault_hook("mid_decode", lambda: cluster.kill_node(victim))
+        tier.decode([1, 2], steps=6)
+        if tier.stats["failovers"] < 1:
+            _fail(f"proc tier: no failover after SIGKILL: {tier.stats}")
+        tier_verify(tier, "proc")
+        worst, dense_checked = tier_attend(tier, want)
+        stats = dict(tier.stats)
+        tier.close()
+    finally:
+        cleanup = cluster.close()
+    if not cleanup.ok:
+        _fail(f"proc tier: close() left {cleanup}")
+    if pickle_fallbacks() != before:
+        _fail("proc tier: an rpc value was refused as non-JSON")
+    return dict(killed_node=victim, max_abs_err=worst, stats=stats,
+                dense_checked=dense_checked, close_ok=cleanup.ok)
+
+
+def tier_timed(tier):
+    """One attend launch at layer 0 over the largest per-shard batch, timed
+    as phase 3 times its shapes (``paged_shape``)."""
+    batch = max(tier_batches(tier), key=lambda b: sum(
+        tier.sessions[s].length for s in b))
+    shard = tier._shard(tier.sessions[batch[0]].node)
+    max_pages = max(shard.cache.num_pages(s) for s in batch)
+    bt = np.stack([shard.cache.block_table(s, max_pages) for s in batch])
+    ln = np.array([tier.sessions[s].length for s in batch], np.int32)
+    q = torch.from_numpy(np.stack([np.full(
+        (tier.kv_heads, tier.head_dim), token_value(s, int(n)), np.float32)
+        for s, n in zip(batch, ln)])).to(DEV)
+    return paged_shape(q, shard.cache.kv[0], bt, ln)
+
+
 # the port's own kernels: every __global__ function of csrc/*.cu
 OUR_KERNELS = re.compile(r"\(anonymous namespace\)::(%s)\b" % "|".join(sorted(
     {name for src in _build.SOURCES for name in re.findall(
@@ -1524,7 +1764,31 @@ def main():
     flash_routes[kcfg.name] = dict(flash_attention.launches_by_route)
     del kparams
     profile_steps(kloop, kprompts)
+    del kloop
+    free()
     lap("grok-1-314b")
+
+    zero_counts()
+    want = {"paged": 0}
+    tier_report, tier, tier_cluster = tier_inproc(cfg, want)
+    tier_report["proc"] = tier_proc(want)
+    path = f"{cfg.name}/ServingTier"
+    if paged_attention.launches != want["paged"]:
+        _fail(f"paged_attention: {paged_attention.launches} launches on the "
+              f"{path} path, not {want['paged']}")
+    others = {fn.__name__: fn.launches for fn in counted
+              if fn is not paged_attention and fn.launches}
+    if others:
+        _fail(f"{path}: other kernels launched: {others}")
+    launches["paged_attention"][path] = paged_attention.launches
+    tier_shape = tier_timed(tier)
+    tier.close()
+    tier_cluster.shutdown()
+    del tier
+    free()
+    lap("serving tier")
+    tier_report["seconds"] = phase_s["serving tier"]
+    log("serving_tier", json.dumps(tier_report))
     next(k for k in kernels if k["name"] == "flash_attention").update(
         launches_by_route=flash_routes, build=flash_build)
     for name, lib in (("gla_scan", "linear_scan"), ("diag_scan", "diag_scan")):
@@ -1536,7 +1800,7 @@ def main():
     next(k for k in kernels if k["name"] == "combine").update(
         build={f: v for f, v in shuffle_build.items() if "combine" in f})
     next(k for k in kernels if k["name"] == "paged_attention").update(
-        build=paged_build)
+        build=paged_build, serving_tier=tier_shape)
     for k in kernels:
         k["launches_by_path"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]].values())

@@ -150,11 +150,12 @@ class PagedKVCache:
 
     # -- host <-> device slab conversion ----------------------------------------
     def _slab_to_host(self, slot: int) -> np.ndarray:
-        """A host copy of one slot's slab (never a view of the pool)."""
-        t = self.kv[:, slot].to("cpu", copy=True)
-        if self.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16)
-        return t.numpy()
+        """A host copy of one slot's slab (never a view of the pool), in
+        memory numpy owns: host stores hand slabs to other threads, which
+        then never free torch storage."""
+        slab = np.empty(self.slab_shape, self.host_dtype)
+        self._slab_to_tensor(slab).copy_(self.kv[:, slot])
+        return slab
 
     def _slab_to_tensor(self, slab: Union[np.ndarray, torch.Tensor]
                         ) -> torch.Tensor:

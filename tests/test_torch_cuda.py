@@ -860,3 +860,123 @@ def test_hybrid_kernel_path_matches_plain_path(cuda_device):
     dk, _ = kern.decode_step(params, {"tokens": nxt}, ck, 70)
     dp, _ = plain.decode_step(params, {"tokens": nxt}, cp, 70)
     _close(dk, dp, rtol=1e-4, atol=1e-4)
+
+
+# -- the serving tier on the card ---------------------------------------------
+def _tier_dense(tier, seq_id, layer):
+    """fp64 softmax attention of the session's q over its K/V as the oracle
+    (``expected_slabs``) has them, not as the pool holds them."""
+    from repro_torch.runtime.serving import token_value
+    n = tier.sessions[seq_id].length
+    kv = np.concatenate(tier.expected_slabs(seq_id), axis=1)[layer, :n]
+    k, v = kv[:, 0].astype(np.float64), kv[:, 1].astype(np.float64)
+    q = np.full((tier.kv_heads, tier.head_dim), token_value(seq_id, n),
+                np.float32).astype(np.float64)
+    s = np.einsum("hd,thd->ht", q, k) / np.sqrt(tier.head_dim)
+    p = np.exp(s - s.max(axis=1, keepdims=True))
+    return np.einsum("ht,thd->hd", p / p.sum(axis=1, keepdims=True), v)
+
+
+def _tier_batches(tier):
+    """Per-shard batches whose pages fit the shard's pool together."""
+    by_node = {}
+    for s, sess in sorted(tier.sessions.items()):
+        by_node.setdefault(sess.node, []).append(s)
+    out = []
+    for seqs in by_node.values():
+        cur, used = [], 0
+        for s in seqs:
+            n = tier._pages_for(tier.sessions[s].length)
+            if cur and used + n > tier.hbm_pages_per_node:
+                out.append(cur)
+                cur, used = [], 0
+            cur.append(s)
+            used += n
+        out.append(cur)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [
+    dict(),                                             # the tier's default
+    dict(num_layers=2, page_tokens=64, kv_heads=8, head_dim=128),
+], ids=["default", "D128-page64"])
+def test_serving_tier_attend_on_the_card(geometry, cuda_device):
+    from repro_torch.runtime.cluster import Cluster
+    from repro_torch.runtime.serving import ServingTier
+    cluster = Cluster(4, node_capacity=256 << 20, page_size=1 << 16,
+                      replication_factor=1, admission=True)
+    tier = ServingTier(cluster, hbm_pages_per_node=8, host_budget_bytes=0,
+                       device="cuda", **geometry)
+    try:
+        pt = tier.page_tokens
+        prompts = {s: (2 + s % 5) * pt - s % 3 for s in range(10)}
+        tier.admit(prompts)
+        assert all(sh.cache.kv.device.type == "cuda"
+                   for sh in tier._shards.values())
+        tier.decode(sorted(prompts), steps=pt + 1)
+        # every shard's pages overflow its pool: evictions and restores
+        assert sum(sh.cache.stats["offloads"]
+                   for sh in tier._shards.values()) > 0
+        cluster.kill_node(tier.sessions[0].node)
+        tier.decode(sorted(prompts), steps=2)
+        assert tier.stats["failovers"] >= 1
+        for batch in _tier_batches(tier):
+            for layer in range(tier.num_layers):
+                shards = len({tier.sessions[s].node for s in batch})
+                before = paged_attention.launches
+                ker = tier.attend(batch, layer, impl="kernel")
+                assert paged_attention.launches - before == shards == 1
+                plain = tier.attend(batch, layer, impl="xla")
+                for s in batch:
+                    np.testing.assert_allclose(ker[s], plain[s], rtol=2e-5,
+                                               atol=2e-5)
+                    np.testing.assert_allclose(
+                        ker[s], _tier_dense(tier, s, layer), rtol=2e-5,
+                        atol=2e-5)
+        # one call over every session: one launch a shard
+        seqs = sorted(tier.sessions)
+        shards = len({tier.sessions[s].node for s in seqs})
+        before = paged_attention.launches
+        tier.attend(seqs, 0, impl="kernel")
+        assert paged_attention.launches - before == shards > 1
+        for s in seqs:
+            assert tier.verify(s)
+    finally:
+        tier.close()
+        cluster.shutdown()
+
+
+@pytest.mark.cuda
+def test_serving_tier_proc_failover_after_cuda_init(cuda_device):
+    """Node processes forked after CUDA is up never touch the card: a
+    SIGKILL of a session's primary mid-decode fails over, the KV verifies,
+    attend agrees with its plain version, and close() leaves nothing."""
+    from repro_torch.runtime import rpc
+    from repro_torch.runtime.cluster import Cluster
+    from repro_torch.runtime.serving import ServingTier
+    torch.zeros(1, device=cuda_device)          # CUDA is up before the fork
+    before = rpc.pickle_fallbacks()
+    cluster = Cluster(4, backend="proc", node_capacity=8 << 20,
+                      page_size=1 << 14, replication_factor=1, admission=True)
+    try:
+        tier = ServingTier(cluster, hbm_pages_per_node=3,
+                           host_budget_bytes=1024, device="cuda")
+        tier.admit({1: 10, 2: 6})
+        tier.decode([1, 2], steps=4)
+        victim = tier.sessions[1].node
+        tier.add_fault_hook("mid_decode", lambda: cluster.kill_node(victim))
+        tier.decode([1, 2], steps=6)
+        assert tier.stats["failovers"] >= 1
+        for s in (1, 2):
+            assert tier.verify(s)
+            launches = paged_attention.launches
+            ker = tier.attend([s], impl="kernel")[s]
+            assert paged_attention.launches == launches + 1
+            np.testing.assert_allclose(ker, tier.attend([s], impl="xla")[s],
+                                       rtol=2e-5, atol=2e-5)
+        tier.close()
+    finally:
+        report = cluster.close()
+    assert report.ok, report
+    assert rpc.pickle_fallbacks() == before
