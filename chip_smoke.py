@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port runs its serving path on a GPU.
+"""Quickest proof that the PyTorch/CUDA port runs its serving path and its
+storage tier on a GPU.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (Hopper,
 ``nvcc`` under ``/usr/local/cuda``): ``python3 chip_smoke.py``.
@@ -91,7 +92,26 @@ non-zero exit):
     four-node proc cluster forked after CUDA is up, a SIGKILL mid-decode,
     failover, verify and attend, failing unless ``close()`` leaves no child
     and no shared-memory segment and no rpc value was refused; one attend
-    launch timed beside its bound.
+    launch timed beside its bound;
+14. durable tier: phase 4's qwen3-0.6b params (28 layers, bf16, on the
+    card) checkpointed in pool mode (``CheckpointManager(cluster=...)``,
+    layouts row and col, 4 shards) over a four-node inproc cluster with a
+    page log on every node (``pagelog_fsync="group"``, 1 MiB pages, pools
+    of 1 GiB, under one layout); node 0, which holds the row layout and
+    ``latest``, killed and revived warm: ``latest_step()`` is 1 again, the
+    row layout comes back from its replayed log with no network bytes and
+    every leaf bit-identical on the card, and one prefill of phase 4's
+    first batch with the restored params gives phase 4's first tokens;
+    node 0 killed again and revived cold: ``latest_step()`` and a restore
+    without a step raise (as the JAX package's do), and a restore of step
+    1 falls through to the col layout on node 2 with the same bits; a
+    four-node proc cluster forked after CUDA is up with 64 MiB of pairs
+    and a replica: a SIGKILLed node recovered warm from its own log (source
+    ``pagelog``, no bytes moved, records byte-identical), another recovered
+    cold from the replica, a clean ``close()``; ``ClusterJoin`` of two
+    sides of 500 k rows, co-partitioned (no network bytes) and with the probe
+    side moving, each byte for byte the numpy sort-merge oracle; the port's
+    ``fsck`` clean on every node's log; a ``durable_tier`` line.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5
 (flash and paged attention: the qwen3 path), zeroed again just before phase
@@ -101,7 +121,10 @@ recurrentgemma-9b path), and again just before phase 11 and read just after
 it (dispatch, combine and flash: the grok-1-314b path), and again just
 before phase 13 and read just after it (paged attention: the
 ``ServingTier`` path, exactly one launch a shard of each ``attend`` call,
-counted from the tier's sessions at the call). Each serve phase
+counted from the tier's sessions at the call), and again just before
+phase 14 and read just after it (flash attention: the durable path's one
+prefill, exactly one launch a layer, all on the wgmma route). Each serve
+phase
 fails unless every kernel of its path made exactly the launches its layers
 and batches call for, every flash launch of a serve phase on the wgmma
 route, every GLA launch on the tensor-core route, and the diagonal scan's
@@ -123,9 +146,13 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from collections import Counter
 
 import numpy as np
 import torch
@@ -140,8 +167,13 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
+from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import PagedKVCache  # noqa: E402
+from repro_torch.core.pagelog import fsck  # noqa: E402
+from repro_torch.core.services import (  # noqa: E402
+    canonical_join_sort, join_output_dtype)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     kernel_route, wgmma_tiles)
@@ -156,8 +188,10 @@ from repro_torch.kernels.shuffle_dispatch import kernel as shuffle_kernel  # noq
 from repro_torch.kernels.shuffle_dispatch.ops import (  # noqa: E402
     combine, compute_slots, dispatch)
 from repro_torch.launch.serve import Request, ServeLoop  # noqa: E402
+from repro_torch.models.lm import tree_map  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime.cluster import Cluster  # noqa: E402
+from repro_torch.runtime.join import ClusterJoin  # noqa: E402
 from repro_torch.runtime.rpc import pickle_fallbacks  # noqa: E402
 from repro_torch.runtime.serving import ServingTier, token_value  # noqa: E402
 
@@ -1558,7 +1592,8 @@ def profile_steps(loop, prompts):
     decode step spend their time: host wall ms without and with
     torch.profiler, device busy ms (sum of kernel times in the profiled run),
     the device's idle share of the profiled wall time, the top kernels and
-    the port's own kernels. Runs after the launch counts are read."""
+    the port's own kernels. Runs after the launch counts are read. Returns
+    the prefill's first tokens."""
     from torch.profiler import ProfilerActivity, profile
     model, params = loop.model, loop.params_c
     toks = torch.from_numpy(np.stack(prompts[:4]))
@@ -1606,6 +1641,296 @@ def profile_steps(loop, prompts):
         if not bool(state["finite"]):
             _fail(f"{loop.cfg.name} {name}: non-finite logits")
     log("profile", loop.cfg.name, json.dumps(report))
+    return state["last"][:, 0].cpu()
+
+
+# -- phase 14: the durable tier ------------------------------------------------------
+DURABLE_FSYNC = "group"            # one fsync a MiB of log: each 1 MiB page
+DURABLE_PAGE = 1 << 20
+DURABLE_NODE_CAPACITY = 1 << 30    # under one layout of qwen3-0.6b (1.5 GB)
+DURABLE_PROC_RECORDS = 4 << 20     # 64 MiB of (key, val) pairs, one replica
+DURABLE_JOIN_ROWS = 500_000        # each side of each join
+PAIR = np.dtype([("key", np.int64), ("val", np.float64)])
+JOIN_BUILD = np.dtype([("key", np.int64), ("rid", np.int64),
+                       ("bval", np.float64)])
+JOIN_PROBE = np.dtype([("key", np.int64), ("rid", np.int64),
+                       ("pval", np.float64)])
+
+
+def leaves_of(tree):
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def log_facts(log_):
+    return dict(file_bytes=log_.file_bytes(), live_bytes=log_.live_bytes(),
+                amplification=log_.amplification(),
+                fsync_count=log_.fsync_count, compactions=log_.compactions)
+
+
+def expected_blob_nodes(num_shards=4, nodes=4):
+    """Where ``CheckpointManager._put_blob`` puts step 1's blobs under the
+    prefix ``ckpt``: ``crc32(name) % len(alive)``."""
+    names = [f"ckpt/step_00000001/{lay}/shard_{i}.npz"
+             for lay in ("row", "col") for i in range(num_shards)]
+    names += ["ckpt/step_00000001/manifest.json", "ckpt/latest"]
+    return {n: zlib.crc32(n.encode()) % nodes for n in names}
+
+
+def durable_checkpoint(cfg, params, prompts, first, max_len, root):
+    """Checkpoint the served params through a four-node durable pool; kill
+    and warm-revive node 0 (the row layout and ``latest``), restore the row
+    layout from its replayed log and prefill phase 4's first batch with it;
+    kill node 0 again, revive it cold and restore through the col layout."""
+    leaves = leaves_of(params)
+    rep = dict(params=sum(t.numel() for t in leaves),
+               param_bytes=sum(t.numel() * t.element_size() for t in leaves),
+               leaves=len(leaves), dtypes={str(k): v for k, v in Counter(
+                   t.dtype for t in leaves).items()},
+               fsync=DURABLE_FSYNC, page_size=DURABLE_PAGE,
+               node_capacity=DURABLE_NODE_CAPACITY)
+    log("durable_params", json.dumps(rep))
+    cluster = Cluster(4, node_capacity=DURABLE_NODE_CAPACITY,
+                      page_size=DURABLE_PAGE, replication_factor=1,
+                      pagelog_dir=os.path.join(root, "ckpt"),
+                      pagelog_fsync=DURABLE_FSYNC)
+    mgr = CheckpointManager(cluster=cluster, layouts=("row", "col"),
+                            num_shards=4, page_size=DURABLE_PAGE)
+    t0 = time.perf_counter()
+    mgr.save(1, params)
+    rep["save_s"] = time.perf_counter() - t0
+    where = {n: node for n, (node, _) in cluster.durable_blobs.items()}
+    if where != expected_blob_nodes():
+        _fail(f"durable: blobs placed {where}, not {expected_blob_nodes()}")
+    logs = {n: cluster.nodes[n].memory.pagelog for n in cluster.nodes}
+    rep["layout_bytes"] = {lay: sum(logs[node].set_bytes(n)
+                                    for n, node in where.items()
+                                    if f"/{lay}/" in n)
+                           for lay in ("row", "col")}
+    rep["pools"] = {lay: ("hold it" if b <= DURABLE_NODE_CAPACITY else
+                          "page it through the log")
+                    for lay, b in rep["layout_bytes"].items()}
+    rep["after_save"] = {n: log_facts(lg) for n, lg in logs.items()}
+
+    cluster.kill_node(0)
+    fenced = cluster.revive_node(0)
+    if fenced:
+        _fail(f"durable: warm revival fenced {fenced}")
+    net0 = cluster.net_bytes
+    t0 = time.perf_counter()
+    if mgr.latest_step() != 1:
+        _fail(f"durable: latest_step() is {mgr.latest_step()} after the "
+              f"warm revival")
+    back = mgr.restore(params, layout="row")
+    rep["warm_restore_s"] = time.perf_counter() - t0
+    rep["warm_net_bytes"] = cluster.net_bytes - net0
+    fetched = cluster.nodes[0].memory.stats["log_fetch_bytes"]
+    rep["warm_log_fetch_bytes"] = fetched
+    if rep["warm_net_bytes"] or fetched < rep["layout_bytes"]["row"]:
+        _fail(f"durable: warm restore moved {rep['warm_net_bytes']} network "
+              f"bytes and read {fetched} of node 0's log")
+    restored = params_from_numpy(back, device="cuda")
+    del back
+    for i, (a, b) in enumerate(zip(leaves, leaves_of(restored))):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            _fail(f"durable: warm-restored leaf {i} differs")
+    toks = torch.from_numpy(np.stack(prompts[:4]))
+    logits, _ = build_model(cfg).prefill(restored, {"tokens": toks},
+                                         max_len=max_len)
+    got = logits[:, -1].argmax(dim=-1).cpu()
+    del logits, restored
+    if not torch.equal(got, first):
+        _fail(f"durable: first tokens {got.tolist()} with the restored "
+              f"params, {first.tolist()} with phase 4's")
+    rep["first_tokens"] = got.tolist()
+
+    cluster.kill_node(0)
+    cluster.revive_node(0, warm=False)
+    for what, call in (("latest_step", mgr.latest_step),
+                       ("restore", lambda: mgr.restore(params))):
+        try:
+            call()
+        except OSError as e:        # the reference's answer on the CPU
+            rep[f"cold_{what}"] = str(e)
+        else:
+            _fail(f"durable: {what} answered after node 0's disk was wiped")
+    net0 = cluster.net_bytes
+    t0 = time.perf_counter()
+    back = mgr.restore(params, step=1)
+    rep["cold_restore_s"] = time.perf_counter() - t0
+    rep["cold_net_bytes"] = cluster.net_bytes - net0
+    for i, (a, b) in enumerate(zip(leaves, leaves_of(back))):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            _fail(f"durable: cold-restored leaf {i} differs")
+    del back
+    rep["logs"] = {n: log_facts(cluster.nodes[n].memory.pagelog)
+                   for n in cluster.nodes}
+    for n in cluster.nodes:
+        cluster.nodes[n].memory.pagelog.close()
+    cluster.shutdown()
+    return rep
+
+
+def durable_proc(root):
+    """A four-node proc cluster (forked after CUDA is up) with the durable
+    tier: one sharded set of DURABLE_PROC_RECORDS pairs and a replica;
+    SIGKILL node 2 and recover it warm from its log, then node 3 cold (its
+    log wiped) from the replica; a clean close()."""
+    rng = np.random.default_rng(1400)
+    recs = np.empty(DURABLE_PROC_RECORDS, PAIR)
+    recs["key"] = rng.integers(0, 1 << 40, len(recs))
+    recs["val"] = rng.random(len(recs))
+    before = pickle_fallbacks()
+    cluster = Cluster(4, backend="proc", node_capacity=512 << 20,
+                      page_size=DURABLE_PAGE, replication_factor=1,
+                      pagelog_dir=os.path.join(root, "proc"),
+                      pagelog_fsync=DURABLE_FSYNC)
+    rep = dict(records=len(recs), bytes=recs.nbytes)
+    try:
+        t0 = time.perf_counter()
+        sset = cluster.create_sharded_set("pts", recs,
+                                          key_fn=lambda r: r["key"])
+        rep["write_s"] = time.perf_counter() - t0
+        want = cluster.read_sharded(sset)
+        cluster.kill_node(2)
+        net0 = cluster.net_bytes
+        t0 = time.perf_counter()
+        warm = cluster.recover_node(2)
+        rep["warm_recover_s"] = time.perf_counter() - t0
+        rep["warm_net_bytes"] = cluster.net_bytes - net0
+        if not (warm.ok and warm.sources == {"pts:2": "pagelog"}
+                and warm.bytes_transferred == 0
+                and rep["warm_net_bytes"] == 0):
+            _fail(f"durable proc: warm recovery {warm}, "
+                  f"{rep['warm_net_bytes']} network bytes")
+        if cluster.read_sharded(sset).tobytes() != want.tobytes():
+            _fail("durable proc: records differ after the warm recovery")
+        cluster.kill_node(3)
+        shutil.rmtree(cluster._node_pagelog_dir(3))
+        t0 = time.perf_counter()
+        cold = cluster.recover_node(3)
+        rep["cold_recover_s"] = time.perf_counter() - t0
+        if not (cold.ok and cold.sources["pts:3"].startswith("replica@")
+                and cold.bytes_transferred > 0):
+            _fail(f"durable proc: cold recovery {cold}")
+        if cluster.read_sharded(sset).tobytes() != want.tobytes():
+            _fail("durable proc: records differ after the cold recovery")
+        rep["sources"] = {"warm": warm.sources, "cold": cold.sources}
+        rep["bytes_transferred"] = {"warm": warm.bytes_transferred,
+                                    "cold": cold.bytes_transferred}
+        rep["logs"] = cluster.pagelog_report()
+    finally:
+        cleanup = cluster.close()
+    if not cleanup.ok:
+        _fail(f"durable proc: close() left {cleanup}")
+    if pickle_fallbacks() != before:
+        _fail("durable proc: an rpc value was refused as non-JSON")
+    rep["close_ok"] = cleanup.ok
+    return rep
+
+
+def join_oracle(build, probe):
+    """Sort-merge join in numpy, in ``canonical_join_sort`` order."""
+    b = build[np.argsort(build["key"], kind="stable")]
+    lo = np.searchsorted(b["key"], probe["key"], "left")
+    n = np.searchsorted(b["key"], probe["key"], "right") - lo
+    pi = np.repeat(np.arange(len(probe)), n)
+    bi = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(int(n.sum()))
+    out = np.empty(len(pi), join_output_dtype(JOIN_BUILD, JOIN_PROBE,
+                                              "key", "key"))
+    out["key"] = probe["key"][pi]
+    out["b_rid"], out["b_bval"] = b["rid"][bi], b["bval"][bi]
+    out["p_rid"], out["p_pval"] = probe["rid"][pi], probe["pval"][pi]
+    return canonical_join_sort(out)
+
+
+def durable_join(root):
+    """ClusterJoin over the durable tier: a co-partitioned pair (no bytes
+    move) and a pair whose probe side is partitioned on another field (it
+    moves), each held byte for byte to the numpy oracle."""
+    rng = np.random.default_rng(1401)
+    n = DURABLE_JOIN_ROWS
+    sides = []
+    for dtype, field in ((JOIN_BUILD, "bval"), (JOIN_PROBE, "pval")):
+        recs = np.empty(n, dtype)
+        recs["key"] = rng.integers(0, n, n)
+        recs["rid"] = np.arange(n)
+        recs[field] = rng.random(n)
+        sides.append(recs)
+    build, probe = sides
+    cluster = Cluster(4, node_capacity=DURABLE_NODE_CAPACITY,
+                      page_size=DURABLE_PAGE, replication_factor=1,
+                      pagelog_dir=os.path.join(root, "join"),
+                      pagelog_fsync=DURABLE_FSYNC)
+    t0 = time.perf_counter()
+    b = cluster.create_sharded_set("b", build, key_fn=lambda r: r["key"],
+                                   partition_key="key")
+    p_key = cluster.create_sharded_set("p", probe, key_fn=lambda r: r["key"],
+                                       partition_key="key")
+    p_rid = cluster.create_sharded_set("p_rid", probe,
+                                       key_fn=lambda r: r["rid"],
+                                       partition_key="rid")
+    rep = dict(rows=n, stage_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want = join_oracle(build, probe)
+    rep["oracle_s"] = time.perf_counter() - t0
+    for name, probe_set, sides_moved in (("co", p_key, ()),
+                                         ("one_side", p_rid, ("probe",))):
+        net0 = cluster.net_bytes
+        out, jr = ClusterJoin(cluster, b, probe_set, "key",
+                              page_size=DURABLE_PAGE).execute()
+        if jr.plan.shuffle_sides != sides_moved:
+            _fail(f"durable join {name}: plan moves {jr.plan.shuffle_sides}")
+        if out.dtype != want.dtype or out.tobytes() != want.tobytes():
+            _fail(f"durable join {name}: output differs from the oracle")
+        moved = cluster.net_bytes - net0
+        if (moved == 0) != (name == "co"):
+            _fail(f"durable join {name}: {moved} network bytes")
+        rep[name] = dict(output_rows=jr.output_rows, seconds=jr.seconds,
+                         net_bytes=moved, shuffled_bytes=jr.shuffled_bytes)
+    rep["logs"] = {n_: log_facts(cluster.nodes[n_].memory.pagelog)
+                   for n_ in cluster.nodes}
+    for n_ in cluster.nodes:
+        cluster.nodes[n_].memory.pagelog.close()
+    cluster.shutdown()
+    return rep
+
+
+def durable_tier(cfg, params, prompts, first, max_len):
+    """Phase 14: the checkpoint, the proc recovery and the join over the
+    durable tier, then the port's fsck of every node's log; the temporary
+    directories go at the end."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    try:
+        t0 = time.perf_counter()
+        rep = dict(checkpoint=durable_checkpoint(cfg, params, prompts,
+                                                 first, max_len, root))
+        rep["checkpoint"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["proc"] = durable_proc(root)
+        rep["proc"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["join"] = durable_join(root)
+        rep["join"]["seconds"] = time.perf_counter() - t0
+        dirs = sorted(os.path.join(d, n) for d in (
+            os.path.join(root, k) for k in ("ckpt", "proc", "join"))
+            for n in os.listdir(d))
+        rep["fsck"] = {}
+        for d in dirs:
+            check = fsck(d)
+            if not check["exists"]:             # a node nothing was put on
+                rep["fsck"][os.path.relpath(d, root)] = "no log"
+                continue
+            if not check["clean"] or check["stale_compact_tmp"]:
+                _fail(f"durable: fsck of {os.path.relpath(d, root)}: {check}")
+            rep["fsck"][os.path.relpath(d, root)] = dict(
+                records=check["records"], file_bytes=check["file_bytes"],
+                live_sets=len(check["live_sets"]),
+                amplification=check["amplification"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rep
 
 
 def main():
@@ -1692,7 +2017,9 @@ def main():
     launches = {"flash_attention": {cfg.name: flash_attention.launches},
                 "paged_attention": {cfg.name: paged_attention.launches}}
     flash_routes = {cfg.name: dict(flash_attention.launches_by_route)}
-    profile_steps(loop, prompts)
+    # phase 14 checkpoints these params and must give these first tokens
+    qfirst = profile_steps(loop, prompts)
+    qparams, qmax_len = loop.params_c, loop.max_len
     del loop
     free()
     lap("qwen3-0.6b")
@@ -1789,6 +2116,26 @@ def main():
     lap("serving tier")
     tier_report["seconds"] = phase_s["serving tier"]
     log("serving_tier", json.dumps(tier_report))
+
+    zero_counts()
+    durable = durable_tier(cfg, qparams, prompts, qfirst, qmax_len)
+    path = f"{cfg.name}/durable"
+    if (flash_attention.launches != cfg.n_layers
+            or flash_attention.launches_by_route["wgmma"] != cfg.n_layers):
+        _fail(f"flash_attention: {flash_attention.launches} launches "
+              f"({flash_attention.launches_by_route}) on the {path} path, "
+              f"not {cfg.n_layers} on wgmma")
+    others = {fn.__name__: fn.launches for fn in counted
+              if fn is not flash_attention and fn.launches}
+    if others:
+        _fail(f"{path}: other kernels launched: {others}")
+    launches["flash_attention"][path] = flash_attention.launches
+    flash_routes[path] = dict(flash_attention.launches_by_route)
+    del qparams
+    free()
+    lap("durable tier")
+    durable["seconds"] = phase_s["durable tier"]
+    log("durable_tier", json.dumps(durable))
     next(k for k in kernels if k["name"] == "flash_attention").update(
         launches_by_route=flash_routes, build=flash_build)
     for name, lib in (("gla_scan", "linear_scan"), ("diag_scan", "diag_scan")):

@@ -7,8 +7,11 @@ names and shapes are the reference's, so the checkpoint manager's flattened
 keys stay the same for both packages.
 
 numpy has no bfloat16 of its own: a bf16 leaf given as an ``ml_dtypes``
-bfloat16 array is read through its bytes, and ``params_to_numpy`` returns bf16
-tensors as the same bytes viewed as ``np.uint16``.
+bfloat16 array, or as numpy's two-byte void (how an npz entry of a bf16 array
+loads), is read through its bytes, and ``params_to_numpy`` returns bf16
+tensors as the same bytes viewed as ``np.uint16``. A leaf that is already a
+tensor (``CheckpointManager.restore`` with a torch template gives CPU
+tensors) is moved as it is.
 """
 from __future__ import annotations
 
@@ -20,8 +23,10 @@ from .models.lm import tree_map
 
 
 def _to_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.array(a)                # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 

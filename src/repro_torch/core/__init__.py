@@ -1,8 +1,7 @@
 """Pangea core, as the port has it: locality sets, the unified buffer pool,
 data-aware paging (Alg. 1 / Eq. 1), heterogeneous replication and the
-pushed-down services (copies of the JAX package's numpy modules), and the
-device KV page pool. The durable page log (``core/pagelog.py``) is not
-ported yet."""
+pushed-down services and the durable page log (copies of the JAX package's
+numpy modules), and the device KV page pool."""
 from .attributes import (AttributeSet, CurrentOperation, DurabilityType,
                          EvictionStrategy, Lifetime, Location, ReadingPattern,
                          WritingPattern, eviction_ratio, select_strategy,
@@ -12,6 +11,7 @@ from .kvcache import HBMExhaustedError, HostSlabStore, PagedKVCache, SeqState
 from .locality_set import LocalitySet, Page
 from .memory_manager import (AdmissionController, MemoryManager,
                              MemoryReservation, derive_staging_cap)
+from .pagelog import PageLog
 from .paging import PagingSystem, eviction_overhead
 from .replication import (DistributedSet, PartitionScheme, ReplicaRegistration,
                           combine_content_checksums, expected_conflicts,
@@ -33,7 +33,7 @@ __all__ = [
     "DurabilityType", "EvictionStrategy", "HBMExhaustedError", "HashService",
     "HostSlabStore",
     "Lifetime", "LocalitySet", "Location", "MemoryManager",
-    "MemoryReservation", "Page", "PagedKVCache",
+    "MemoryReservation", "Page", "PageLog", "PagedKVCache",
     "PageIterator", "PagingSystem", "PartitionScheme", "PoolExhaustedError",
     "ReadingPattern", "ReplicaInfo", "ReplicaRegistration", "SeqState",
     "SequentialWriter",

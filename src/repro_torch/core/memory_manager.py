@@ -26,9 +26,9 @@ The ``MemoryManager`` owns everything pressure-related for one node:
 ``pool.stats`` are views into the manager), and ``StorageNode`` exposes it to
 the runtime as ``node.memory``.
 
-Copy of the JAX package's ``core/memory_manager.py``. The durable page log
-(``core/pagelog.py``) is not ported yet: ``pagelog`` must be None, and the
-page-log hooks are kept so that it can slot in.
+Copy of the JAX package's ``core/memory_manager.py``. One change: ``close``
+closes the page log after releasing the manager's lock, since closing may
+fsync the log's tail.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ import os
 from typing import Dict, List, Optional, Set
 
 from .attributes import DurabilityType
+from .pagelog import PageLog
 from .paging import PagingSystem
 from .sanitizer import tracked_condition, tracked_rlock
 
@@ -302,16 +303,12 @@ class MemoryManager:
                  policy: str = "data-aware",
                  pressure_watermark: float = 0.85,
                  admission_cap: Optional[int] = None,
-                 pagelog: None = None):
-        if pagelog is not None:
-            raise NotImplementedError(
-                "pagelog is ported in a later slice; pass pagelog=None")
+                 pagelog: Optional[PageLog] = None):
         self.capacity = capacity
         self.spill = spill_store or SpillStore()
-        # the durable tier beneath the scratch spill store (write-through
-        # sets page against it). ``core/pagelog.py`` is not ported yet, so
-        # it is always None and the page-log hooks below never run
-        self.pagelog = None
+        # the durable tier beneath the scratch spill store: write-through
+        # sets page against it instead, and it survives node death
+        self.pagelog = pagelog
         self.paging = PagingSystem(policy)
         self.pressure_watermark = pressure_watermark
         self._lock = tracked_rlock("memman")
@@ -559,5 +556,5 @@ class MemoryManager:
             self.spill.clear()
             self.spilled_bytes = 0
             self.durable_bytes = 0
-            if self.pagelog is not None:
-                self.pagelog.close()
+        if self.pagelog is not None:
+            self.pagelog.close()

@@ -40,11 +40,10 @@ Everything moves through buffer pools: a "network transfer" is a paged read
 from the source pool streamed into a sequential write on the destination pool,
 with byte accounting standing in for the wire.
 
-Copy of the JAX package's ``runtime/cluster.py``. Two changes: the dispatch
+Copy of the JAX package's ``runtime/cluster.py``. One change: the dispatch
 plan and the fused partition + CRC pass are this package's numpy
 implementations, bound directly (the reference first tries a kernels package
-that needs JAX); and there is no durable page log yet, so ``pagelog_dir``
-raises ``NotImplementedError``.
+that needs JAX).
 """
 from __future__ import annotations
 
@@ -68,6 +67,7 @@ from ..core.columnar import (ColumnarWriter, ColumnLayout, _field_layout,
                              segment_sum)
 from ..core.locality_set import LocalitySet
 from ..core.memory_manager import MemoryManager, derive_staging_cap
+from ..core.pagelog import PageLog
 from ..core.sanitizer import tracked_lock
 from ..core.replication import (DistributedSet, PartitionScheme,
                                 ReplicaRegistration,
@@ -97,14 +97,6 @@ def dispatch_plan(partition_ids: np.ndarray, num_partitions: int):
     offsets[0] = 0
     np.cumsum(counts, out=offsets[1:])
     return order, counts, offsets
-
-
-def _no_pagelog(pagelog_dir: Optional[str]) -> None:
-    """The durable page log (``core/pagelog.py``) is not part of the port
-    yet: asking for one raises instead of running without it."""
-    if pagelog_dir is not None:
-        raise NotImplementedError(
-            "pagelog is ported in a later slice; pass pagelog_dir=None")
 
 
 class DeadNodeError(RuntimeError):
@@ -182,10 +174,14 @@ class StorageNode:
         """Construct the pool, reopening the durable page log from disk when
         one is configured (construction replays its index — a revival with
         surviving log files IS the warm start)."""
-        _no_pagelog(self.pagelog_dir)
+        pagelog = (PageLog(self.pagelog_dir, epoch_fn=self.epoch_fn,
+                           fsync_policy=self.pagelog_fsync,
+                           compact_threshold=self.pagelog_compact_threshold)
+                   if self.pagelog_dir else None)
         return BufferPool(self.capacity, SpillStore(self.spill_dir),
                           policy=self.policy,
-                          pressure_watermark=self.pressure_watermark)
+                          pressure_watermark=self.pressure_watermark,
+                          pagelog=pagelog)
 
     def revive(self) -> None:
         """Bring a killed node back with a fresh pool (and a reopened,
@@ -401,8 +397,9 @@ class Cluster:
         self.pressure_watermark = pressure_watermark
         self._spill_dir = spill_dir
         # durable tier: per-node page-log directories under
-        # ``pagelog_dir``; not ported yet, so it must stay None
-        _no_pagelog(pagelog_dir)
+        # ``pagelog_dir``. Configuring it makes sharded sets write-through
+        # by default (their pages land in the log) and node recovery
+        # warm-start from the revived node's replayed local index.
         self._pagelog_dir = pagelog_dir
         # durability-vs-throughput knob forwarded to every node's PageLog
         # (``core/pagelog.FSYNC_POLICIES``); "none" is the original behavior

@@ -25,9 +25,8 @@ processes, so their blocking time overlaps across nodes instead of
 serializing through the driver loop the way the in-process backend's
 ``map_sharded`` does.
 
-Copy of the JAX package's ``runtime/node_proc.py``. As in ``cluster.py``:
-nothing is resolved before the fork, and there is no page log (no remote
-page-log proxy; ``pagelog_dir`` raises). Node processes never touch torch.
+Copy of the JAX package's ``runtime/node_proc.py``. As in ``cluster.py``,
+nothing is resolved before the fork. Node processes never touch torch.
 """
 from __future__ import annotations
 
@@ -62,7 +61,7 @@ from ..core.shm_arena import (ArenaFullError, ShmArena, arena_name, gather,
 from ..core.statistics import StatisticsDB
 from .cluster import (Cluster, DeadNodeError, RecoveryReport, ShardInfo,
                       ShardedSet, StorageNode, _iter_record_chunks,
-                      _no_pagelog, dispatch_plan, reducer_hash)
+                      dispatch_plan, reducer_hash)
 from .rpc import RpcConnection, serve_connection
 from .scheduler import ClusterScheduler
 from .transfer import TransferEngine
@@ -846,6 +845,27 @@ class _RemoteAdmission:
         return bool(rep["admitted"])
 
 
+class _RemotePageLog:
+    """The scheduler's window onto a node process's page log (just the
+    three probes ``recovery_plan`` costs with)."""
+
+    def __init__(self, handle: "ProcNodeHandle"):
+        self._handle = handle
+
+    def _info(self, name: str) -> dict:
+        rep, _ = self._handle.call("log_info", name=name)
+        return rep
+
+    def entries_for(self, name: str) -> int:
+        return int(self._info(name)["entries"])
+
+    def set_epoch(self, name: str) -> int:
+        return int(self._info(name)["epoch"])
+
+    def set_bytes(self, name: str) -> int:
+        return int(self._info(name)["bytes"])
+
+
 class RemoteMemory:
     """Duck-types the slice of ``MemoryManager`` the scheduler and shuffle
     admission paths touch, over RPC.  Same call sites, same semantics —
@@ -881,9 +901,10 @@ class RemoteMemory:
         return _RemoteReservation(self._handle, int(rid))
 
     @property
-    def pagelog(self) -> None:
-        """The node's page log: none, until ``core/pagelog.py`` is ported."""
-        return None
+    def pagelog(self) -> Optional[_RemotePageLog]:
+        if self._handle.cluster._pagelog_dir is None:
+            return None
+        return _RemotePageLog(self._handle)
 
 
 class ProcNodeHandle:
@@ -1054,7 +1075,6 @@ class ProcCluster:
         self.admission_timeout_s = admission_timeout_s
         self.pressure_watermark = pressure_watermark
         self._spill_dir = spill_dir
-        _no_pagelog(pagelog_dir)
         self._pagelog_dir = pagelog_dir
         self._pagelog_fsync = pagelog_fsync
         self._pagelog_compact_threshold = pagelog_compact_threshold

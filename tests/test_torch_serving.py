@@ -20,9 +20,8 @@ from hypothesis import strategies as st
 
 from repro_torch.core import PagedKVCache
 from repro_torch.core import sanitizer as port_sanitizer
-from repro_torch.core.memory_manager import MemoryManager
 from repro_torch.runtime import rpc as port_rpc
-from repro_torch.runtime.cluster import Cluster, DeadNodeError, StorageNode
+from repro_torch.runtime.cluster import Cluster, DeadNodeError
 from repro_torch.runtime.serving import ServingTier, expected_page_slab
 
 torch.set_num_threads(2)
@@ -392,17 +391,6 @@ def test_expected_page_slab_matches_the_jax_package():
 
 
 # -- what the port refuses ----------------------------------------------------
-@pytest.mark.parametrize("make", [
-    lambda d: Cluster(2, pagelog_dir=d),
-    lambda d: Cluster(2, backend="proc", pagelog_dir=d),
-    lambda d: StorageNode(0, 1 << 20, pagelog_dir=d),
-    lambda d: MemoryManager(1 << 20, pagelog=object()),
-], ids=["inproc", "proc", "node", "memory_manager"])
-def test_pagelog_is_refused_until_ported(make, tmp_path):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make(str(tmp_path / "log"))
-
-
 def test_rpc_refuses_values_that_are_not_json():
     import socket
     a, b = socket.socketpair()
