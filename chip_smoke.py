@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port runs its serving path and its
-storage tier on a GPU.
+"""Quickest proof that the PyTorch/CUDA port runs its serving path, its
+storage tier and its trainer on a GPU.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (Hopper,
 ``nvcc`` under ``/usr/local/cuda``): ``python3 chip_smoke.py``.
@@ -52,7 +52,15 @@ non-zero exit):
    full-width layers of each model, kernel path against
    plain path (recurrentgemma-9b: one superblock and one RG-LRU layer over
    2100 tokens, and a decode step; grok-1-314b: one layer in fp32, prefill
-   and a decode step);
+   and a decode step); then the training path's flash kernel (its own
+   generator): each row's lse on both routes against the plain version
+   (relative 1e-5 fp32, 1e-3 bf16), the output bit for bit that of a
+   launch without lse, ``_FlashAttention``'s dq, dk, dv through the kernel
+   forward against autograd of fp64 attention (3e-4 fp32, 2e-2 bf16) at
+   the gradient cases and at qwen3-0.6b's training shape (B=8, H=16, KH=8,
+   T=512, D=128), and there the forward's time with and without lse, the
+   plain backward's beside its bound and SDPA's forward and backward as a
+   yardstick the port never calls (a ``flash_train`` line);
 4. serve: full-width qwen3-0.6b ``ServeLoop`` answers 8 requests of 512
    prompt tokens and 32 new tokens with a page pool too small to hold them,
    prefill through the flash kernel;
@@ -111,7 +119,21 @@ non-zero exit):
     cold from the replica, a clean ``close()``; ``ClusterJoin`` of two
     sides of 500 k rows, co-partitioned (no network bytes) and with the probe
     side moving, each byte for byte the numpy sort-merge oracle; the port's
-    ``fsck`` clean on every node's log; a ``durable_tier`` line.
+    ``fsck`` clean on every node's log; a ``durable_tier`` line;
+15. train: full-width qwen3-0.6b (28 layers, 751.6 M fp32 params, bf16
+    compute, remat per layer, fp32 AdamW moments) ``run_training`` for 12
+    steps of 8 x 512 tokens, 32 sequences written through the buffer pool
+    and read back by ``BatchLoader``: every loss finite and the mean of the
+    last 4 under that of the first 4; one step from the same params and
+    batch with attention's forward on the kernel and on the plain chunked
+    path (loss and grad norm within 2e-2); one warm step profiled
+    (forward, attention's plain backward, the rest of the backward, AdamW,
+    the device's idle share); then the crash and restart of
+    ``tests/test_system.py`` at full width and 2 layers (one layout of the
+    full-depth fp32 state is ~9 GB): a run that checkpoints at step 2 and
+    crashes there, the checkpoint bit-identical to its state on the card,
+    a run that restores from step 2 and finishes; a ``train`` line with the
+    card's name and power limit.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5
 (flash and paged attention: the qwen3 path), zeroed again just before phase
@@ -123,7 +145,10 @@ before phase 13 and read just after it (paged attention: the
 ``ServingTier`` path, exactly one launch a shard of each ``attend`` call,
 counted from the tier's sessions at the call), and again just before
 phase 14 and read just after it (flash attention: the durable path's one
-prefill, exactly one launch a layer, all on the wgmma route). Each serve
+prefill, exactly one launch a layer, all on the wgmma route), and again
+just before phase 15's training run and read just after it (flash
+attention: exactly 2 launches a layer a step, the forward and its remat
+recompute, all on the wgmma route and all writing lse). Each serve
 phase
 fails unless every kernel of its path made exactly the launches its layers
 and batches call for, every flash launch of a serve phase on the wgmma
@@ -176,8 +201,9 @@ from repro_torch.core.services import (  # noqa: E402
     canonical_join_sort, join_output_dtype)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    kernel_route, wgmma_tiles)
-from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+    flash_attention_kernel, kernel_route, wgmma_tiles)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    _attn_bwd_core, flash_attention)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.linear_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan  # noqa: E402
@@ -188,8 +214,12 @@ from repro_torch.kernels.shuffle_dispatch import kernel as shuffle_kernel  # noq
 from repro_torch.kernels.shuffle_dispatch.ops import (  # noqa: E402
     combine, compute_slots, dispatch)
 from repro_torch.launch.serve import Request, ServeLoop  # noqa: E402
+from repro_torch.launch.train import (  # noqa: E402
+    SimulatedFailure, run_training, state_to)
 from repro_torch.models.lm import tree_map  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.optim import (  # noqa: E402
+    adamw_update, make_train_state, make_train_step)
 from repro_torch.runtime.cluster import Cluster  # noqa: E402
 from repro_torch.runtime.join import ClusterJoin  # noqa: E402
 from repro_torch.runtime.rpc import pickle_fallbacks  # noqa: E402
@@ -580,6 +610,150 @@ def flash_at(rng, B, H, KH, T, D, window):
                 max_abs_err=err, tolerance=TOL[dtype], ms=kernel_ms,
                 kernel_ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+# the JAX package's attention-gradient case (tests/test_kernels.py) and the
+# masks the training slice's CPU tests cover (tests/test_torch_train.py
+# GRAD_CASES): GQA, q_offset, windows, Tk off the kv chunk
+FLASH_GRAD_CASES = [  # B, H, KH, Tq, Tk, D, causal, window, q_offset, block_k
+    (1, 4, 2, 48, 48, 16, True, None, 0, 16),
+    (2, 4, 1, 40, 72, 16, True, None, 32, 16),
+    (1, 2, 2, 96, 96, 32, True, 32, 0, 32),
+    (1, 4, 4, 33, 50, 8, False, None, 0, 16),
+    (1, 8, 2, 20, 70, 16, True, 16, 50, 32),
+    (1, 4, 2, 150, 150, 64, True, None, 0, 128),
+]
+# qwen3-0.6b's training shape: batch 8 of 512 tokens, 16 heads over 8
+TRAIN_SHAPE = (8, 16, 8, 512, 512, 128)
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}      # relative
+GRAD_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
+
+
+def naive_fp64(q, k, v, causal, window, q_offset):
+    """Softmax attention in fp64 with autograd (the gradients' oracle)."""
+    B, H, Tq, D = q.shape
+    KH, Tk = k.shape[1], k.shape[2]
+    kr = k.repeat_interleave(H // KH, dim=1)
+    vr = v.repeat_interleave(H // KH, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kr) * D ** -0.5
+    qp = torch.arange(Tq, device=q.device)[:, None] + q_offset
+    kp = torch.arange(Tk, device=q.device)[None, :]
+    live = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
+    if causal:
+        live &= kp <= qp
+    if window is not None:
+        live &= kp > qp - window
+    p = torch.softmax(s.masked_fill(~live, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vr)
+
+
+def check_flash_train(rng):
+    """The training path's flash kernel: the rows' lse on both routes
+    against the plain version (relative 1e-5 in fp32, 1e-3 in bf16, +inf on
+    the same rows), the output bit for bit that of a launch without lse;
+    ``_FlashAttention``'s dq, dk, dv through the kernel forward against
+    autograd of fp64 attention (3e-4 fp32, 2e-2 bf16) at the gradient cases
+    and at qwen3-0.6b's training shape; and, at that shape in bf16, the
+    times of the forward with lse, of the plain backward (no kernel) beside
+    its bound, and of SDPA's forward and backward as a yardstick the port
+    never calls."""
+    lse_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_CASES + FLASH_EDGE_CASES + [
+                TRAIN_SHAPE + (True, None), (1, 2, 1, 8, 8, 8, True, None, -3,
+                                             1.0)]:
+            B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale = \
+                tuple(case) + (0, 1.0)[len(case) - 8:]
+            q = rand(rng, (B, H, Tq, D), dtype) * q_scale
+            k, v = rand(rng, (B, KH, Tk, D), dtype), rand(rng, (B, KH, Tk, D),
+                                                          dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            out, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
+            bare = flash_attention_kernel(q, k, v, **kw)
+            torch.cuda.synchronize()
+            what = f"flash lse {case} {dtype}"
+            if not torch.equal(out.view(torch.int16 if dtype ==
+                                        torch.bfloat16 else torch.int32),
+                               bare.view(torch.int16 if dtype ==
+                                         torch.bfloat16 else torch.int32)):
+                _fail(f"{what}: out with lse differs from out without it")
+            ref_out, ref = attention_ref(q, k, v, return_lse=True, **kw)
+            if not torch.equal(torch.isinf(lse), torch.isinf(ref)):
+                _fail(f"{what}: +inf rows differ")
+            # relative to max(|lse|, 1)
+            fin = torch.isfinite(ref)
+            rel = float(((lse[fin] - ref[fin]).abs()
+                         / ref[fin].abs().clamp_min(1.0)).max()) \
+                if fin.any() else 0.0
+            if rel > LSE_TOL[dtype]:
+                _fail(f"{what}: relative error {rel} over {LSE_TOL[dtype]}")
+            route = kernel_route(dtype, D)
+            lse_err[f"{route} {dtype}"] = max(
+                lse_err.get(f"{route} {dtype}", 0.0), rel)
+    grad_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_GRAD_CASES + [TRAIN_SHAPE + (True, None, 0, 128)]:
+            B, H, KH, Tq, Tk, D, causal, window, q_offset, bk = case
+            q = rand(rng, (B, H, Tq, D), dtype)
+            k, v = rand(rng, (B, KH, Tk, D), dtype), rand(rng, (B, KH, Tk, D),
+                                                          dtype)
+            w = rand(rng, (B, H, Tq, D), torch.float32)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = flash_attention.lse_launches
+            out = flash_attention(*leaves, impl="kernel", block_k=bk, **kw)
+            (out.float() * w).sum().backward()
+            torch.cuda.synchronize()
+            if flash_attention.lse_launches != before + 1:
+                _fail(f"flash grads {case} {dtype}: the forward wrote no lse")
+            ref = [t.double().requires_grad_(True) for t in (q, k, v)]
+            (naive_fp64(*ref, **kw) * w.double()).sum().backward()
+            worst = 0.0
+            for t, r, name in zip(leaves, ref, "qkv"):
+                worst = max(worst, close_or_fail(
+                    t.grad, r.grad, GRAD_TOL[dtype],
+                    f"flash d{name} {case} {dtype}"))
+            key = "train shape" if case[:6] == TRAIN_SHAPE else "cases"
+            grad_err[f"{key} {dtype}"] = max(
+                grad_err.get(f"{key} {dtype}", 0.0), worst)
+            del leaves, ref, out
+    # times at the training shape, bf16
+    B, H, KH, T, _, D = TRAIN_SHAPE
+    dtype = torch.bfloat16
+    q = rand(rng, (B, H, T, D), dtype)
+    k, v = rand(rng, (B, KH, T, D), dtype), rand(rng, (B, KH, T, D), dtype)
+    dout = rand(rng, (B, H, T, D), dtype)
+    out, lse = flash_attention_kernel(q, k, v, causal=True, return_lse=True)
+    scale = D ** -0.5
+    fwd_ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=True))
+    fwd_lse_ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=True,
+                                                        return_lse=True))
+    bwd_ms = time_ms(lambda: _attn_bwd_core(q, k, v, out, dout, lse, True,
+                                            None, scale, 0, 128), reps=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+        o.backward(dout)
+
+    sdpa_ms = time_ms(sdpa_fwd_bwd)
+    pairs = B * H * T * (T + 1) // 2
+    # read q, k, v, out, dout and lse once, write dq, dk, dv once; five
+    # products of 2 D flops over each live (q, k) pair
+    nbytes = (3 * q.numel() + k.numel() + v.numel()) * 2 \
+        + lse.numel() * 4 + (q.numel() + k.numel() + v.numel()) * 2
+    bwd_bound_ms, bwd_bound_by = bound(nbytes, 10 * D * pairs, dtype)
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    return dict(lse_max_rel_err=lse_err,
+                lse_tolerance={names[d]: t for d, t in LSE_TOL.items()},
+                grads_max_abs_err=grad_err,
+                grads_tolerance={names[d]: t for d, t in GRAD_TOL.items()},
+                shape=f"B={B} H={H} KH={KH} T={T} D={D} bf16 causal",
+                fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
+                backward_plain_ms=bwd_ms, backward_bound_ms=bwd_bound_ms,
+                backward_bound_by=bwd_bound_by,
+                sdpa_fwd_bwd_ms=sdpa_ms)
 
 
 def paged_inputs(rng, B, H, KH, D, P, page, lengths, dtype):
@@ -1933,6 +2107,212 @@ def durable_tier(cfg, params, prompts, first, max_len):
     return rep
 
 
+# -- phase 15: train ---------------------------------------------------------------
+TRAIN_STEPS = 12
+TRAIN_BATCH, TRAIN_SEQ = TRAIN_SHAPE[0], TRAIN_SHAPE[3]
+# four batches of sequences, each seen three times (as tests/test_system.py's
+# loss test repeats its 32 sequences), so that the loss has something to fall
+# on: fresh uniform tokens only pull it towards ln(vocab)
+TRAIN_SEQUENCES = 32
+# the crash and restart run at full width and a cut depth: one layout of the
+# full-depth fp32 state (params and both AdamW moments) is ~9 GB
+CRASH_LAYERS = 2
+
+
+def state_leaves(state):
+    """Every tensor of a TrainState, in a fixed order."""
+    return [state.opt.step] + [t for tree in (state.params, state.opt.m,
+                                              state.opt.v)
+                               for t in leaves_of(tree)]
+
+
+def same_bits(a, b):
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def train_batch(cfg, seed):
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ), dtype=np.int32)
+    labels = np.concatenate(
+        [toks[:, 1:], np.full((TRAIN_BATCH, 1), -100, np.int32)], axis=1)
+    return {"tokens": torch.from_numpy(toks).to(DEV),
+            "labels": torch.from_numpy(labels).to(DEV)}
+
+
+def train_routes(cfg):
+    """One training step from the same params and batch with attention's
+    forward on the kernel and on the plain chunked path: loss and grad norm
+    within 2e-2 (relative)."""
+    model = build_model(cfg, device=DEV)
+    state = make_train_state(
+        model.init(torch.Generator(DEV).manual_seed(7)),
+        cfg.opt_state_dtype)
+    batch = train_batch(cfg, 8)
+    out = {}
+    for impl in ("kernel", "xla"):
+        step = make_train_step(build_model(cfg, attn_impl=impl,
+                                           device=DEV).loss)
+        _, metrics = step(state, batch)
+        out[impl] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+        del metrics
+        gc.collect()
+    for key in ("loss", "grad_norm"):
+        a, b = out["kernel"][key], out["xla"][key]
+        if not (np.isfinite(a) and abs(a - b) <= 2e-2 * abs(b)):
+            _fail(f"train step {key}: kernel {a} vs plain {b}")
+    return out
+
+
+def train_profile(cfg, state, batch):
+    """Where one warm step's device time goes (torch.profiler): the forward,
+    attention's plain backward (the ``_FlashAttention`` nodes), the rest of
+    the backward (the remat recompute included) and AdamW, with the host
+    wall time and the device's idle share, of the profiled step's wall time
+    and of the same step's unprofiled wall time (the profiler's own cost
+    widens the first). The step is the train step's three parts, each in
+    its own profiler range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    model = build_model(cfg, device=DEV)
+    flat = leaves_of(state.params)
+
+    def run():
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        it = iter(leaves)
+        params = tree_map(lambda _: next(it), state.params)
+        with record_function("train/forward"):
+            loss = model.loss(params, batch)
+        with record_function("train/backward"):
+            grads = iter(torch.autograd.grad(loss, leaves))
+        with record_function("train/optimizer"):
+            adamw_update(state.params, tree_map(lambda _: next(grads),
+                                                state.params), state.opt)
+        return loss
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(loss)):
+        _fail("train profile: non-finite loss")
+    events = prof.key_averages()
+    # the device side of the ranges is listed too (their span on the GPU's
+    # timeline, gaps included): kernels only
+    ranges = ("train/forward", "train/backward", "train/optimizer")
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ranges]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def range_ms(pred):
+        """Device ms under the host ranges whose name ``pred`` accepts (the
+        widest of them: a node's evaluation holds its apply)."""
+        return max([e.device_time_total / 1e3 for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and pred(e.key)] or [0.0])
+
+    fwd = range_ms(lambda k: k == "train/forward")
+    opt = range_ms(lambda k: k == "train/optimizer")
+    attn_bwd = range_ms(lambda k: "_FlashAttentionBackward" in k)
+    bwd = busy_ms - fwd - opt          # the engine's thread runs it
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(wall_ms=plain_wall * 1e3, profiled_wall_ms=wall * 1e3,
+                device_busy_ms=busy_ms,
+                idle_share=1 - busy_ms / (wall * 1e3),
+                idle_share_unprofiled=1 - busy_ms / (plain_wall * 1e3),
+                forward_ms=fwd, backward_ms=bwd,
+                attention_backward_plain_ms=attn_bwd,
+                backward_rest_ms=bwd - attn_bwd, optimizer_ms=opt,
+                kernel_launches=sum(e.count for e in kernels),
+                top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                     for e in top])
+
+
+def train_restart(cfg, root):
+    """``tests/test_system.py``'s crash and restart at full width and
+    ``CRASH_LAYERS`` layers: a run that checkpoints at step 2 (async) and
+    crashes there, the step-2 checkpoint restored bit-identical to the
+    crashed run's state on the card, and a second run that restores from
+    step 2, trains step 3 and saves it."""
+    ccfg = cfg.with_(n_layers=CRASH_LAYERS)
+    kw = dict(steps=3, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+              ckpt_dir=root, ckpt_every=2, seed=6, log_every=100,
+              device=DEV)
+    crash = None
+    t0 = time.perf_counter()
+    try:
+        run_training(ccfg, fail_at_step=2, **kw)
+    except SimulatedFailure as e:        # the crash this part simulates
+        crash = e
+    if crash is None:
+        _fail("train restart: fail_at_step=2 did not crash the run")
+    crash_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    saved = state_to(CheckpointManager(root, layouts=("row", "col"),
+                                       num_shards=4).restore(crash.state,
+                                                             step=2), DEV)
+    restore_s = time.perf_counter() - t0
+    a, b = state_leaves(crash.state), state_leaves(saved)
+    if len(a) != len(b) or not all(same_bits(x, y) for x, y in zip(a, b)):
+        _fail("train restart: the step-2 checkpoint is not the crashed "
+              "run's state bit for bit")
+    state_gb = sum(t.numel() * t.element_size() for t in a) / 1e9
+    del crash, saved, a, b
+    gc.collect()
+    t0 = time.perf_counter()
+    res = run_training(ccfg, **kw)
+    resume_s = time.perf_counter() - t0
+    if res.restored_from != 2 or res.steps != 3 or len(res.losses) != 1 \
+            or not np.isfinite(res.losses[0]):
+        _fail(f"train restart: restored from {res.restored_from}, "
+              f"{res.steps} steps, losses {res.losses}")
+    return dict(layers=CRASH_LAYERS, state_gb=state_gb,
+                restored_from=res.restored_from, bit_identical=True,
+                crash_run_s=crash_s, restore_s=restore_s,
+                resumed_run_s=resume_s, resumed_loss=res.losses[0])
+
+
+def train_run(cfg):
+    """Full-width qwen3-0.6b (28 layers, fp32 params, bf16 compute, remat
+    per layer, fp32 AdamW moments) trains ``TRAIN_STEPS`` steps of 8 x 512
+    tokens (``TRAIN_SEQUENCES`` sequences, written through the pool and read
+    back by ``BatchLoader``); the losses must be finite
+    and fall (the mean of the last 4 under that of the first 4)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_training(cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                       seq_len=TRAIN_SEQ, num_sequences=TRAIN_SEQUENCES,
+                       seed=5, log_every=4,
+                       device=DEV)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if len(res.losses) != TRAIN_STEPS or not all(
+            np.isfinite(l) for l in res.losses + res.grad_norms):
+        _fail(f"train: losses {res.losses}, grad norms {res.grad_norms}")
+    if not np.mean(res.losses[-4:]) < np.mean(res.losses[:4]):
+        _fail(f"train: the loss did not fall: {res.losses}")
+    warm_s = float(np.median(res.step_seconds[1:]))
+    n_params = sum(t.numel() for t in leaves_of(res.state.params))
+    return res, dict(
+        arch=cfg.name, layers=cfg.n_layers, params=n_params,
+        steps=res.steps, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        remat=cfg.remat, compute=cfg.compute_dtype,
+        moments=cfg.opt_state_dtype, losses=res.losses,
+        grad_norms=res.grad_norms, first_step_ms=res.step_seconds[0] * 1e3,
+        ms_per_step=warm_s * 1e3,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / warm_s,
+        tokens_per_s_whole_run=res.tokens_per_s, wall_s=wall_s,
+        peak_device_gb=peak / 1e9)
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -1959,6 +2339,10 @@ def main():
     rng = np.random.default_rng(42)
     kernels = [check_flash(rng), check_paged(rng), check_gla(rng),
                check_diag(rng), *check_shuffle(rng)]
+    # the training path's checks draw from their own generator, so that the
+    # later phases' inputs stay those of the earlier slices
+    kernels[0]["train"] = check_flash_train(np.random.default_rng(16))
+    log("flash_train", json.dumps(kernels[0]["train"]))
     lap("kernels")
     flash_build = flash_build_facts()
     log("flash_build", json.dumps(flash_build))
@@ -1997,6 +2381,7 @@ def main():
     def zero_counts():
         for fn in counted:
             fn.launches = 0
+        flash_attention.lse_launches = 0
         for fn in (flash_attention, gla_scan, diag_scan, dispatch):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
@@ -2136,6 +2521,41 @@ def main():
     lap("durable tier")
     durable["seconds"] = phase_s["durable tier"]
     log("durable_tier", json.dumps(durable))
+
+    zero_counts()
+    train_res, train = train_run(cfg)
+    path = f"{cfg.name}/train"
+    want = 2 * cfg.n_layers * TRAIN_STEPS      # each forward and its remat
+    if (flash_attention.launches != want
+            or flash_attention.launches_by_route["wgmma"] != want
+            or flash_attention.lse_launches != want):
+        _fail(f"flash_attention: {flash_attention.launches} launches "
+              f"({flash_attention.launches_by_route}, "
+              f"{flash_attention.lse_launches} with lse) on the {path} path, "
+              f"not {want} on wgmma with lse")
+    others = {fn.__name__: fn.launches for fn in counted
+              if fn is not flash_attention and fn.launches}
+    if others:
+        _fail(f"{path}: other kernels launched: {others}")
+    launches["flash_attention"][path] = flash_attention.launches
+    flash_routes[path] = dict(flash_attention.launches_by_route,
+                              with_lse=flash_attention.lse_launches)
+    train["profile"] = train_profile(cfg, train_res.state,
+                                     train_batch(cfg, 9))
+    del train_res
+    free()
+    train["kernel_vs_plain"] = train_routes(cfg)
+    free()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train["restart"] = train_restart(cfg, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free()
+    lap("train")
+    train["seconds"] = phase_s["train"]
+    train["card"] = smi
+    log("train", json.dumps(train))
     next(k for k in kernels if k["name"] == "flash_attention").update(
         launches_by_route=flash_routes, build=flash_build)
     for name, lib in (("gla_scan", "linear_scan"), ("diag_scan", "diag_scan")):

@@ -26,11 +26,12 @@ ARCH_IDS = [
     "qwen2-vl-72b",
 ]
 
-# what the port's LM runs today: dense GQA decoders with RoPE and RMSNorm,
-# the attention-free RWKV6 (family "ssm"), RG-LRU with local attention
-# (family "hybrid") and MoE over GQA attention (family "moe", without MLA)
-PORTED_ARCH_IDS = ("glm4-9b", "qwen3-0.6b", "rwkv6-3b", "recurrentgemma-9b",
-                   "grok-1-314b")
+# what the port's LM runs today: dense GQA decoders with RoPE (RMSNorm, or
+# OLMo's non-parametric LayerNorm), the attention-free RWKV6 (family
+# "ssm"), RG-LRU with local attention (family "hybrid") and MoE over GQA
+# attention (family "moe", without MLA)
+PORTED_ARCH_IDS = ("glm4-9b", "qwen3-0.6b", "olmo-1b", "minitron-8b",
+                   "rwkv6-3b", "recurrentgemma-9b", "grok-1-314b")
 
 
 def _module_name(arch_id: str) -> str:

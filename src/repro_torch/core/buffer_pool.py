@@ -14,11 +14,25 @@ pool is the arena + page mechanics and delegates policy to its manager
 (``pool.memory``). ``pool.paging`` / ``pool.spill`` / ``pool.stats`` remain
 as views into the manager for existing callers.
 
-Copy of the JAX package's ``core/buffer_pool.py``; nothing changes.
+Copy of the JAX package's ``core/buffer_pool.py`` but for one change: the
+durable page log is written with no lock held. The reference persists a
+write-through page, a dropped set's tombstone and a rename record while it
+holds the pool's lock, so a compaction or a tail sync that the write
+triggers fsyncs under ``buffer_pool``. Here those log operations are queued
+under the lock, in the order the lock was taken, and the thread that queued
+one runs the queue after it releases the lock (or waits while another
+thread runs it): one thread at a time, first in first out, so the log gets
+the same records in the same order, and the same bytes, as the reference's.
+A page whose image is queued keeps one pin until the image is in the log,
+so it is not evicted (and never read back from the log) before then. A log
+operation that fails raises in the thread that queued it, as the reference
+raises in the thread whose write failed, and a page whose write failed is
+left unpinned and dirty, as the reference leaves it.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional
+from collections import deque
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -26,7 +40,7 @@ from .attributes import AttributeSet, DurabilityType, Lifetime
 from .locality_set import LocalitySet, Page
 from .memory_manager import MemoryManager, SpillStore
 from .paging import PagingSystem
-from .sanitizer import tracked_rlock
+from .sanitizer import tracked_condition, tracked_rlock
 from .tlsf import TLSF
 
 __all__ = ["BufferPool", "PoolExhaustedError", "SpillStore", "MemoryManager"]
@@ -59,6 +73,14 @@ class BufferPool:
         self._pages: Dict[int, Page] = {}
         self._next_page_id = 0
         self._lock = tracked_rlock("buffer_pool")
+        # page-log operations queued under the lock and run outside it, in
+        # order, by one thread at a time (``_run_log``)
+        self._log_cv = tracked_condition("buffer_pool.log", self._lock)
+        self._log_ops: deque = deque()    # (ticket, operation)
+        self._log_queued = 0      # tickets handed out
+        self._log_done = 0        # operations run to their end
+        self._log_errors: Dict[int, Exception] = {}   # ticket -> its failure
+        self._log_running = False
 
     # -- delegation views (the earlier public surface) -----------------------------
     @property
@@ -90,6 +112,7 @@ class BufferPool:
         """Re-key a locality set (streaming remesh writes a shard under a
         staging name, then renames it into place once the old shard's pages
         are gone). Page ids are pool-global, so spill images carry over."""
+        ticket = None
         with self._lock:
             if new_name == ls.name:
                 return ls
@@ -104,13 +127,17 @@ class BufferPool:
                     and any(p.durable for p in ls.pages.values())):
                 # re-key the durable images too (O(1) rename record): replay
                 # must find them under the name the catalog will ask for
-                self.memory.pagelog.rename_set(old_name, new_name)
+                log = self.memory.pagelog
+                ticket = self._queue_log(
+                    lambda: log.rename_set(old_name, new_name))
             self.paging.register(ls, self.clock)
-            return ls
+        self._run_log(ticket)
+        return ls
 
     def drop_set(self, ls: LocalitySet) -> None:
         """Free every page (lifetime over, data discarded) — including any
         spill images, which otherwise leak in the spill store."""
+        ticket = None
         with self._lock:
             any_durable = False
             for page in list(ls.pages.values()):
@@ -137,7 +164,9 @@ class BufferPool:
                 # one set-level tombstone cuts every log entry (append-only
                 # log: per-page deletes don't exist); replay will not
                 # resurrect the dropped set
-                self.memory.pagelog.drop_set(ls.name)
+                log, name = self.memory.pagelog, ls.name
+                ticket = self._queue_log(lambda: log.drop_set(name))
+        self._run_log(ticket)
 
     # -- warm start from the durable tier -----------------------------------------
     def adopt_durable_set(self, name: str, page_size: int,
@@ -241,19 +270,110 @@ class BufferPool:
             return self.view(page)
 
     def unpin(self, page: Page, dirty: bool = False) -> None:
+        ticket = None
         with self._lock:
             if page.pin_count <= 0:
                 raise ValueError(f"unpin of unpinned page {page.page_id}")
-            page.pin_count -= 1
-            if page.pin_count == 0:
-                self.memory.note_unpinned(page.size)
             page.dirty = page.dirty or dirty
             ls = self.get_set(page.set_name)
             # write-through: persist immediately once written (paper §4)
             if (page.dirty and ls.attrs.durability == DurabilityType.WRITE_THROUGH):
-                self._spill_page(ls, page)
+                if self.memory.durable_route(ls):
+                    # the log write keeps this pin until the image has landed
+                    ticket = self._queue_page_write(ls, page)
+                else:
+                    self._spill_page(ls, page)
                 page.dirty = False
                 page.spilled = True
+            if ticket is None:
+                self._drop_pin(page)
+        self._run_log(ticket)
+
+    def _drop_pin(self, page: Page) -> None:
+        page.pin_count -= 1
+        if page.pin_count == 0:
+            self.memory.note_unpinned(page.size)
+
+    # -- the page log, written outside the lock -------------------------------------
+    def _queue_page_write(self, ls: LocalitySet, page: Page) -> int:
+        """Queue a write-through page's image for the log, holding the lock
+        and one pin of the page. The page counts as durable from here on (a
+        ``drop_set`` or ``rename_set`` queued after it cuts or re-keys the
+        image once it has landed); the write drops the pin once it has run,
+        and puts the page back as it was if it failed."""
+        data = self.arena[page.offset:page.offset + page.size].tobytes()
+        name, spilled, durable = ls.name, page.spilled, page.durable
+        page.durable = True
+
+        def write() -> None:
+            ok = False
+            try:
+                self.memory.pagelog_write(name, page, data)
+                ok = True
+            finally:
+                with self._lock:
+                    live = self._pages.get(page.page_id) is page
+                    if ok:
+                        ls.stats["spill_bytes"] += page.size
+                        self.memory.note_spilled(page.size)
+                        if live:
+                            page.spilled = True
+                    elif live:
+                        # the reference leaves a page whose write failed
+                        # dirty (a later unpin or eviction writes it again)
+                        page.dirty = True
+                        page.spilled, page.durable = spilled, durable
+                    # a drop_set in between cleared the pins already
+                    if live and page.pin_count > 0:
+                        self._drop_pin(page)
+        return self._queue_log(write)
+
+    def _queue_log(self, op: Callable[[], None]) -> int:
+        """Queue one page-log operation and return its ticket; the caller
+        holds the lock, and runs the queue (``_run_log``) with that ticket
+        once it has released it."""
+        self._log_queued += 1
+        self._log_ops.append((self._log_queued, op))
+        return self._log_queued
+
+    def _run_log(self, ticket: Optional[int]) -> None:
+        """Run the queued log operations up to ``ticket``, holding no lock,
+        and raise what that ticket's operation raised. The first caller to
+        find the queue idle runs it, first in first out, and records each
+        operation's failure against its ticket; the others wait for their
+        tickets on the condition (which releases the lock). Called with the
+        lock released."""
+        if ticket is None:
+            return
+        with self._log_cv:
+            while self._log_running and self._log_done < ticket:
+                self._log_cv.wait()
+            run = self._log_done < ticket
+            if run:
+                self._log_running = True
+        if run:
+            try:
+                while True:
+                    with self._lock:
+                        if not self._log_ops:
+                            break
+                        queued, op = self._log_ops.popleft()
+                    try:
+                        op()
+                    except Exception as exc:  # re-raised by its queuer
+                        with self._lock:
+                            self._log_errors[queued] = exc
+                    finally:
+                        with self._lock:
+                            self._log_done += 1
+            finally:
+                with self._log_cv:
+                    self._log_running = False
+                    self._log_cv.notify_all()
+        with self._lock:
+            error = self._log_errors.pop(ticket, None)
+        if error is not None:
+            raise error
 
     # -- eviction (Algorithm 1 driver) ---------------------------------------------
     def _alloc_with_eviction(self, size: int) -> int:
@@ -282,7 +402,9 @@ class BufferPool:
         if self.memory.durable_route(ls):
             # write-through sets persist into the durable page log, the tier
             # below scratch spill: the image survives node death and a
-            # restarted node warm-starts from it
+            # restarted node warm-starts from it. Only the eviction of a page
+            # whose queued write failed comes here for the log, and it writes
+            # under the lock, as the reference does
             self.memory.pagelog_write(ls.name, page, data)
         else:
             self.spill.write(page.page_id, data)

@@ -405,8 +405,10 @@ class MemoryManager:
         sequence number, rewrites supersede in place (append-only)."""
         # The log runs under its own lock (and fsyncs outside it); holding
         # the manager lock across disk I/O would stall every accounting hook
-        # behind an appender.  Same-page write races are excluded upstream
-        # by the buffer pool's lock, so seq consistency survives the move.
+        # behind an appender.  Same-page write races are excluded upstream:
+        # the buffer pool runs its log writes one at a time, in the order it
+        # queued them, so a page's second image lands after its first and
+        # reuses the seq the first one recorded here.
         entry = self.pagelog.append(
             set_name, data, seq=page.log_seq if page.log_seq >= 0 else None)
         with self._lock:

@@ -83,6 +83,17 @@
 // the narrow heads keep their registers. Masked scores are -1e30 and their
 // probabilities 0.
 //
+// Both kernels also write each row's log-sum-exp of the scaled scores,
+// lse = m + log(l) in fp32 ([B, H, Tq]), when they are given a pointer for it
+// (nullptr: no write, and the output's bits are those of a launch without
+// it). The running max and sum of a row are in registers at the end of its
+// key loop, so the epilogue writes one float a row: in the wgmma kernel the
+// first thread of each quad, from the max kept in log2 units, (m + log2 l)
+// ln 2; in the scalar kernel the first thread of each row's half-warp. A row
+// with no live key gets +inf, so that exp(s - lse) = 0 for it, as its output
+// is 0. The training path's backward (kernels/flash_attention/ops.py
+// `_FlashAttention`) recomputes the probabilities from it.
+//
 // The route is chosen by dtype and shape in Python (kernels/flash_attention/
 // kernel.py `kernel_route`), never on failure: each entry point returns the
 // CUDA error of its launch and the wrapper raises.
@@ -94,6 +105,21 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
+#define PLUS_INF __int_as_float(0x7f800000)
+
+// lse of a row from its running max m and sum l (natural units): +inf for a
+// row with no live key
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : PLUS_INF;
+}
+
+// Fills n floats with +inf (the lse of a launch with no key at all).
+__global__ void fill_plus_inf(float* __restrict__ p, size_t n) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    p[i] = PLUS_INF;
+}
 
 // ---------------------------------------------------------------------------
 // Scalar kernel (fp32 FMAs)
@@ -128,7 +154,8 @@ size_t smem_bytes(int D) {
 template <typename T, int DJ>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int KH,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int KH,
                  int Tq, int Tk, int D, float scale, int causal,
                  int has_window, int window, int q_offset, int kv_len) {
   extern __shared__ float smem[];
@@ -247,6 +274,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  if (lse != nullptr && tx == 0) {
+    float* lb = lse + ((size_t)b * H + h) * Tq;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + ty * 4 + i;
+      if (r < Tq) lb[r] = row_lse(m[i], l[i]);
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
@@ -261,7 +296,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DJ>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H,
            int KH, int Tq, int Tk, int D, float scale, int causal,
            int has_window, int window, int q_offset, int kv_len,
            cudaStream_t stream) {
@@ -273,21 +309,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, DJ><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KH, Tq, Tk, D, scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, Tq, Tk, D, scale,
       causal, has_window, window, q_offset, kv_len);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_for_width(const void* q, const void* k, const void* v, void* o,
+                     float* lse,
                      int B, int H, int KH, int Tq, int Tk, int D, float scale,
                      int causal, int has_window, int window, int q_offset,
                      int kv_len, cudaStream_t stream) {
   if (D <= D_NARROW)
-    return launch<T, D_NARROW / 16>(q, k, v, o, B, H, KH, Tq, Tk, D, scale,
+    return launch<T, D_NARROW / 16>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale,
                                     causal, has_window, window, q_offset,
                                     kv_len, stream);
-  return launch<T, D_MAX / 16>(q, k, v, o, B, H, KH, Tq, Tk, D, scale, causal,
+  return launch<T, D_MAX / 16>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale, causal,
                                has_window, window, q_offset, kv_len, stream);
 }
 
@@ -642,7 +679,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                const __grid_constant__ CUtensorMap tm_o, int H, int KH,
+                const __grid_constant__ CUtensorMap tm_o,
+                float* __restrict__ lse, int H, int KH,
                 int Tq, int Tk, float scale, int causal, int has_window,
                 int window, int q_offset, int kv_len, int n_qtiles, int n_work) {
   using P = TcPlan<DT, BKT>;
@@ -839,6 +877,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      if (lse != nullptr && (t & 3) == 0) {
+        // m0, m1 are in log2 units of the scaled scores
+        float* lb = lse + (size_t)wk.bh * Tq;
+        const int row = wk.q0 + cw * 64 + r0;
+        if (row < Tq) lb[row] = l0 > 0.f ? (m0 + log2f(l0)) * LN2 : PLUS_INF;
+        if (row + 8 < Tq)
+          lb[row + 8] = l1 > 0.f ? (m1 + log2f(l1)) * LN2 : PLUS_INF;
+      }
       const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
       const uint32_t sw = (uint32_t)(r0 & 7);
 #pragma unroll
@@ -913,7 +959,8 @@ int make_map(CUtensorMap* map, const void* ptr, int BH, int T, int D, int rows) 
 }
 
 template <int DT, int BKT>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B,
                  int H, int KH, int Tq, int Tk, int D, float scale, int causal,
                  int has_window, int window, int q_offset, int kv_len,
                  cudaStream_t stream) {
@@ -938,7 +985,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   const int n_qtiles = (Tq + TC_BQ - 1) / TC_BQ;
   const int n_work = B * H * n_qtiles;
   flash_fwd_wgmma<DT, BKT><<<min(n_work, sms), TC_THREADS, P::SMEM, stream>>>(
-      tm_q, tm_k, tm_v, tm_o, H, KH, Tq, Tk, scale, causal, has_window, window,
+      tm_q, tm_k, tm_v, tm_o, lse, H, KH, Tq, Tk, scale, causal, has_window, window,
       q_offset, kv_len, n_qtiles, n_work);
   return (int)cudaGetLastError();
 }
@@ -947,21 +994,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// The scalar kernel. dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after launch.
+// The scalar kernel. dtype: 0 = float32, 1 = bfloat16. `lse`: [B, H, Tq]
+// fp32, or nullptr for none. Returns cudaGetLastError() after launch.
 int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                        void* o, int B, int H, int KH, int Tq, int Tk, int D,
+                        void* o, float* lse, int B, int H, int KH, int Tq,
+                        int Tk, int D,
                         float scale, int causal, int has_window, int window,
                         int q_offset, int kv_len, void* stream) {
   if (D < 1 || D > D_MAX || KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_for_width<float>(q, k, v, o, B, H, KH, Tq, Tk, D, scale,
+    return launch_for_width<float>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale,
                                    causal, has_window, window, q_offset,
                                    kv_len, s);
   if (dtype == 1)
-    return launch_for_width<__nv_bfloat16>(q, k, v, o, B, H, KH, Tq, Tk, D,
+    return launch_for_width<__nv_bfloat16>(q, k, v, o, lse, B, H, KH, Tq, Tk, D,
                                            scale, causal, has_window, window,
                                            q_offset, kv_len, s);
   return (int)cudaErrorInvalidValue;
@@ -978,9 +1026,11 @@ int flash_attention_wgmma_tiles(int D, int* head_dim_tile, int* block_q,
 }
 
 // The tensor-core kernel: bf16, D % 8 == 0, D <= 256, every pointer 16-byte
-// aligned. Returns cudaGetLastError() after launch.
+// aligned. `lse`: [B, H, Tq] fp32, or nullptr for none. Returns
+// cudaGetLastError() after launch.
 int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
-                              void* o, int B, int H, int KH, int Tq, int Tk,
+                              void* o, float* lse, int B, int H, int KH,
+                              int Tq, int Tk,
                               int D, float scale, int causal, int has_window,
                               int window, int q_offset, int kv_len,
                               void* stream) {
@@ -991,18 +1041,22 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
     return (int)cudaErrorMisalignedAddress;
   if (B == 0 || Tq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Tk == 0)        // no key at all: every row is 0
-    return (int)cudaMemsetAsync(o, 0, (size_t)B * H * Tq * D * 2, s);
+  if (Tk == 0) {      // no key at all: every row is 0, its lse +inf
+    cudaError_t e = cudaMemsetAsync(o, 0, (size_t)B * H * Tq * D * 2, s);
+    if (e != cudaSuccess || lse == nullptr) return (int)e;
+    fill_plus_inf<<<64, 256, 0, s>>>(lse, (size_t)B * H * Tq);
+    return (int)cudaGetLastError();
+  }
   int dt, bq, bk;
   flash_attention_wgmma_tiles(D, &dt, &bq, &bk);
   if (dt == 64)
-    return launch_wgmma<64, 128>(q, k, v, o, B, H, KH, Tq, Tk, D, scale, causal,
+    return launch_wgmma<64, 128>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale, causal,
                                  has_window, window, q_offset, kv_len, s);
   if (dt == 128)
-    return launch_wgmma<128, 128>(q, k, v, o, B, H, KH, Tq, Tk, D, scale,
+    return launch_wgmma<128, 128>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale,
                                   causal, has_window, window, q_offset, kv_len,
                                   s);
-  return launch_wgmma<256, 80>(q, k, v, o, B, H, KH, Tq, Tk, D, scale, causal,
+  return launch_wgmma<256, 80>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale, causal,
                                has_window, window, q_offset, kv_len, s);
 }
 

@@ -16,12 +16,17 @@ alone, never on failure:
   that is no multiple of 8 (TMA needs 16-byte strides). Scalar fp32 FMAs
   over 64 x 64 tiles.
 
+Both routes write each row's log-sum-exp of the scaled scores (``lse``,
+[B, H, Tq] fp32; +inf for a row with no live key) when asked to, for the
+training path's backward; without it they write the output alone, with the
+same bits.
+
 ``ops.flash_attention`` is the wrapper that dispatches and counts launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -30,10 +35,10 @@ from .. import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "flash_attention_fwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                             _I, _I, _I, _I, _I, _P], _I),
-    "flash_attention_fwd_wgmma": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _F, _I, _I, _I, _I, _I, _P], _I),
+    "flash_attention_fwd": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _F, _I, _I, _I, _I, _I, _P], _I),
+    "flash_attention_fwd_wgmma": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _F, _I, _I, _I, _I, _I, _P], _I),
     "flash_attention_wgmma_tiles": ([_I, _P, _P, _P], _I),
 }
 D_MAX = 256            # csrc/flash_attention.cu D_MAX
@@ -108,11 +113,15 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool = True,
                            window: Optional[int] = None,
                            scale: Optional[float] = None, q_offset: int = 0,
-                           kv_len: Optional[int] = None) -> torch.Tensor:
+                           kv_len: Optional[int] = None,
+                           return_lse: bool = False
+                           ) -> Union[torch.Tensor,
+                                      Tuple[torch.Tensor, torch.Tensor]]:
     """Launch the kernel of ``kernel_route(q.dtype, D)``. q: [B, H, Tq, D];
     k, v: [B, KH, Tk, D], all contiguous CUDA tensors of one dtype (float32
     or bfloat16). ``kv_len``: keys at or past it are masked (default Tk).
-    Returns [B, H, Tq, D]."""
+    Returns [B, H, Tq, D], and with ``return_lse`` also the rows' lse
+    [B, H, Tq] in fp32 (one launch either way)."""
     check_kernel_inputs(q, k, v)
     B, H, Tq, D = q.shape
     KH, Tk = k.shape[1], k.shape[2]
@@ -121,10 +130,12 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_len is None:
         kv_len = Tk
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            KH, Tq, Tk, D, float(scale), int(causal), int(window is not None),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, B, H, KH, Tq, Tk, D, float(scale), int(causal), int(window is not None),
             int(window or 0), int(q_offset), int(kv_len), stream)
     with torch.cuda.device(q.device):
         if kernel_route(q.dtype, D) == "wgmma":
@@ -134,4 +145,4 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             err = lib.flash_attention_fwd(_DTYPE_CODE[q.dtype], *args)
             what = "flash_attention_fwd"
     _build.check(lib, err, what)
-    return out
+    return (out, lse) if return_lse else out

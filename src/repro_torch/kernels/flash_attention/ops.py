@@ -30,8 +30,10 @@ the tensors lie on the CPU. On CUDA tensors it launches a kernel or raises;
 it never falls back. It passes the tensors unpadded: the kernels mask Tq,
 Tk and kv_len themselves, so ``block_q`` / ``block_k`` only shape the
 ``"xla"`` path.
-``flash_attention.launches`` counts kernel launches and
-``flash_attention.launches_by_route`` splits them by route.
+``flash_attention.launches`` counts kernel launches,
+``flash_attention.launches_by_route`` splits them by route and
+``flash_attention.lse_launches`` counts those that also wrote the rows'
+log-sum-exp (the training path's forwards).
 
 ``"kernel"`` and ``"xla"`` differ on a row with no live key inside a block
 that is not skipped (a causal row before the first key, ``q_offset < 0``):
@@ -41,8 +43,20 @@ Pallas kernel and chunked path, which leave them unzeroed, so that every
 visited key counts exp(-1e30 - (-1e30)) = 1 and the row is the mean of V.
 No served path has such a row.
 
-The custom VJP of the reference's chunked path waits for the training slice:
-this port is forward only.
+Gradients. When grad is enabled and q, k or v requires it, ``"kernel"``
+and ``"xla"`` run through ``_FlashAttention``, the port of the reference's
+custom VJP of its chunked path (``_chunked_attention``, ``ops.py:117-191``).
+Its forward is the CUDA kernel with the rows' lse written (``"kernel"``;
+the plain version with lse on CPU tensors) or the chunked mirror, whose
+running max m and sum l give lse = m + log l (``"xla"``). Its backward is
+one plain-PyTorch mirror of the reference's ``_chunked_attention_bwd``, for
+both: per kv chunk it recomputes the scores, takes the probabilities from
+the saved lse, p = exp(s - lse), and accumulates dq, dk and dv with
+delta = sum(dout * out) and
+ds = p (dp - delta) scale, folding the query-head groups back into their kv
+heads. It launches no kernel: the reference computes it in XLA, outside
+any Pallas kernel, so it is the counterpart of no TPU kernel. ``"naive"``
+stays plain autograd through the oracle.
 """
 from __future__ import annotations
 
@@ -80,28 +94,118 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 for the PV product ("xla" only, as in the reference; the "wgmma"
     kernel route always does).
     """
-    if impl == "naive" or (impl == "kernel" and q.device.type == "cpu"):
+    if impl == "naive":
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale, q_offset=q_offset)
+    if impl not in ("kernel", "xla"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, impl, causal, window, scale,
+                                     q_offset, block_k, p_bf16)
     if impl == "kernel":
-        out = flash_attention_kernel(q, k, v, causal=causal, window=window,
-                                     scale=scale, q_offset=q_offset,
-                                     kv_len=k.shape[2])
-        flash_attention.launches += 1
-        flash_attention.launches_by_route[
-            kernel_route(q.dtype, q.shape[-1])] += 1
-        return out
-    if impl == "xla":
-        if scale is None:
-            scale = q.shape[-1] ** -0.5
-        out, _, _ = _attn_fwd_core(q, k, v, causal, window, scale, q_offset,
-                                   block_k, p_bf16)
-        return out
-    raise ValueError(f"unknown impl {impl!r}")
+        return _kernel_fwd(q, k, v, causal, window, scale, q_offset, False)
+    out, _, _ = _attn_fwd_core(q, k, v, causal, window, scale, q_offset,
+                               block_k, p_bf16)
+    return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_attention.lse_launches = 0
+
+
+def _kernel_fwd(q, k, v, causal, window, scale, q_offset, return_lse):
+    """``impl="kernel"``: the CUDA kernel on CUDA tensors (counted), its
+    plain version on CPU tensors. Returns out, or (out, lse)."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale, q_offset=q_offset,
+                             return_lse=return_lse)
+    res = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                 scale=scale, q_offset=q_offset,
+                                 kv_len=k.shape[2], return_lse=return_lse)
+    flash_attention.launches += 1
+    flash_attention.launches_by_route[kernel_route(q.dtype, q.shape[-1])] += 1
+    flash_attention.lse_launches += int(return_lse)
+    return res
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with the reference's flash-style custom VJP: the forward
+    keeps each row's softmax statistics, the backward recomputes per-chunk
+    scores from them instead of saving [Tq, Tk] probabilities. ``impl``:
+    ``"kernel"`` (the CUDA kernel with its lse output) or ``"xla"`` (the
+    chunked mirror, lse = m + log l from its running max and sum)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, impl, causal, window, scale, q_offset, block_k,
+                p_bf16):
+        if impl == "kernel":
+            out, lse = _kernel_fwd(q, k, v, causal, window, scale, q_offset,
+                                   True)
+        else:
+            out, m, l = _attn_fwd_core(q, k, v, causal, window, scale,
+                                       q_offset, block_k, p_bf16)
+            lse = (m + torch.log(l))[..., 0]      # l is clamped above 0
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale, q_offset, block_k, p_bf16)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _attn_bwd_core(q, k, v, out, dout, lse, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _attn_bwd_core(q, k, v, out, dout, lse, causal, window, scale, q_offset,
+                   block_k, p_bf16=False):
+    """The plain-PyTorch mirror of the reference's ``_chunked_attention_bwd``
+    (``repro/kernels/flash_attention/ops.py:142-188``), in fp32, chunk by
+    chunk over kv blocks of ``block_k``: p = exp(s - lse) from the saved
+    rows' lse ``[B, H, Tq]``, masked scores filled with -1e30 as in the
+    reference, delta = sum(dout *
+    out), ds = p (dp - delta) scale, and the GQA groups folded back into kv
+    heads. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    B, H, Tq, D = q.shape
+    _, KH, Tk, _ = k.shape
+    Dv = v.shape[-1]
+    group = H // KH
+    bk = min(block_k, Tk)
+    kp = _pad_to(k, 2, bk)
+    vp = _pad_to(v, 2, bk)
+    nk = kp.shape[2] // bk
+    qf = q.float()
+    do = dout.float()
+    # delta_i = sum_d dout_i * out_i  (flash-attn bwd identity)
+    delta = (do * out.float()).sum(dim=-1, keepdim=True)
+    dq = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for ki in range(nk):
+        kbr = kp[:, :, ki * bk:(ki + 1) * bk].float().repeat_interleave(
+            group, dim=1)
+        vbr = vp[:, :, ki * bk:(ki + 1) * bk].float().repeat_interleave(
+            group, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kbr) * scale
+        mask = _chunk_mask(Tq, Tk, bk, ki, q_offset, causal, window, q.device)
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+        p = torch.exp(s - lse[..., None])             # true softmax weights
+        if p_bf16:
+            p = p.to(torch.bfloat16).float()
+        dv_c = torch.einsum("bhqk,bhqd->bhkd", p, do)
+        dp = torch.einsum("bhqd,bhkd->bhqk", do, vbr)
+        ds = p * (dp - delta) * scale
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds, kbr)
+        dk_c = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+        # fold GQA groups back into kv heads
+        dks.append(dk_c.reshape(B, KH, group, bk, D).sum(dim=2))
+        dvs.append(dv_c.reshape(B, KH, group, bk, Dv).sum(dim=2))
+    dk = torch.cat(dks, dim=2)[:, :, :Tk]
+    dv = torch.cat(dvs, dim=2)[:, :, :Tk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _chunk_mask(Tq, Tk, bk, ki, q_offset, causal, window, device):

@@ -1,0 +1,172 @@
+"""Training loop: data pipeline (buffer pool) -> train step -> checkpoint
+manager (async, heterogeneous layouts) -> fault-tolerance hooks, step for
+step with the JAX package's ``launch/train.py``.
+
+The token dataset is written through the port's ``BufferPool``
+(``synthetic_token_dataset``) and read back by ``BatchLoader``; each batch
+moves to the device for its step. Attention's forward runs the flash
+kernel (``LM(attn_impl="kernel")``, with the rows' lse written) and its
+backward the plain mirror of the reference's custom VJP; the optimizer is
+the port's AdamW. Checkpoints go through the port's ``CheckpointManager``
+with the reference's layouts, shard count and flattened keys, so either
+package restores the other's. Training is ported for the dense family.
+
+Run: ``python -m repro_torch.launch.train --arch qwen3-0.6b`` on the card,
+or ``--smoke --device cpu`` for a small CPU run.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..checkpoint import CheckpointManager
+from ..configs import get_config, smoke_config
+from ..configs.base import ArchConfig
+from ..core import BufferPool
+from ..data.pipeline import BatchLoader, synthetic_token_dataset
+from ..models.lm import tree_map
+from ..models.model import build_model
+from ..optim import AdamWState, TrainState, make_train_state, make_train_step
+from ..runtime import StepTimer
+
+
+@dataclass
+class TrainLoopResult:
+    losses: list
+    steps: int
+    restored_from: Optional[int]
+    tokens_per_s: float
+    grad_norms: List[float] = field(default_factory=list)
+    step_seconds: List[float] = field(default_factory=list)
+    state: Any = None          # the final TrainState, on the device
+
+
+class SimulatedFailure(RuntimeError):
+    """The crash ``fail_at_step`` simulates. ``state`` is the TrainState at
+    the crash step, the one the last checkpoint holds."""
+
+    def __init__(self, step: int, state: TrainState):
+        super().__init__(f"simulated failure at step {step}")
+        self.state = state
+
+
+def state_to(state: TrainState, device: torch.device) -> TrainState:
+    """A TrainState (e.g. restored as CPU tensors) moved to ``device``."""
+    move = lambda t: t.to(device)
+    opt = state.opt
+    return TrainState(params=tree_map(move, state.params),
+                      opt=AdamWState(step=move(opt.step),
+                                     m=tree_map(move, opt.m),
+                                     v=tree_map(move, opt.v)))
+
+
+def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
+                 seq_len: int = 64, lr: float = 3e-4,
+                 ckpt_dir: Optional[str] = None, ckpt_every: int = 10,
+                 microbatches: int = 1, pool_bytes: int = 256 << 20,
+                 num_sequences: Optional[int] = None, seed: int = 0,
+                 log_every: int = 5,
+                 fail_at_step: Optional[int] = None,
+                 device: DeviceLike = "cuda",
+                 params=None) -> TrainLoopResult:
+    """Train on synthetic data staged through the Pangea buffer pool.
+
+    ``params``: initial params (e.g. the reference's, bridged); by default
+    ``LM.init`` draws them from a ``torch.Generator`` seeded with ``seed``
+    on ``device``. ``fail_at_step`` simulates a crash (raises
+    ``SimulatedFailure``, a ``RuntimeError``); calling run_training again
+    with the same ``ckpt_dir`` restores and continues.
+    """
+    dev = resolve_device(device)
+    model = build_model(cfg, device=dev)
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    state = make_train_state(params, cfg.opt_state_dtype)
+    step_fn = make_train_step(model.loss, lr=lr, microbatches=microbatches)
+
+    mgr = None
+    restored_from = None
+    if ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir, layouts=("row", "col"),
+                                num_shards=4)
+        last = mgr.latest_step()
+        if last is not None:
+            state = state_to(mgr.restore(state, step=last), dev)
+            restored_from = last
+
+    pool = BufferPool(pool_bytes)
+    nseq = num_sequences or batch_size * max(steps, 1)
+    ds = synthetic_token_dataset(pool, "train_tokens", vocab=cfg.vocab,
+                                 num_sequences=nseq, seq_len=seq_len,
+                                 seed=seed)
+    timer = StepTimer([0])
+    res = TrainLoopResult(losses=[], steps=0, restored_from=restored_from,
+                          tokens_per_s=0.0)
+    done = int(state.opt.step)
+    t_start = time.time()
+    tokens = 0
+
+    def batches() -> Iterable[Dict[str, np.ndarray]]:
+        while True:
+            for b in BatchLoader(ds, batch_size=batch_size):
+                yield b
+
+    for batch in batches():
+        if done >= steps:
+            break
+        tb = {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+        t0 = time.time()
+        state, metrics = step_fn(state, tb)
+        loss = float(metrics["loss"])
+        dt = time.time() - t0
+        timer.record(0, dt)
+        res.losses.append(loss)
+        res.grad_norms.append(float(metrics["grad_norm"]))
+        res.step_seconds.append(dt)
+        tokens += batch_size * seq_len
+        done = int(metrics["step"])
+        if done % log_every == 0 or done == steps:
+            print(f"step {done:5d} loss {loss:.4f} "
+                  f"({timer.ewma[0]*1e3:.0f} ms/step)")
+        if mgr and done % ckpt_every == 0:
+            mgr.save(done, state, async_=True)
+        if fail_at_step is not None and done >= fail_at_step:
+            if mgr:
+                mgr.wait()
+            raise SimulatedFailure(done, state)
+    if mgr:
+        mgr.save(done, state, async_=False)
+    res.steps = done
+    res.tokens_per_s = tokens / max(time.time() - t_start, 1e-9)
+    res.state = state
+    return res
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    res = run_training(cfg, steps=args.steps, batch_size=args.batch_size,
+                       seq_len=args.seq_len, ckpt_dir=args.ckpt_dir,
+                       microbatches=args.microbatches, device=args.device)
+    print(f"done: {res.steps} steps, final loss {res.losses[-1]:.4f}, "
+          f"{res.tokens_per_s:.0f} tok/s")
+
+
+if __name__ == "__main__":
+    main()

@@ -132,3 +132,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Mean CE over valid positions (``labels != ignore_index``), from
+    fp32-upcast logits [..., V], as the reference's."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
+    valid = labels != ignore_index
+    nll = (lse - ll) * valid
+    return nll.sum() / valid.sum().clamp_min(1)

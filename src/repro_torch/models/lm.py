@@ -8,6 +8,16 @@ Params keep the JAX reference's layout: a nested dict with the stacked
 bridge to the reference is a map over names and checkpoints stay
 cross-loadable. The reference scans layers with ``lax.scan``; PyTorch runs
 eagerly, so here it is a Python loop over the stacked dim.
+
+Training (``loss``, gradients through ``forward``) is ported for the dense
+family. ``forward`` takes the layers with one ``unbind`` of each cast
+stacked leaf (under autograd its backward is one ``stack``; slicing layer
+i would write a zero tensor of the whole stack for each layer's
+gradient), and when grad is enabled, a param requires it and
+``cfg.remat == "layer"``, it rematerialises each layer
+(``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint`` of the scanned body. With no grad, ``unbind`` gives the
+same views as slicing, so serving computes what it did.
 """
 from __future__ import annotations
 
@@ -15,16 +25,24 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from . import blocks
-from .common import einsum, normal, param_dtype
+from .common import cross_entropy_loss, einsum, normal, param_dtype
 from .moe_shardmap import moe_shardmap_apply, moe_shardmap_init
 
 Pytree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+AUX_COEF = 0.01
+
+# the ROADMAP items that carry training past the dense family
+TRAIN_ITEMS = {"ssm": "Training: the recurrent families",
+               "hybrid": "Training: the recurrent families",
+               "moe": "Training: MoE"}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -45,6 +63,23 @@ def tree_map(fn, tree):
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked params/cache tree (views, no copies)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def _unstack(tree, n: int):
+    """A stacked tree -> n per-layer trees, with one ``unbind`` a leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unstack(v, n) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(n)]
+    return [None] * n if tree is None else list(tree.unbind(0))
+
+
+def _requires_grad(tree) -> bool:
+    found = []
+    tree_map(lambda t: found.append(t.requires_grad), tree)
+    return torch.is_grad_enabled() and any(found)
 
 
 def _stack(states):
@@ -249,6 +284,9 @@ class LM:
 
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (logits, aux_loss)."""
+        train = _requires_grad(params)
+        if train:
+            self._check_trainable()
         params = self._compute_cast(params)
         x = self._embed(params, batch)
         positions = self._positions(x.shape[1])
@@ -260,11 +298,32 @@ class LM:
                                               positions)
             x, _ = self._rem_apply(params, x, [None] * len(params["rem"]))
         else:
-            for i in range(self.cfg.n_layers):
-                x, _, a = self._layer_apply(_layer(params["layers"], i), x,
-                                            positions)
+            remat = train and self.cfg.remat == "layer"
+            for lp in _unstack(params["layers"], self.cfg.n_layers):
+                if remat:
+                    x, _, a = checkpoint(self._layer_apply, lp, x, positions,
+                                         use_reentrant=False)
+                else:
+                    x, _, a = self._layer_apply(lp, x, positions)
                 aux = aux + a
         return self._logits(params, x), aux
+
+    def _check_trainable(self) -> None:
+        """Gradients are ported for the dense family only: the scan and MoE
+        kernels have no backward."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{self.cfg.name}: training the {self.cfg.family!r} family "
+                f"is not ported yet (ROADMAP queue 1, "
+                f"'{TRAIN_ITEMS[self.cfg.family]}')")
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token CE over ``batch["labels"] != -100`` plus
+        ``AUX_COEF`` times the forward's aux loss, as the reference's."""
+        self._check_trainable()
+        logits, aux = self.forward(params, batch)
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        return cross_entropy_loss(logits, labels) + AUX_COEF * aux
 
     # ------------------------------------------------------------- serving
     def decode_cache_init(self, batch: int, max_len: int) -> Pytree:

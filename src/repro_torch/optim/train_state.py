@@ -1,0 +1,72 @@
+"""Train state and the train-step factory (gradient accumulation over
+microbatches), as the JAX package's ``optim/train_state.py``.
+
+``TrainState`` and ``AdamWState`` keep the reference's NamedTuple field
+names, so the checkpoint manager's flattened keys (``params/...``,
+``opt/step``, ``opt/m/...``, ``opt/v/...``) are the same in both packages
+and a checkpoint of either restores in the other.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from .adamw import AdamWState, _leaves, _unflatten_like, adamw_init, \
+    adamw_update
+
+Pytree = Any
+
+
+class TrainState(NamedTuple):
+    params: Pytree
+    opt: AdamWState
+
+
+def make_train_state(params: Pytree, opt_dtype: str = "float32") -> TrainState:
+    return TrainState(params=params, opt=adamw_init(params, opt_dtype))
+
+
+def make_train_step(loss_fn: Callable[[Pytree, Any], torch.Tensor], *,
+                    lr: float = 3e-4, weight_decay: float = 0.1,
+                    microbatches: int = 1) -> Callable:
+    """Build train_step(state, batch) -> (state, metrics).
+
+    ``microbatches > 1`` accumulates fp32 gradients over equal slices of
+    the batch's leading dim in a Python loop (the reference's ``lax.scan``)
+    and divides by their count; the loss is the mean of the slices' losses.
+    Metrics: ``loss``, ``grad_norm`` (of the averaged gradients, in fp32)
+    and ``step``, as 0-d tensors.
+    """
+
+    def grads_of(params, batch):
+        leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
+        loss = loss_fn(_unflatten_like(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), grads
+
+    def train_step(state: TrainState, batch) -> tuple:
+        params = state.params
+        if microbatches == 1:
+            loss, grads = grads_of(params, batch)
+        else:
+            n = next(iter(batch.values())).shape[0] // microbatches
+            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    for p in _leaves(params)]
+            loss = torch.zeros((), dtype=torch.float32, device=gsum[0].device)
+            for i in range(microbatches):
+                mb = {k: x[i * n:(i + 1) * n] for k, x in batch.items()}
+                l_i, g = grads_of(params, mb)
+                gsum = [a + b.float() for a, b in zip(gsum, g)]
+                loss = loss + l_i.float()
+            grads = [g / microbatches for g in gsum]
+            loss = loss / microbatches
+        grads = _unflatten_like(params, list(grads))
+        new_params, new_opt = adamw_update(params, grads, state.opt, lr=lr,
+                                           weight_decay=weight_decay)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in _leaves(grads)))
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": new_opt.step}
+        return TrainState(new_params, new_opt), metrics
+
+    return train_step

@@ -17,8 +17,8 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.core import PagedKVCache
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.kernel import (kernel_route,
-                                                        wgmma_tiles)
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_kernel, kernel_route, wgmma_tiles)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.linear_scan import kernel as scan_kernel
@@ -230,6 +230,96 @@ def test_flash_kernel_fully_masked_rows_give_zero(dtype, cuda_device):
         assert not out[:, :, :dead].any()
         _close(out, attention_ref(q, k, v, causal=True, q_offset=q_offset),
                **_tol(dtype))
+
+
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}       # relative
+GRAD_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
+# the JAX package's attention-gradient case (tests/test_kernels.py), the
+# masks of tests/test_torch_train.py's GRAD_CASES and qwen3-0.6b's training
+# shape: B, H, KH, Tq, Tk, D, causal, window, q_offset, block_k
+FLASH_GRAD_CASES = [
+    (1, 4, 2, 48, 48, 16, True, None, 0, 16),
+    (2, 4, 1, 40, 72, 16, True, None, 32, 16),
+    (1, 2, 2, 96, 96, 32, True, 32, 0, 32),
+    (1, 4, 4, 33, 50, 8, False, None, 0, 16),
+    (1, 8, 2, 20, 70, 16, True, 16, 50, 32),
+    (8, 16, 8, 512, 512, 128, True, None, 0, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_EDGE_CASES + [
+    (8, 16, 8, 512, 512, 128, True, None),      # qwen3-0.6b's training shape
+    (1, 2, 1, 8, 8, 8, True, None, -3, 1.0),    # rows with no live key
+])
+def test_flash_kernel_lse_matches_plain(case, dtype, cuda_device):
+    """Both routes write each row's lse: relative 1e-5 (fp32) and 1e-3
+    (bf16) to the plain version, +inf on the same rows; the output keeps
+    the bits of a launch without lse."""
+    B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale = flash_case(case)
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=s)).to(cuda_device,
+                                                      DTYPES[dtype])
+               for s in ((B, H, Tq, D), (B, KH, Tk, D), (B, KH, Tk, D)))
+    q = q * q_scale
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
+    bare = flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, Tq) and lse.dtype == torch.float32
+    assert torch.equal(out.view(torch.int16 if dtype == "bfloat16"
+                                else torch.int32),
+                       bare.view(torch.int16 if dtype == "bfloat16"
+                                 else torch.int32))
+    _, ref = attention_ref(q, k, v, return_lse=True, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    rel = ((lse[fin] - ref[fin]).abs() / ref[fin].abs().clamp_min(1.0))
+    assert float(rel.max()) <= LSE_TOL[dtype] if fin.any() else True
+
+
+def _naive_fp64(q, k, v, causal, window, q_offset):
+    H, KH, Tq, Tk = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
+    kr, vr = (t.repeat_interleave(H // KH, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kr) * q.shape[-1] ** -0.5
+    qp = torch.arange(Tq, device=q.device)[:, None] + q_offset
+    kp = torch.arange(Tk, device=q.device)[None, :]
+    live = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
+    if causal:
+        live &= kp <= qp
+    if window is not None:
+        live &= kp > qp - window
+    p = torch.softmax(s.masked_fill(~live, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES)
+def test_flash_function_grads_on_the_card(case, dtype, cuda_device):
+    """``_FlashAttention`` through the kernel forward (one launch, with lse)
+    and the plain backward: dq, dk, dv against autograd of fp64 attention,
+    3e-4 in fp32 and 2e-2 in bf16."""
+    B, H, KH, Tq, Tk, D, causal, window, q_offset, bk = case
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.normal(size=s)).to(cuda_device,
+                                                      DTYPES[dtype])
+               for s in ((B, H, Tq, D), (B, KH, Tk, D), (B, KH, Tk, D)))
+    w = torch.from_numpy(rng.normal(size=(B, H, Tq, D))).to(cuda_device)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (flash_attention.launches, flash_attention.lse_launches)
+    out = flash_attention(*leaves, impl="kernel", block_k=bk, **kw)
+    (out.double() * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.lse_launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = [t.double().requires_grad_(True) for t in (q, k, v)]
+    (_naive_fp64(*ref, **kw) * w).sum().backward()
+    tol = GRAD_TOL[dtype]
+    for t, r in zip(leaves, ref):
+        _close(t.grad, r.grad, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

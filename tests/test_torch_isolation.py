@@ -74,6 +74,43 @@ def test_import_with_jax_and_repro_blocked():
     assert "IMPORTED" in out.stdout
 
 
+TRAINING_MODULES = ["data/__init__.py", "data/pipeline.py",
+                    "optim/__init__.py", "optim/adamw.py",
+                    "optim/compression.py", "optim/train_state.py",
+                    "launch/train.py"]
+
+TRAIN_BLOCKED = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch.configs import smoke_config
+from repro_torch.launch.train import run_training
+res = run_training(smoke_config("qwen3-0.6b"), steps=2, batch_size=2,
+                   seq_len=8, log_every=100, device="cpu")
+assert res.steps == 2 and len(res.losses) == 2
+assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
+print("TRAINED")
+"""
+
+
+@pytest.mark.parametrize("rel", TRAINING_MODULES)
+def test_training_modules_are_in_the_checked_set(rel):
+    """The trainer's modules (the data pipeline, the optimizer, the train
+    launcher) are among the files ``test_no_jax_or_repro_imports`` reads."""
+    assert PORT / rel in _port_files()
+
+
+def test_trainer_runs_with_jax_and_repro_blocked():
+    """Two CPU training steps of smoke qwen3-0.6b, through the pool, the
+    loader, the loss, the attention Function and AdamW, with any import of
+    jax or of the JAX package raising."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", TRAIN_BLOCKED], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "TRAINED" in out.stdout
+
+
 def _smoke(cwd):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)

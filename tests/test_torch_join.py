@@ -6,13 +6,11 @@ the port: a co-partitioned join moves 0 network bytes, a non-co join
 shuffles only the non-co side, and every execution mode (forced build-side
 spill, dead-owner replica reads, straggler re-execution) is byte-identical
 to the single-pool ``join_records`` reference after the canonical sort.
-The JAX package stages both sides through ``data/pipeline.cluster_join``,
-which the port does not have; ``cluster_join`` below stages them the same
-way. The cross-package tests run the same joins on both packages' clusters
-and hold the outputs byte for byte, and the reports' bytes, together.
+Both packages stage the sides through their own
+``data/pipeline.cluster_join``. The cross-package tests run the same joins
+on both packages' clusters and hold the outputs byte for byte, and the
+reports' bytes, together.
 """
-from typing import Optional
-
 import numpy as np
 import pytest
 import torch
@@ -20,6 +18,7 @@ import torch
 from repro_torch.core import BufferPool, SequentialWriter
 from repro_torch.core.services import (JoinService, canonical_join_sort,
                                        join_output_dtype, join_records)
+from repro_torch.data.pipeline import cluster_join
 from repro_torch.runtime import rpc as port_rpc
 from repro_torch.runtime.cluster import Cluster
 from repro_torch.runtime.join import ClusterJoin, scheme_slot_of_keys
@@ -32,34 +31,6 @@ torch.set_num_threads(2)
 def _port_isolation():
     port_rpc.reset_counters()
     yield
-
-
-def cluster_join(cluster, name: str, build_records, probe_records,
-                 key_field: str, build_partition_field: Optional[str] = None,
-                 probe_partition_field: Optional[str] = None,
-                 page_size: int = 1 << 18,
-                 replication_factor: Optional[int] = None,
-                 num_reducers: Optional[int] = None, step_timer=None,
-                 join_cls=ClusterJoin):
-    """Stage both sides as sharded sets partitioned on their partition
-    fields (the join key by default), join, drop the staged sets — the JAX
-    package's ``data/pipeline.cluster_join``, step for step."""
-    def staged(tag, records, field):
-        return cluster.create_sharded_set(
-            f"{name}.{tag}", records,
-            key_fn=lambda r, f=field: np.asarray(r[f]).astype(np.int64),
-            page_size=page_size, replication_factor=replication_factor,
-            partition_key=field)
-
-    build = staged("build", build_records, build_partition_field or key_field)
-    probe = staged("probe", probe_records, probe_partition_field or key_field)
-    try:
-        return join_cls(cluster, build, probe, key_field,
-                        num_reducers=num_reducers,
-                        step_timer=step_timer).execute()
-    finally:
-        cluster.drop_sharded_set(build)
-        cluster.drop_sharded_set(probe)
 
 
 BUILD = np.dtype([("key", np.int64), ("rid", np.int64), ("bval", np.float64)])
@@ -359,22 +330,21 @@ def test_both_sides_placement_uses_combined_byte_statistics():
 # -- the same joins on both packages' clusters -------------------------------------
 @pytest.mark.parametrize("mode", ["co", "one_side", "both", "dead_owner"])
 def test_join_output_and_report_equal_the_reference(mode):
+    from repro.data.pipeline import cluster_join as ref_cluster_join
     from repro.runtime.cluster import Cluster as RefCluster
-    from repro.runtime.join import ClusterJoin as RefClusterJoin
     brecs, precs = _sides(nb=2_000, np_=6_000, seed=5)
     fields = {"co": {}, "dead_owner": {},
               "one_side": {"probe_partition_field": "rid"},
               "both": {"build_partition_field": "rid",
                        "probe_partition_field": "rid"}}[mode]
     results = []
-    for cls, join_cls in ((Cluster, ClusterJoin),
-                          (RefCluster, RefClusterJoin)):
+    for cls, join in ((Cluster, cluster_join),
+                      (RefCluster, ref_cluster_join)):
         cluster = cls(4, replication_factor=1, node_capacity=32 << 20,
                       page_size=1 << 16)
         if mode == "dead_owner":
             cluster.kill_node(2)
-        out, report = cluster_join(cluster, "j", brecs, precs, "key",
-                                   join_cls=join_cls, **fields)
+        out, report = join(cluster, "j", brecs, precs, "key", **fields)
         results.append((out.dtype, out.tobytes(), report.net_bytes,
                         report.shuffled_bytes, report.build_rows,
                         report.probe_rows, report.output_rows,

@@ -1,6 +1,7 @@
 """The port's LM against the JAX package's on bridged params: forward,
-prefill and three decode steps of smoke qwen3-0.6b, glm4-9b, rwkv6-3b,
-recurrentgemma-9b and grok-1-314b (MoE: the aux loss too).
+prefill and three decode steps of smoke qwen3-0.6b, glm4-9b, olmo-1b,
+minitron-8b, rwkv6-3b, recurrentgemma-9b and grok-1-314b (MoE: the aux loss
+too).
 
 fp32 is held at 1e-4 (two layers of fp32 sums taken in another order). bf16
 is held at 2e-2 against the reference run op by op (``jax.disable_jit``):
@@ -27,8 +28,8 @@ from repro_torch.models.model import build_model
 
 torch.set_num_threads(2)
 
-ARCHS = ["qwen3-0.6b", "glm4-9b", "rwkv6-3b", "recurrentgemma-9b",
-         "grok-1-314b"]
+ARCHS = ["qwen3-0.6b", "glm4-9b", "olmo-1b", "minitron-8b", "rwkv6-3b",
+         "recurrentgemma-9b", "grok-1-314b"]
 STATE_KEYS = ("tm_x", "cm_x", "S")         # RWKV6's per-layer decode state
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -190,8 +191,8 @@ def test_silu_rounds_like_the_reference_in_bf16():
 
 
 def test_unported_archs_raise():
-    """Five archs are left: deepseek (MLA), olmo, minitron, seamless and
-    qwen2-vl. MLA raises in the LM even when its family (moe) is ported,
+    """Three archs are left: deepseek (MLA), seamless and qwen2-vl. MLA
+    raises in the LM even when its family (moe) is ported,
     and so does a moe family without experts."""
     assert len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
@@ -201,7 +202,7 @@ def test_unported_archs_raise():
         else:
             with pytest.raises(NotImplementedError):
                 get_config(arch)
-    assert len([a for a in ARCH_IDS if a not in ARCHS]) == 5
+    assert len([a for a in ARCH_IDS if a not in ARCHS]) == 3
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     with pytest.raises(NotImplementedError):

@@ -393,6 +393,141 @@ def test_cluster_compaction_knob_bounds_log_growth(tmp_path):
     cluster.shutdown()
 
 
+def _compaction_script(cluster_cls, root):
+    """Queue 3's input: a sharded set of 6000 pairs over four nodes with
+    page logs that compact at 2x, dropped and recreated four times."""
+    cluster = cluster_cls(4, node_capacity=16 << 20, page_size=1 << 16,
+                          replication_factor=1, pagelog_dir=str(root),
+                          pagelog_compact_threshold=2.0)
+    sset = cluster.create_sharded_set("t", _pairs(6_000, 500, seed=12),
+                                      key_fn=lambda r: r["key"])
+    for i in range(4):
+        cluster.drop_sharded_set(sset)
+        sset = cluster.create_sharded_set("t", _pairs(6_000, 500, seed=12 + i),
+                                          key_fn=lambda r: r["key"])
+    compactions = sum(node.memory.pagelog.compactions
+                      for node in cluster.nodes.values())
+    cluster.shutdown()
+    logs = {}
+    for node_dir in sorted(os.listdir(root)):
+        with open(os.path.join(root, node_dir, LOG_FILENAME), "rb") as fh:
+            logs[node_dir] = fh.read()
+    return compactions, logs
+
+
+def test_pool_persists_outside_its_lock_documented_disagreement(
+        tmp_path, monkeypatch):
+    """The buffer pool writes the page log holding no lock. The reference
+    persists write-through pages and tombstones under its ``buffer_pool``
+    lock, so the compactions they trigger fsync under it; its sanitizer
+    does not see them (its compaction's fsync is not a marked blocking
+    region), so every ``os.fsync`` is watched here in both packages. With
+    ``PANGEA_SANITIZE=1`` the port records no blocking-while-holding event
+    (48 before the pool queued its log writes) and fsyncs with no lock
+    held; the reference fsyncs under ``buffer_pool``. The logs are the same
+    bytes."""
+    from repro.core import sanitizer as ref_sanitizer
+    from repro.runtime.cluster import Cluster as RefCluster
+    monkeypatch.setenv("PANGEA_SANITIZE", "1")
+    real_fsync = os.fsync
+    held = []
+
+    def watched(fd):
+        held.append(watch())
+        return real_fsync(fd)
+
+    monkeypatch.setattr(os, "fsync", watched)
+    out = {}
+    for name, san, cls in (("port", port_sanitizer, Cluster),
+                           ("ref", ref_sanitizer, RefCluster)):
+        prev = san.enabled()
+        san.enable(True)
+        san.reset()
+        held.clear()
+        watch = san.held_lock_names
+        try:
+            compactions, logs = _compaction_script(cls, tmp_path / name)
+            report = san.sanitizer_report()
+        finally:
+            san.reset()
+            san.enable(prev)
+        out[name] = (compactions, logs, report, list(held))
+    compactions, port_logs, report, port_held = out["port"]
+    assert compactions >= 1 and port_held
+    assert report["blocking_while_holding"] == [] and report["cycles"] == []
+    assert all(h == [] for h in port_held)
+    ref_compactions, ref_logs, ref_report, ref_held = out["ref"]
+    assert ref_compactions == compactions
+    assert ref_report["blocking_while_holding"] == []
+    assert any("buffer_pool" in h for h in ref_held)
+    assert port_logs == ref_logs and len(port_logs) == 4
+
+
+def test_failed_log_write_raises_in_its_writer_and_leaves_the_page_dirty(
+        tmp_path):
+    """A write-through page's log write runs outside the pool's lock, maybe
+    in another thread's turn at the queue. If it fails, the thread that
+    unpinned the page raises (the reference raises there), the page is left
+    dirty with its pin released (as the reference leaves it), and its next
+    unpin writes it again. The other thread's unpin, which ran the failing
+    write, returns normally."""
+    from repro_torch.core.attributes import AttributeSet, DurabilityType
+    from repro_torch.core.buffer_pool import BufferPool
+    log = PageLog(str(tmp_path / "log"))
+    pool = BufferPool(1 << 20, pagelog=log)
+    ls = pool.create_set("s", 4096, AttributeSet(
+        durability=DurabilityType.WRITE_THROUGH))
+    good, bad = pool.new_page(ls), pool.new_page(ls)
+    pool.view(good)[:] = 1
+    pool.view(bad)[:] = 2
+    entered, go = threading.Event(), threading.Event()
+    fail = [True]
+    real_append = log.append
+
+    def append(name, payload, seq=None):
+        if payload[0] == 1:
+            entered.set()
+            assert go.wait(30)
+        elif payload[0] == 2 and fail[0]:
+            raise OSError("disk full")
+        return real_append(name, payload, seq)
+
+    log.append = append
+    raised = {}
+
+    def unpin(page, key):
+        try:
+            pool.unpin(page, dirty=True)
+        except OSError as exc:
+            raised[key] = exc
+
+    runner = threading.Thread(target=unpin, args=(good, "good"))
+    runner.start()
+    assert entered.wait(30)          # the runner holds the queue
+    writer = threading.Thread(target=unpin, args=(bad, "bad"))
+    writer.start()
+    for _ in range(3000):            # the bad write is queued behind it
+        if pool._log_queued == 2:
+            break
+        threading.Event().wait(0.01)
+    assert pool._log_queued == 2
+    go.set()
+    runner.join(30)
+    writer.join(30)
+    assert list(raised) == ["bad"] and "disk full" in str(raised["bad"])
+    assert not good.dirty and good.durable and good.pin_count == 0
+    assert bad.dirty and not bad.durable and not bad.spilled
+    assert bad.pin_count == 0 and pool.memory.pinned_bytes == 0
+    assert [e.seq for e in log.entries_for("s")] == [good.log_seq]
+    # the page is still dirty, so its next unpin writes it again
+    fail[0] = False
+    pool.pin(bad)
+    pool.unpin(bad)
+    assert not bad.dirty and bad.durable and bad.pin_count == 0
+    assert log.read("s", bad.log_seq) == bytes([2]) * 4096
+    log.close()
+
+
 # -- fsync policies (tests/test_columnar.py's) ----------------------------------
 def test_fsync_policy_validated(tmp_path):
     with pytest.raises(ValueError, match="fsync_policy"):

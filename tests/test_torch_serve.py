@@ -2,7 +2,7 @@
 tests/test_system.py::test_serve_loop_with_paging (smoke glm4-9b, 6 requests,
 2 slots, max_len 32, 3 pool pages) with fp32 compute and KV so that no greedy
 argmax tie flips: identical token ids and identical pager stats; the same for
-smoke rwkv6-3b, recurrentgemma-9b and grok-1-314b."""
+smoke olmo-1b, minitron-8b, rwkv6-3b, recurrentgemma-9b and grok-1-314b."""
 import jax
 import numpy as np
 import pytest
@@ -53,6 +53,27 @@ def test_serve_loop_matches_jax_tokens_and_pager_stats():
         assert loop.stats[key] == jloop.stats[key], key
     assert loop.pager.kv.device.type == "cpu"
     assert flash_attention.launches == before  # CPU: the plain version
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "minitron-8b"])
+def test_dense_serve_loop_matches_jax_tokens_and_pager_stats(arch):
+    """The dense archs ported with the trainer (olmo-1b: non-parametric
+    LayerNorm and MHA; minitron-8b: GQA) in the same case."""
+    jcfg = jax_smoke_config(arch).with_(**FP32)
+    jloop = JaxServeLoop(jcfg, batch_slots=2, max_len=32, hbm_pages=3)
+    jout = jloop.run([JaxRequest(i, p, max_new_tokens=4)
+                      for i, p in enumerate(_prompts(jcfg.vocab))])
+    params = params_from_numpy(jax.tree.map(np.asarray, jloop.params),
+                               device="cpu")
+    loop = ServeLoop(smoke_config(arch).with_(**FP32), batch_slots=2,
+                     max_len=32, hbm_pages=3, params=params, device="cpu")
+    out = loop.run([Request(i, p, max_new_tokens=4)
+                    for i, p in enumerate(_prompts(jcfg.vocab))])
+    assert len(out) == 6 and all(len(v) == 4 for v in out.values())
+    assert out == jout
+    assert loop.stats["offloads"] > 0
+    for key in PAGER_KEYS:
+        assert loop.stats[key] == jloop.stats[key], key
 
 
 def test_rwkv_serve_loop_matches_jax_tokens_and_pager_stats():
