@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs its serving path, its
-storage tier and its trainer on a GPU.
+storage tier, its trainer and MLA on a GPU.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (Hopper,
 ``nvcc`` under ``/usr/local/cuda``): ``python3 chip_smoke.py``.
@@ -60,7 +60,21 @@ non-zero exit):
    the gradient cases and at qwen3-0.6b's training shape (B=8, H=16, KH=8,
    T=512, D=128), and there the forward's time with and without lse, the
    plain backward's beside its bound and SDPA's forward and backward as a
-   yardstick the port never calls (a ``flash_train`` line);
+   yardstick the port never calls (a ``flash_train`` line); then MLA's
+   heads, v's head dim Dv unlike q's and k's D (``flash_dv`` line): the
+   flash kernel on both routes at smoke deepseek-v2-lite-16b's heads (D =
+   24, Dv = 16), its full ones (192, 128) and more (Dv over D, a V tile of
+   256 beside a q/K tile of 64, the scalar route's D % 8 != 0) against the
+   plain version, each row's lse, ``_FlashAttention``'s gradients, and
+   deepseek's prefill (B=4, H=KH=16, T=512, D=192, Dv=128) timed beside its
+   bound, the plain version and SDPA (with the kernels SDPA ran); dispatch
+   and combine at deepseek's served prefill (4 x 512 tokens, top-6 of 64
+   experts, C = 60, D = 2048, on dispatch's walk) and decode (T = 1, C = 4,
+   on its direct route), dispatch bit for bit the gather of the kept
+   tokens, timed beside their bounds (a second ``shuffle_work`` line); one
+   full-width deepseek-v2-lite-16b layer (MLA + MoE) in fp32, kernel path
+   against plain path in prefill and a decode step, and its absorbed
+   decode against the expanded one within 1e-4;
 4. serve: full-width qwen3-0.6b ``ServeLoop`` answers 8 requests of 512
    prompt tokens and 32 new tokens with a page pool too small to hold them,
    prefill through the flash kernel;
@@ -133,7 +147,16 @@ non-zero exit):
     full-depth fp32 state is ~9 GB): a run that checkpoints at step 2 and
     crashes there, the checkpoint bit-identical to its state on the card,
     a run that restores from step 2 and finishes; a ``train`` line with the
-    card's name and power limit.
+    card's name and power limit;
+16. serve: full-width, full-depth deepseek-v2-lite-16b (27 layers of MLA
+    over MoE, 16.2 B params drawn in bf16 and handed over cast) answers 8
+    requests of 512 prompt tokens and 32 new tokens with the default pool,
+    prefill attention through the flash kernel at D = 192, Dv = 128 (on
+    wgmma), every MoE layer's dispatch and combine through the shuffle
+    kernels in prefill (walk) and every decode step (direct), decode over
+    the expanded per-head cache; a ``deepseek`` line (params, peak device
+    GB, the phase's seconds);
+17. profile: as phase 6, for deepseek-v2-lite-16b.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5
 (flash and paged attention: the qwen3 path), zeroed again just before phase
@@ -148,7 +171,9 @@ phase 14 and read just after it (flash attention: the durable path's one
 prefill, exactly one launch a layer, all on the wgmma route), and again
 just before phase 15's training run and read just after it (flash
 attention: exactly 2 launches a layer a step, the forward and its remat
-recompute, all on the wgmma route and all writing lse). Each serve
+recompute, all on the wgmma route and all writing lse), and again just
+before phase 16 and read just after it (flash, dispatch and combine: the
+deepseek-v2-lite-16b path, with no other kernel). Each serve
 phase
 fails unless every kernel of its path made exactly the launches its layers
 and batches call for, every flash launch of a serve phase on the wgmma
@@ -181,6 +206,7 @@ from collections import Counter
 
 import numpy as np
 import torch
+from torch.nn.attention import SDPBackend
 
 
 def _fail(msg):
@@ -216,6 +242,7 @@ from repro_torch.kernels.shuffle_dispatch.ops import (  # noqa: E402
 from repro_torch.launch.serve import Request, ServeLoop  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     SimulatedFailure, run_training, state_to)
+from repro_torch.models.blocks import _capacity  # noqa: E402
 from repro_torch.models.lm import tree_map  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
@@ -258,6 +285,25 @@ FLASH_EDGE_CASES = [  # B, H, KH, Tq, Tk, D, causal, window, q_offset, q scale
     (1, 2, 2, 70, 300, 128, False, None, 0, 1.0),
     (1, 4, 1, 64, 300, 256, True, 100, 236, 1.0),
     (1, 2, 1, 90, 90, 36, True, None, 0, 1.0),
+]
+# v's head dim unlike q's and k's (MLA; tests/test_torch_cuda.py
+# FLASH_DV_CASES): smoke deepseek-v2-lite-16b's heads (D = 24, Dv = 16) and
+# its full ones (192, 128), GQA, causal and not, Dv over D, a V tile of 256
+# beside a q/K tile of 64, D % 8 != 0 (the scalar route)
+FLASH_DV_CASES = [  # B, H, KH, Tq, Tk, D, causal, window, q_offset, q scale, Dv
+    (2, 4, 2, 40, 72, 24, True, None, 0, 1.0, 16),
+    (1, 4, 4, 64, 64, 24, False, None, 0, 1.0, 16),
+    (1, 4, 2, 150, 150, 192, True, None, 0, 1.0, 128),
+    (1, 2, 2, 130, 200, 192, False, None, 0, 1.0, 128),
+    (1, 2, 1, 70, 90, 16, True, None, 20, 1.0, 24),
+    (1, 2, 1, 100, 100, 64, True, 40, 0, 1.0, 256),
+    (1, 2, 2, 50, 50, 36, True, None, 0, 1.0, 16),
+]
+# the gradient cases at Dv != D: B, H, KH, Tq, Tk, D, causal, window,
+# q_offset, block_k, Dv
+FLASH_DV_GRAD_CASES = [
+    (2, 4, 4, 40, 40, 24, True, None, 0, 16, 16),
+    (1, 4, 2, 150, 150, 192, True, None, 0, 128, 128),
 ]
 PAGED_CASES = [  # B, H, KH, D, P, page, max_pages
     (2, 4, 2, 32, 16, 8, 4),
@@ -569,18 +615,21 @@ def check_flash(rng):
                 cases_max_abs_err=worst, **paths["qwen3-0.6b"], paths=paths)
 
 
-def flash_at(rng, B, H, KH, T, D, window):
-    """The kernel at one serving path's prefill shape (bf16, causal): its
-    route and tiles, error against the plain version, times of the kernel,
-    the plain version and SDPA (causal, or with the window as a boolean
-    mask), and the bound."""
+def flash_at(rng, B, H, KH, T, D, window, Dv=None):
+    """The kernel at one serving path's prefill shape (bf16, causal; v's
+    head dim ``Dv``, D by default): its route and tiles, error against the
+    plain version, times of the kernel, the plain version and SDPA (causal,
+    or with the window as a boolean mask; with the backend PyTorch chose
+    for it), and the bound."""
     dtype = torch.bfloat16
+    Dv = D if Dv is None else Dv
     q = rand(rng, (B, H, T, D), dtype)
-    k, v = rand(rng, (B, KH, T, D), dtype), rand(rng, (B, KH, T, D), dtype)
+    k, v = rand(rng, (B, KH, T, D), dtype), rand(rng, (B, KH, T, Dv), dtype)
     out = flash_attention(q, k, v, causal=True, window=window, impl="kernel")
     torch.cuda.synchronize()
     ref = attention_ref(q, k, v, causal=True, window=window)
-    err = close_or_fail(out, ref, TOL[dtype], f"flash served shape D={D}")
+    err = close_or_fail(out, ref, TOL[dtype], f"flash served shape D={D}"
+                        f" Dv={Dv}")
     del out, ref
 
     def run():
@@ -595,21 +644,27 @@ def flash_at(rng, B, H, KH, T, D, window):
     plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True,
                                              window=window))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(
-        (lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
-        if window is None else
-        (lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)))
+    sdpa_kw = (dict(is_causal=True) if window is None
+               else dict(attn_mask=mask))
+    library_ms = time_ms(lambda: sdpa(q, k, v, enable_gqa=True, **sdpa_kw))
+    library_backend = SDPBackend(torch._fused_sdp_choice(
+        q, k, v, enable_gqa=True, **sdpa_kw)).name
     pairs = B * H * int(mask.sum())                  # live (q, k) pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound_ms, bound_by = bound(nbytes, 4 * D * pairs, dtype)
-    route = kernel_route(dtype, D)
-    return dict(shape=f"B={B} H={H} KH={KH} T={T} D={D} bf16 causal"
+    # read q, k and v once, write the output [B, H, T, Dv] once; products
+    # of 2 D (scores) and 2 Dv (P V) flops over each live pair
+    nbytes = (q.numel() + k.numel() + v.numel() + B * H * T * Dv) \
+        * q.element_size()
+    bound_ms, bound_by = bound(nbytes, 2 * (D + Dv) * pairs, dtype)
+    route = kernel_route(dtype, D, Dv)
+    return dict(shape=f"B={B} H={H} KH={KH} T={T} D={D}"
+                      + (f" Dv={Dv}" if Dv != D else "") + " bf16 causal"
                       + (f" window={window}" if window else ""),
                 kernel_route=route,
-                tiles=wgmma_tiles(D) if route == "wgmma" else None,
+                tiles=wgmma_tiles(D, Dv) if route == "wgmma" else None,
                 max_abs_err=err, tolerance=TOL[dtype], ms=kernel_ms,
                 kernel_ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                library_backend=library_backend)
 
 
 # the JAX package's attention-gradient case (tests/test_kernels.py) and the
@@ -754,6 +809,110 @@ def check_flash_train(rng):
                 backward_plain_ms=bwd_ms, backward_bound_ms=bwd_bound_ms,
                 backward_bound_by=bwd_bound_by,
                 sdpa_fwd_bwd_ms=sdpa_ms)
+
+
+def check_flash_dv(rng):
+    """The flash kernel with v's head dim Dv unlike q's and k's D (MLA), on
+    both routes: FLASH_DV_CASES in fp32 and bf16 against the plain version
+    (the route each takes asserted; the output [B, H, Tq, Dv]), each row's
+    lse (relative 1e-5 fp32, 1e-3 bf16, +inf on the same rows, the output's
+    bits those of a launch without lse), ``_FlashAttention``'s forward (one
+    launch with lse) and gradients against autograd of fp64 attention at
+    FLASH_DV_GRAD_CASES; then deepseek-v2-lite-16b's prefill (B=4, H=KH=16,
+    T=512, D=192, Dv=128, bf16, causal) timed beside its bound, the plain
+    version and SDPA (with the kernels SDPA ran)."""
+    worst, lse_err, grad_err = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_DV_CASES:
+            B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale, Dv = case
+            q = rand(rng, (B, H, Tq, D), dtype) * q_scale
+            k, v = rand(rng, (B, KH, Tk, D), dtype), rand(rng, (B, KH, Tk, Dv),
+                                                          dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            route = kernel_route(dtype, D, Dv)
+            if route != ("wgmma" if dtype == torch.bfloat16 and D % 8 == 0
+                         and Dv % 8 == 0 else "scalar"):
+                _fail(f"flash {case} {dtype}: route {route}")
+            before = flash_attention.launches_by_route[route]
+            out = flash_attention(q, k, v, impl="kernel", **kw)
+            torch.cuda.synchronize()
+            if flash_attention.launches_by_route[route] != before + 1:
+                _fail(f"flash {case} {dtype}: not on the {route} route")
+            what = f"flash Dv {case} {dtype}"
+            ref_out, ref = attention_ref(q, k, v, return_lse=True, **kw)
+            worst[f"{route} {dtype}"] = max(
+                worst.get(f"{route} {dtype}", 0.0),
+                close_or_fail(out, ref_out, TOL[dtype], what))
+            out2, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(out2, out):
+                _fail(f"{what}: out with lse differs from out without it")
+            if not torch.equal(torch.isinf(lse), torch.isinf(ref)):
+                _fail(f"{what}: +inf rows of lse differ")
+            fin = torch.isfinite(ref)
+            rel = float(((lse[fin] - ref[fin]).abs()
+                         / ref[fin].abs().clamp_min(1.0)).max()) \
+                if fin.any() else 0.0
+            if rel > LSE_TOL[dtype]:
+                _fail(f"{what}: lse relative error {rel}")
+            lse_err[f"{route} {dtype}"] = max(
+                lse_err.get(f"{route} {dtype}", 0.0), rel)
+        for case in FLASH_DV_GRAD_CASES:
+            B, H, KH, Tq, Tk, D, causal, window, q_offset, bk, Dv = case
+            q = rand(rng, (B, H, Tq, D), dtype)
+            k, v = rand(rng, (B, KH, Tk, D), dtype), rand(rng, (B, KH, Tk, Dv),
+                                                          dtype)
+            w = rand(rng, (B, H, Tq, Dv), torch.float32)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = flash_attention.lse_launches
+            out = flash_attention(*leaves, impl="kernel", block_k=bk, **kw)
+            (out.float() * w).sum().backward()
+            torch.cuda.synchronize()
+            if flash_attention.lse_launches != before + 1:
+                _fail(f"flash grads {case} {dtype}: the forward wrote no lse")
+            ref = [t.double().requires_grad_(True) for t in (q, k, v)]
+            (naive_fp64(*ref, **kw) * w.double()).sum().backward()
+            for t, r, name in zip(leaves, ref, "qkv"):
+                grad_err[str(dtype)] = max(
+                    grad_err.get(str(dtype), 0.0),
+                    close_or_fail(t.grad, r.grad, GRAD_TOL[dtype],
+                                  f"flash d{name} {case} {dtype}"))
+    served = flash_at(rng, 4, 16, 16, 512, 192, None, Dv=128)
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    return dict(cases_max_abs_err=worst, lse_max_rel_err=lse_err,
+                grads_max_abs_err=grad_err,
+                tolerance={names[d]: t for d, t in TOL.items()},
+                served=served)
+
+
+def check_mla_small(cfg, rng, T=130):
+    """One full-width MLA + MoE layer of ``cfg`` in fp32: the kernel path
+    (flash's scalar route at D = 192, Dv = 128; the shuffle kernels) against
+    the plain path (chunked attention, the dense dispatch mask) in prefill
+    and a decode step, as ``check_model_small``; then the absorbed decode
+    against the expanded one (both kernel paths, the same prefill) within
+    1e-4."""
+    err = check_model_small(cfg, rng, 1e-4, attn_impl="xla", moe_impl="xla",
+                            n_layers=1, T=T)
+    small = cfg.with_(n_layers=1, compute_dtype="float32",
+                      kv_cache_dtype="float32")
+    params = build_model(small).init(torch.Generator("cuda").manual_seed(1))
+    toks = torch.from_numpy(rng.integers(0, small.vocab, (2, T + 1)))
+    logits = {}
+    for absorbed in (False, True):
+        model = build_model(small, mla_absorbed=absorbed)
+        _, cache = model.prefill(params, {"tokens": toks[:, :T]},
+                                 max_len=T + 8)
+        logits[absorbed], _ = model.decode_step(
+            params, {"tokens": toks[:, T:]}, cache, T)
+        torch.cuda.synchronize()
+        del cache
+    absorbed_err = close_or_fail(logits[True], logits[False], 1e-4,
+                                 f"{cfg.name} absorbed vs expanded decode")
+    return dict(max_abs_err=err, tolerance=1e-4,
+                absorbed_vs_expanded_max_abs_err=absorbed_err,
+                absorbed_tolerance=1e-4)
 
 
 def paged_inputs(rng, B, H, KH, D, P, page, lengths, dtype):
@@ -1284,6 +1443,12 @@ def check_overflow(rng, dtype):
     return errs
 
 
+def note(worst, key, errs):
+    """Keeps dispatch's and combine's worst errors ``errs`` by ``key``."""
+    for name, err in zip(("dispatch", "combine"), errs):
+        worst[name][key] = max(worst[name].get(key, 0.0), err)
+
+
 def check_shuffle(rng):
     """The dispatch and combine kernels against their plain versions (and
     dispatch past its hit list), then at grok-1-314b's served prefill (4
@@ -1291,16 +1456,11 @@ def check_shuffle(rng):
     decode (T = 1, C = 4): dispatch bit for bit the gather of the kept
     tokens, and timed."""
     worst = {"dispatch": {}, "combine": {}}
-
-    def note(key, errs):
-        for name, err in zip(("dispatch", "combine"), errs):
-            worst[name][key] = max(worst[name].get(key, 0.0), err)
-
     for dtype in (torch.float32, torch.bfloat16):
         for case in SHUFFLE_CASES:
             for kind in ("slots", "drops", "repeats"):
                 T, D, E, K, C = case
-                note(f"{kind} {dtype}", shuffle_close(
+                note(worst, f"{kind} {dtype}", shuffle_close(
                     *shuffle_inputs(rng, T, D, E, K, C, kind, dtype), E, C,
                     f"{case} {kind} {dtype}"))
     # the reference's round trip: K = 1, no drops, gate 1 gives x back
@@ -1318,56 +1478,7 @@ def check_shuffle(rng):
     entries = {"dispatch": {}, "combine": {}}
     work = {}
     for T, C in ((512, 160), (1, 4)):
-        eid, slot = served_routing(rng, B, T, E, K, C)
-        N, R = B * T, B * E
-        for dtype in (torch.float32, torch.bfloat16):
-            x, y = rand(rng, (N, D), dtype), rand(rng, (R, C, D), dtype)
-            gates = torch.from_numpy(rng.random((N, K))).to(DEV, dtype)
-            errs = shuffle_close(x, y, gates.float(), eid, slot, R, C,
-                                 f"served T={T} {dtype}")
-            note(f"served T={T} {dtype}", errs)
-            gather_or_fail(x, eid, slot, R, C, f"served T={T} {dtype}")
-        # timed in bf16, the served dtype, with bf16 gates as the MoE block
-        # passes them
-        kept = (slot >= 0) & (slot < C)
-        tok = torch.nonzero(kept)[:, 0]
-        rows = (eid.long() * C + slot.long())[kept]
-        sel = torch.unique(rows)
-        elem = x.element_size()
-        ids = 2 * eid.numel() * 4
-        n_kept = int(kept.sum())
-        d_bytes = (int(torch.unique(tok).numel()) + R * C) * D * elem + ids
-        c_bytes = (int(sel.numel()) + N) * D * elem + ids \
-            + gates.numel() * elem
-        work[f"T={T}"] = dict(
-            tokens=N, buffers=R, capacity=C, kept_pairs=n_kept,
-            dispatch_bytes=d_bytes, dispatch_flops=n_kept * D,
-            combine_bytes=c_bytes, combine_flops=2 * n_kept * D)
-        mg = torch.zeros((N, R * C), dtype=dtype, device=DEV)
-        mg.index_put_((tok, rows), gates[kept], accumulate=True)
-        mg = mg.reshape(N, R, C)
-        flat_x = torch.zeros((R * C, D), dtype=dtype, device=DEV)
-        runs = {
-            "dispatch": (lambda: dispatch(x, eid, slot, R, C, impl="kernel"),
-                         lambda: dispatch(x, eid, slot, R, C, impl="xla"),
-                         lambda: flat_x.zero_().index_add_(
-                             0, rows, x.index_select(0, tok)),
-                         d_bytes, n_kept * D),
-            "combine": (lambda: combine(y, eid, slot, gates, N, impl="kernel"),
-                        lambda: combine(y, eid, slot, gates, N, impl="xla"),
-                        lambda: torch.einsum("tec,ecd->td", mg, y),
-                        c_bytes, 2 * n_kept * D),
-        }
-        for name, (kern, plain, lib, nbytes, flops) in runs.items():
-            bound_ms, bound_by = bound(nbytes, flops, dtype)
-            entries[name][f"T={T}"] = dict(
-                max_abs_err=worst[name][f"served T={T} {dtype}"],
-                ms=time_ms(kern), call_ms=time_ms(kern, spin=False),
-                plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib),
-                bound_ms=bound_ms, bound_by=bound_by)
-        entries["dispatch"][f"T={T}"]["kernel_route"] = \
-            shuffle_kernel.dispatch_route(N * K)
-        del x, y, mg, flat_x
+        served_shuffle(rng, B, T, E, K, C, D, f"T={T}", worst, entries, work)
     # where dispatch's time goes: the prefill's routing at D = 8 (the same
     # grid and walk, one 16-byte piece a row: walk_ms), and a launch with
     # next to nothing to move (the direct route on one row of 8:
@@ -1395,6 +1506,91 @@ def check_shuffle(rng):
             cases_max_abs_err=worst[name], kernel_ms=top["ms"],
             served=entries[name], **top))
     return out
+
+
+def served_shuffle(rng, B, T, E, K, C, D, key, worst, entries, work):
+    """dispatch and combine at one served MoE shape (B rows of T tokens,
+    top-K of E experts a row, capacity C, width D): against their plain
+    versions in fp32 and bf16 (errors into ``worst``), dispatch bit for bit
+    the gather of the kept tokens, then timed in bf16 beside the bound, the
+    plain version and a library call that computes the same function; into
+    ``entries[name][key]`` and ``work[key]``."""
+    eid, slot = served_routing(rng, B, T, E, K, C)
+    N, R = B * T, B * E
+    for dtype in (torch.float32, torch.bfloat16):
+        x, y = rand(rng, (N, D), dtype), rand(rng, (R, C, D), dtype)
+        gates = torch.from_numpy(rng.random((N, K))).to(DEV, dtype)
+        note(worst, f"served {key} {dtype}", shuffle_close(
+            x, y, gates.float(), eid, slot, R, C, f"served {key} {dtype}"))
+        gather_or_fail(x, eid, slot, R, C, f"served {key} {dtype}")
+    # timed in bf16, the served dtype, with bf16 gates as the MoE block
+    # passes them
+    kept = (slot >= 0) & (slot < C)
+    tok = torch.nonzero(kept)[:, 0]
+    rows = (eid.long() * C + slot.long())[kept]
+    sel = torch.unique(rows)
+    elem = x.element_size()
+    ids = 2 * eid.numel() * 4
+    n_kept = int(kept.sum())
+    d_bytes = (int(torch.unique(tok).numel()) + R * C) * D * elem + ids
+    c_bytes = (int(sel.numel()) + N) * D * elem + ids \
+        + gates.numel() * elem
+    work[key] = dict(
+        tokens=N, buffers=R, capacity=C, kept_pairs=n_kept,
+        dispatch_bytes=d_bytes, dispatch_flops=n_kept * D,
+        combine_bytes=c_bytes, combine_flops=2 * n_kept * D)
+    mg = torch.zeros((N, R * C), dtype=dtype, device=DEV)
+    mg.index_put_((tok, rows), gates[kept], accumulate=True)
+    mg = mg.reshape(N, R, C)
+    flat_x = torch.zeros((R * C, D), dtype=dtype, device=DEV)
+    runs = {
+        "dispatch": (lambda: dispatch(x, eid, slot, R, C, impl="kernel"),
+                     lambda: dispatch(x, eid, slot, R, C, impl="xla"),
+                     lambda: flat_x.zero_().index_add_(
+                         0, rows, x.index_select(0, tok)),
+                     d_bytes, n_kept * D),
+        "combine": (lambda: combine(y, eid, slot, gates, N, impl="kernel"),
+                    lambda: combine(y, eid, slot, gates, N, impl="xla"),
+                    lambda: torch.einsum("tec,ecd->td", mg, y),
+                    c_bytes, 2 * n_kept * D),
+    }
+    for name, (kern, plain, lib, nbytes, flops) in runs.items():
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        entries[name][key] = dict(
+            max_abs_err=worst[name][f"served {key} {dtype}"],
+            ms=time_ms(kern), call_ms=time_ms(kern, spin=False),
+            plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib),
+            bound_ms=bound_ms, bound_by=bound_by)
+    entries["dispatch"][key]["kernel_route"] = \
+        shuffle_kernel.dispatch_route(N * K)
+
+
+def check_shuffle_deepseek(rng):
+    """dispatch and combine at deepseek-v2-lite-16b's served prefill (4 rows
+    x 512 tokens, top-6 of 64 experts, C = 60, D = 2048: 12288 pairs over
+    256 buffers) and decode (T = 1, C = 4: 24 pairs), as
+    ``served_shuffle``; fails unless the prefill takes dispatch's walk route
+    and the decode its direct route. Returns (entries, worst, work)."""
+    cfg = get_config("deepseek-v2-lite-16b")
+    worst = {"dispatch": {}, "combine": {}}
+    entries = {"dispatch": {}, "combine": {}}
+    work = {}
+    B, E, K, D = 4, cfg.n_experts, cfg.top_k, cfg.d_model
+    for T, route in ((512, "walk"), (1, "direct")):
+        key = f"{cfg.name} T={T}"
+        served_shuffle(rng, B, T, E, K, _capacity(cfg, T), D, key, worst,
+                       entries, work)
+        if entries["dispatch"][key]["kernel_route"] != route:
+            _fail(f"dispatch {key}: route "
+                  f"{entries['dispatch'][key]['kernel_route']}, not {route}")
+    # the prefill's routing at D = 8: the same grid and walk over its 12288
+    # pairs' ids, one 16-byte piece a row (walk_ms, as grok's)
+    eid, slot = served_routing(rng, B, 512, E, K, _capacity(cfg, 512))
+    x8 = rand(rng, (B * 512, 8), torch.bfloat16)
+    entries["dispatch"][f"{cfg.name} T=512"]["walk_ms"] = time_ms(
+        lambda: dispatch(x8, eid, slot, B * E, _capacity(cfg, 512),
+                         impl="kernel"))
+    return entries, worst, work
 
 
 def check_model_small(cfg, rng, tol, n_layers=2, T=130, **impls):
@@ -2343,6 +2539,19 @@ def main():
     # later phases' inputs stay those of the earlier slices
     kernels[0]["train"] = check_flash_train(np.random.default_rng(16))
     log("flash_train", json.dumps(kernels[0]["train"]))
+    # MLA's heads (Dv != D) and deepseek-v2-lite-16b's MoE routing, each
+    # from its own generator for the same reason
+    kernels[0]["dv"] = check_flash_dv(np.random.default_rng(22))
+    kernels[0]["paths"]["deepseek-v2-lite-16b"] = kernels[0]["dv"].pop(
+        "served")
+    log("flash_dv", json.dumps(kernels[0]["dv"]))
+    ds_entries, ds_worst, ds_work = check_shuffle_deepseek(
+        np.random.default_rng(23))
+    for name in ("dispatch", "combine"):
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["served"].update(ds_entries[name])
+        entry["cases_max_abs_err"].update(ds_worst[name])
+    log("shuffle_work", json.dumps(ds_work))
     lap("kernels")
     flash_build = flash_build_facts()
     log("flash_build", json.dumps(flash_build))
@@ -2372,6 +2581,10 @@ def main():
         log("model_small", c.name, json.dumps(dict(
             max_abs_err=check_model_small(c, rng, tol, **kw),
             tolerance=tol)))
+    # deepseek-v2-lite-16b: one MLA + MoE layer (its own generator)
+    dcfg = get_config("deepseek-v2-lite-16b")
+    log("model_small", dcfg.name, json.dumps(check_mla_small(
+        dcfg, np.random.default_rng(24))))
     lap("model_small")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2556,6 +2769,46 @@ def main():
     train["seconds"] = phase_s["train"]
     train["card"] = smi
     log("train", json.dumps(train))
+
+    # deepseek-v2-lite-16b at full width and full depth: 16.2 B params drawn
+    # straight in bf16 (32.4 GB; in fp32 beside their cast they would not
+    # fit the card)
+    dparams = build_model(dcfg).init(torch.Generator("cuda").manual_seed(5),
+                                     dtype=torch.bfloat16)
+    n_params = sum(t.numel() for t in leaves_of(dparams))
+    dprompts = [np.random.default_rng(600 + i).integers(0, dcfg.vocab, 512,
+                                                        dtype=np.int32)
+                for i in range(8)]
+    per_batch = dcfg.n_layers * (1 + 32)     # prefill and 32 decode steps
+    zero_counts()
+    # every layer: flash in prefill (D = 192, Dv = 128, on wgmma); dispatch
+    # on the walk in prefill (12288 pairs a batch) and on the direct route
+    # in decode (24 pairs), combine in both
+    dloop = serve(dcfg, dprompts, {dispatch: per_batch, combine: per_batch,
+                                   flash_attention: dcfg.n_layers},
+                  params=dparams,
+                  routes={dispatch: {"walk": dcfg.n_layers,
+                                     "direct": dcfg.n_layers * 32},
+                          flash_attention: {"wgmma": dcfg.n_layers}})
+    others = {fn.__name__: fn.launches for fn in counted
+              if fn not in (flash_attention, dispatch, combine)
+              and fn.launches}
+    if others:
+        _fail(f"{dcfg.name}: other kernels launched: {others}")
+    for name, fn in (("flash_attention", flash_attention),
+                     ("dispatch", dispatch), ("combine", combine)):
+        launches[name][dcfg.name] = fn.launches
+    shuffle_routes[dcfg.name] = dict(dispatch.launches_by_route)
+    flash_routes[dcfg.name] = dict(flash_attention.launches_by_route)
+    del dparams
+    profile_steps(dloop, dprompts)
+    del dloop
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    free()
+    lap(dcfg.name)
+    log("deepseek", json.dumps(dict(
+        arch=dcfg.name, params=n_params, peak_device_gb=peak_gb,
+        seconds=phase_s[dcfg.name], card=smi)))
     next(k for k in kernels if k["name"] == "flash_attention").update(
         launches_by_route=flash_routes, build=flash_build)
     for name, lib in (("gla_scan", "linear_scan"), ("diag_scan", "diag_scan")):

@@ -29,9 +29,10 @@ ARCH_IDS = [
 # what the port's LM runs today: dense GQA decoders with RoPE (RMSNorm, or
 # OLMo's non-parametric LayerNorm), the attention-free RWKV6 (family
 # "ssm"), RG-LRU with local attention (family "hybrid") and MoE over GQA
-# attention (family "moe", without MLA)
+# attention or MLA (family "moe")
 PORTED_ARCH_IDS = ("glm4-9b", "qwen3-0.6b", "olmo-1b", "minitron-8b",
-                   "rwkv6-3b", "recurrentgemma-9b", "grok-1-314b")
+                   "rwkv6-3b", "recurrentgemma-9b", "grok-1-314b",
+                   "deepseek-v2-lite-16b")
 
 
 def _module_name(arch_id: str) -> str:
@@ -67,6 +68,8 @@ def smoke_config(arch_id: str) -> ArchConfig:
     if cfg.n_experts:
         kw.update(n_experts=4, n_shared_experts=min(cfg.n_shared_experts, 1),
                   top_k=2, d_expert=64)
+    if cfg.kv_lora:
+        kw.update(kv_lora=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
     if cfg.family == "ssm":
         kw.update(rwkv_head_dim=16)
     if cfg.window:

@@ -7,7 +7,10 @@
 // causal, sliding-window, q_offset and kv_len masks, fully masked key tiles
 // skipped, out = acc / max(l, 1e-20).
 //
-// Layout: q, o [B, H, Tq, D]; k, v [B, KH, Tk, D]; all contiguous; D <= 256.
+// Layout: q [B, H, Tq, D]; k [B, KH, Tk, D]; v [B, KH, Tk, Dv]; o [B, H, Tq, Dv];
+// all contiguous; D, Dv <= 256. Dv may differ from D (MLA: deepseek-v2-lite's
+// heads are D = 192, 128 nope + 64 rope, and Dv = 128); the TPU kernel sizes
+// v and o by q's D, so there only the XLA path takes Dv != D.
 //
 // What bounds it on the H100, at the served prefills (bf16, causal):
 //   qwen3-0.6b        B=4 H=16 KH=8 T=512 D=128: ~25 MB against ~4 GFLOP, so
@@ -15,7 +18,9 @@
 //   grok-1-314b       B=4 H=48 KH=8 T=512 D=128: ~59 MB against ~13 GFLOP,
 //                     memory again (17.5 us);
 //   recurrentgemma-9b B=4 H=16 KH=1 T=2100 D=256 window 2048: ~146 MB against
-//                     0.145 TFLOP, so the bf16 tensor-core rate (0.146 ms).
+//                     0.145 TFLOP, so the bf16 tensor-core rate (0.146 ms);
+//   deepseek-v2-lite  B=4 H=KH=16 T=512 D=192 Dv=128: ~42 MB against ~5.4
+//                     GFLOP, so memory (12.5 us).
 // The tensor cores are the only way to that floor: the fp32 FMA rate puts
 // the scalar kernel's own floor at ~2.2 ms at recurrentgemma's shape.
 //
@@ -34,8 +39,11 @@
 //   own empty mbarrier (K once S is done, V once P V is). The tensor maps
 //   are 3-D, [B*H or B*KH, T, D], so rows past T read as zeros and stores
 //   past Tq are dropped; the tile's D rounds up to 64, 128 or 256 and TMA
-//   zero-fills the columns past D, which adds nothing to Q K^T. TMA wants
-//   16-byte global strides, hence D % 8 == 0. The maps are built on the host
+//   zero-fills the columns past D, which adds nothing to Q K^T. V and O take
+//   a tile of their own head dim, Dv rounded up the same way (zero columns of
+//   V give zero columns of O, which the store drops): at D = 192, Dv = 128 the
+//   Q and K tiles are 256 wide and V and O 128. TMA wants 16-byte global
+//   strides, hence D % 8 == 0 and Dv % 8 == 0. The maps are built on the host
 //   (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
 //   nothing links -lcuda) and passed as __grid_constant__ parameters.
 // - Warp-specialised, 384 threads: warpgroups 0 and 1 are consumers of 64
@@ -45,10 +53,12 @@
 //   the consumers need up to ~230 (the 64 x D fp32 O tile, S and P). ptxas
 //   allocates the code after `setmaxnreg.inc` within 240 only while no trap
 //   path is in the kernel; with one it keeps 168 and spills.
-// - Tiles: BK = 128 keys for D <= 128 and 80 for D = 256 (S in 40 registers
-//   beside the 128 of O). Shared memory: q tile, two stages of K and V and,
-//   where it fits (D <= 128), an output tile of its own: 193 KB at D = 128;
-//   at D = 256 the output is staged in the q tile's place, 225 KB.
+// - Tiles: BK = 128 keys where both head tiles are at most 128 wide, and 80
+//   where one is 256 (S in 40 registers beside the up to 128 of O, and two
+//   stages of 256-wide K or V tiles within the shared memory). Shared memory:
+//   q tile, two stages of K and V and, where it fits, an output tile of its
+//   own: 193 KB at D = Dv = 128, 217 KB at D = 192, Dv = 128; at D = Dv = 256
+//   the output is staged in the q tile's place, 225 KB.
 // - Within a consumer warpgroup, tile j's S = Q K^T is issued with tile
 //   j-1's O += P V, and tile j's softmax runs while that P V computes. The
 //   two consumer warpgroups take turns to issue their products (named
@@ -79,8 +89,9 @@
 // inputs keep the 3e-5 tolerance (TF32 would not). Grid (ceil(Tq / 64), H, B),
 // 256 threads a block; thread (ty, tx) of a 16 x 16 grid owns rows 4*ty ..
 // 4*ty+3, score columns tx + 16*j and output columns tx + 16*j; a row's 16
-// threads sit in one half-warp. Compiled for D <= 128 and for D <= 256, so
-// the narrow heads keep their registers. Masked scores are -1e30 and their
+// threads sit in one half-warp. Compiled for Dv <= 128 and for Dv <= 256 (the
+// accumulator holds output columns), so the narrow heads keep their
+// registers; Q and K rows are D wide, V rows Dv. Masked scores are -1e30 and their
 // probabilities 0.
 //
 // Both kernels also write each row's log-sum-exp of the scaled scores,
@@ -147,8 +158,9 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-size_t smem_bytes(int D) {
-  return sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + 1) + (size_t)BQ * (BK + 1));
+size_t smem_bytes(int D, int Dv) {
+  return sizeof(float) * ((size_t)(BQ + BK) * (D + 1) + (size_t)BK * (Dv + 1) +
+                          (size_t)BQ * (BK + 1));
 }
 
 template <typename T, int DJ>
@@ -156,15 +168,16 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int H, int KH,
-                 int Tq, int Tk, int D, float scale, int causal,
+                 int Tq, int Tk, int D, int Dv, float scale, int causal,
                  int has_window, int window, int q_offset, int kv_len) {
   extern __shared__ float smem[];
   const int ld = D + 1;        // padded rows: column reads hit distinct banks
+  const int ldv = Dv + 1;
   const int ldp = BK + 1;
   float* sQ = smem;
   float* sK = sQ + BQ * ld;
   float* sV = sK + BK * ld;
-  float* sP = sV + BK * ld;
+  float* sP = sV + BK * ldv;
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -176,8 +189,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* qb = q + ((size_t)b * H + h) * Tq * D;
   const T* kb = k + ((size_t)b * KH + kh) * Tk * D;
-  const T* vb = v + ((size_t)b * KH + kh) * Tk * D;
-  T* ob = o + ((size_t)b * H + h) * Tq * D;
+  const T* vb = v + ((size_t)b * KH + kh) * Tk * Dv;
+  T* ob = o + ((size_t)b * H + h) * Tq * Dv;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i - r * D;
@@ -205,10 +218,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // the previous tile's readers of sK / sV / sP are done
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, d = i - r * D;
-      const bool in = k0 + r < Tk;
-      const size_t off = (size_t)(k0 + r) * D + d;
-      sK[r * ld + d] = in ? to_f(kb[off]) : 0.f;
-      sV[r * ld + d] = in ? to_f(vb[off]) : 0.f;
+      sK[r * ld + d] = k0 + r < Tk ? to_f(kb[(size_t)(k0 + r) * D + d]) : 0.f;
+    }
+    for (int i = tid; i < BK * Dv; i += THREADS) {
+      const int r = i / Dv, d = i - r * Dv;
+      sV[r * ldv + d] = k0 + r < Tk ? to_f(vb[(size_t)(k0 + r) * Dv + d]) : 0.f;
     }
     __syncthreads();
 
@@ -265,8 +279,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         const int d = tx + 16 * j;
-        if (d < D) {
-          const float vv = sV[c * ld + d];
+        if (d < Dv) {
+          const float vv = sV[c * ldv + d];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
         }
@@ -290,7 +304,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) store(&ob[(size_t)r * D + d], acc[i][j] / den);
+      if (d < Dv) store(&ob[(size_t)r * Dv + d], acc[i][j] / den);
     }
   }
 }
@@ -298,10 +312,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DJ>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H,
-           int KH, int Tq, int Tk, int D, float scale, int causal,
+           int KH, int Tq, int Tk, int D, int Dv, float scale, int causal,
            int has_window, int window, int q_offset, int kv_len,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+  const size_t smem = smem_bytes(D, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -309,23 +323,25 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, DJ><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, Tq, Tk, D, scale,
-      causal, has_window, window, q_offset, kv_len);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, Tq, Tk, D, Dv,
+      scale, causal, has_window, window, q_offset, kv_len);
   return (int)cudaGetLastError();
 }
 
+// the accumulator's width follows the output's head dim Dv
 template <typename T>
 int launch_for_width(const void* q, const void* k, const void* v, void* o,
                      float* lse,
-                     int B, int H, int KH, int Tq, int Tk, int D, float scale,
-                     int causal, int has_window, int window, int q_offset,
-                     int kv_len, cudaStream_t stream) {
-  if (D <= D_NARROW)
-    return launch<T, D_NARROW / 16>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale,
-                                    causal, has_window, window, q_offset,
-                                    kv_len, stream);
-  return launch<T, D_MAX / 16>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale, causal,
-                               has_window, window, q_offset, kv_len, stream);
+                     int B, int H, int KH, int Tq, int Tk, int D, int Dv,
+                     float scale, int causal, int has_window, int window,
+                     int q_offset, int kv_len, cudaStream_t stream) {
+  if (Dv <= D_NARROW)
+    return launch<T, D_NARROW / 16>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, Dv,
+                                    scale, causal, has_window, window,
+                                    q_offset, kv_len, stream);
+  return launch<T, D_MAX / 16>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, Dv, scale,
+                               causal, has_window, window, q_offset, kv_len,
+                               stream);
 }
 
 
@@ -530,26 +546,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], uint32_t a0,
 }
 
 // Shared-memory plan of one block, from a 1024-byte aligned base: the q tile
-// as DT/64 panels of TC_BQ rows x 128 bytes; NST K tiles and NST V tiles as
-// DT/64 panels of BKT rows x 128 bytes; where it fits, an output tile laid
-// out as the q tile (else the output is staged in the q tile's place); then
-// the mbarriers.
+// as DT/64 panels of TC_BQ rows x 128 bytes; NST K tiles as DT/64 panels and
+// NST V tiles as DVT/64 panels of BKT rows x 128 bytes; where it fits, an
+// output tile of DVT/64 panels laid out as the q tile's (else the output is
+// staged in the q tile's place); then the mbarriers.
 constexpr int SMEM_MAX = 232448;   // what a block may opt into on the H100
 
-template <int DT, int BKT>
+template <int DT, int DVT, int BKT>
 struct TcPlan {
-  static constexpr int PANELS = DT / PANEL_COLS;
+  static constexpr int PANELS = DT / PANEL_COLS;          // q and K
+  static constexpr int VPANELS = DVT / PANEL_COLS;        // V and the output
   static constexpr int PANEL_Q = TC_BQ * 128;
   static constexpr int PANEL_KV = BKT * 128;
   static constexpr int Q_BYTES = PANELS * PANEL_Q;
-  static constexpr int KV_BYTES = PANELS * PANEL_KV;      // one K or V tile
+  static constexpr int K_BYTES = PANELS * PANEL_KV;       // one K tile
+  static constexpr int V_BYTES = VPANELS * PANEL_KV;      // one V tile
+  static constexpr int O_BYTES = VPANELS * PANEL_Q;
   static constexpr int BARS = 8 * (2 + 4 * NST);
-  static constexpr bool OWN_O =
-      SW_GROUP + 2 * Q_BYTES + 2 * NST * KV_BYTES + BARS <= SMEM_MAX;
-  static constexpr int O_OFF = Q_BYTES + 2 * NST * KV_BYTES;
-  static constexpr int BAR_OFF = O_OFF + (OWN_O ? Q_BYTES : 0);
+  static constexpr int O_OFF = Q_BYTES + NST * (K_BYTES + V_BYTES);
+  static constexpr bool OWN_O = SW_GROUP + O_OFF + O_BYTES + BARS <= SMEM_MAX;
+  static constexpr int BAR_OFF = O_OFF + (OWN_O ? O_BYTES : 0);
   static constexpr int SMEM = SW_GROUP + BAR_OFF + BARS;
   static_assert(SMEM <= SMEM_MAX, "tiles exceed the shared memory of a block");
+  static_assert(OWN_O || O_BYTES <= Q_BYTES,
+                "an output staged in the q tile's place must fit it");
 };
 
 // One work tile: 128 query rows of one (batch, head), and its live key
@@ -674,7 +694,7 @@ __device__ __forceinline__ void rescale(float (&o)[DT / 2], float cr0, float cr1
   }
 }
 
-template <int DT, int BKT>
+template <int DT, int DVT, int BKT>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -683,11 +703,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 float* __restrict__ lse, int H, int KH,
                 int Tq, int Tk, float scale, int causal, int has_window,
                 int window, int q_offset, int kv_len, int n_qtiles, int n_work) {
-  using P = TcPlan<DT, BKT>;
+  using P = TcPlan<DT, DVT, BKT>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + SW_GROUP - 1) & ~(uint32_t)(SW_GROUP - 1);
   const uint32_t sK = sQ + P::Q_BYTES;
-  const uint32_t sV = sK + NST * P::KV_BYTES;
+  const uint32_t sV = sK + NST * P::K_BYTES;
   const uint32_t sO = P::OWN_O ? sQ + P::O_OFF : sQ;
   // mbarriers: Q full, Q empty; per stage K full, V full, K empty, V empty
   const uint32_t q_full = sQ + P::BAR_OFF;
@@ -744,16 +764,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
           const uint32_t par = ((it / NST) & 1) ^ 1;
           const int k0 = wk.k_begin + j * BKT;
           mbar_wait(k_empty + 8 * s, par);
-          mbar_expect_tx(k_full + 8 * s, P::KV_BYTES);
+          mbar_expect_tx(k_full + 8 * s, P::K_BYTES);
 #pragma unroll
           for (int p = 0; p < P::PANELS; ++p)
-            tma_load(sK + s * P::KV_BYTES + p * P::PANEL_KV, &tm_k,
+            tma_load(sK + s * P::K_BYTES + p * P::PANEL_KV, &tm_k,
                      k_full + 8 * s, p * PANEL_COLS, k0, wk.bhk);
           mbar_wait(v_empty + 8 * s, par);
-          mbar_expect_tx(v_full + 8 * s, P::KV_BYTES);
+          mbar_expect_tx(v_full + 8 * s, P::V_BYTES);
 #pragma unroll
-          for (int p = 0; p < P::PANELS; ++p)
-            tma_load(sV + s * P::KV_BYTES + p * P::PANEL_KV, &tm_v,
+          for (int p = 0; p < P::VPANELS; ++p)
+            tma_load(sV + s * P::V_BYTES + p * P::PANEL_KV, &tm_v,
                      v_full + 8 * s, p * PANEL_COLS, k0, wk.bhk);
         }
       }
@@ -797,9 +817,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       };
       const int n = wk.n_tiles;
 
-      float o[DT / 2];
+      float o[DVT / 2];
 #pragma unroll
-      for (int i = 0; i < DT / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < DVT / 2; ++i) o[i] = 0.f;
       float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
       mbar_wait(q_full, wi & 1);
@@ -815,7 +835,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
           mbar_wait(k_full + 8 * s, (it / NST) & 1);
           my_turn();
           wgmma_fence();
-          issue_qk<DT, BKT>(sacc, dq, smem_desc(sK + s * P::KV_BYTES, 16, SW_GROUP));
+          issue_qk<DT, BKT>(sacc, dq, smem_desc(sK + s * P::K_BYTES, 16, SW_GROUP));
           wgmma_commit();
           your_turn();
           wgmma_wait<0>();
@@ -833,10 +853,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
           mbar_wait(k_full + 8 * s, ((it + j) / NST) & 1);
           my_turn();
           wgmma_fence();
-          issue_qk<DT, BKT>(sacc, dq, smem_desc(sK + s * P::KV_BYTES, 16, SW_GROUP));
+          issue_qk<DT, BKT>(sacc, dq, smem_desc(sK + s * P::K_BYTES, 16, SW_GROUP));
           wgmma_commit();
           mbar_wait(v_full + 8 * sp, ((it + j - 1) / NST) & 1);
-          issue_pv<DT, BKT>(o, pa, smem_desc(sV + sp * P::KV_BYTES, P::PANEL_KV, SW_GROUP));
+          issue_pv<DVT, BKT>(o, pa, smem_desc(sV + sp * P::V_BYTES, P::PANEL_KV, SW_GROUP));
           wgmma_commit();
           your_turn();
           wgmma_wait<1>();                             // S of tile j is done
@@ -849,7 +869,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
           wgmma_wait<0>();                             // P V of tile j-1 is done
           fence_regs(o);
           mbar_arrive(v_empty + 8 * sp);
-          rescale<DT>(o, cr0, cr1);
+          rescale<DVT>(o, cr0, cr1);
           to_bf16<BKT>(sacc, pa);
         }
         // every S of this work tile is done: with its own output buffer, the
@@ -859,7 +879,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(v_full + 8 * s, ((it + n - 1) / NST) & 1);
         my_turn();
         wgmma_fence();
-        issue_pv<DT, BKT>(o, pa, smem_desc(sV + s * P::KV_BYTES, P::PANEL_KV, SW_GROUP));
+        issue_pv<DVT, BKT>(o, pa, smem_desc(sV + s * P::V_BYTES, P::PANEL_KV, SW_GROUP));
         wgmma_commit();
         your_turn();
         wgmma_wait<0>();
@@ -888,7 +908,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
       const uint32_t sw = (uint32_t)(r0 & 7);
 #pragma unroll
-      for (int c = 0; c < DT / 8; ++c) {
+      for (int c = 0; c < DVT / 8; ++c) {
         const uint32_t panel = o_base + (c / 8) * P::PANEL_Q;
         const uint32_t col = (((c % 8) ^ sw) << 4) + c0 * 2;
         const uint32_t v0 = pack_bf16(o[4 * c] * inv0, o[4 * c + 1] * inv0);
@@ -904,7 +924,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       if (t == 0) {
         if (wk.q0 + cw * 64 < Tq) {
 #pragma unroll
-          for (int p = 0; p < P::PANELS; ++p)
+          for (int p = 0; p < P::VPANELS; ++p)
             tma_store(&tm_o, o_base + p * P::PANEL_Q, p * PANEL_COLS,
                       wk.q0 + cw * 64, wk.bh);
           asm volatile("cp.async.bulk.commit_group;" ::: "memory");
@@ -958,22 +978,22 @@ int make_map(CUtensorMap* map, const void* ptr, int BH, int T, int D, int rows) 
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int DT, int BKT>
+template <int DT, int DVT, int BKT>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B,
-                 int H, int KH, int Tq, int Tk, int D, float scale, int causal,
-                 int has_window, int window, int q_offset, int kv_len,
-                 cudaStream_t stream) {
-  using P = TcPlan<DT, BKT>;
+                 int H, int KH, int Tq, int Tk, int D, int Dv, float scale,
+                 int causal, int has_window, int window, int q_offset,
+                 int kv_len, cudaStream_t stream) {
+  using P = TcPlan<DT, DVT, BKT>;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   int err;
   if ((err = make_map(&tm_q, q, B * H, Tq, D, TC_BQ / 2)) ||
       (err = make_map(&tm_k, k, B * KH, Tk, D, BKT)) ||
-      (err = make_map(&tm_v, v, B * KH, Tk, D, BKT)) ||
-      (err = make_map(&tm_o, o, B * H, Tq, D, TC_BQ / 2)))
+      (err = make_map(&tm_v, v, B * KH, Tk, Dv, BKT)) ||
+      (err = make_map(&tm_o, o, B * H, Tq, Dv, TC_BQ / 2)))
     return err;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma<DT, BKT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma<DT, DVT, BKT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       P::SMEM);
   if (e != cudaSuccess) return (int)e;
   // persistent: one block per SM walks the work tiles
@@ -984,57 +1004,90 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     return (int)e;
   const int n_qtiles = (Tq + TC_BQ - 1) / TC_BQ;
   const int n_work = B * H * n_qtiles;
-  flash_fwd_wgmma<DT, BKT><<<min(n_work, sms), TC_THREADS, P::SMEM, stream>>>(
+  flash_fwd_wgmma<DT, DVT, BKT><<<min(n_work, sms), TC_THREADS, P::SMEM, stream>>>(
       tm_q, tm_k, tm_v, tm_o, lse, H, KH, Tq, Tk, scale, causal, has_window, window,
       q_offset, kv_len, n_qtiles, n_work);
   return (int)cudaGetLastError();
+}
+
+// head tile of a width: D rounded up to 64, 128 or 256
+int head_tile(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
+
+// The wgmma kernel for the q/K tile DT and the V/O tile of Dv: 80 keys a
+// tile where either is 256 wide, else 128.
+template <int DT>
+int launch_wgmma_dv(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int H, int KH, int Tq, int Tk, int D,
+                    int Dv, float scale, int causal, int has_window, int window,
+                    int q_offset, int kv_len, cudaStream_t stream) {
+  constexpr int BKT = DT == 256 ? 80 : 128;
+  switch (head_tile(Dv)) {
+    case 64:
+      return launch_wgmma<DT, 64, BKT>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, Dv,
+                                       scale, causal, has_window, window,
+                                       q_offset, kv_len, stream);
+    case 128:
+      return launch_wgmma<DT, 128, BKT>(q, k, v, o, lse, B, H, KH, Tq, Tk, D,
+                                        Dv, scale, causal, has_window, window,
+                                        q_offset, kv_len, stream);
+    default:
+      return launch_wgmma<DT, 256, 80>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, Dv,
+                                       scale, causal, has_window, window,
+                                       q_offset, kv_len, stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// The scalar kernel. dtype: 0 = float32, 1 = bfloat16. `lse`: [B, H, Tq]
-// fp32, or nullptr for none. Returns cudaGetLastError() after launch.
+// The scalar kernel. dtype: 0 = float32, 1 = bfloat16. D: q's and k's head
+// dim, Dv: v's and the output's. `lse`: [B, H, Tq] fp32, or nullptr for
+// none. Returns cudaGetLastError() after launch.
 int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                         void* o, float* lse, int B, int H, int KH, int Tq,
-                        int Tk, int D,
+                        int Tk, int D, int Dv,
                         float scale, int causal, int has_window, int window,
                         int q_offset, int kv_len, void* stream) {
-  if (D < 1 || D > D_MAX || KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > D_MAX || Dv < 1 || Dv > D_MAX || KH < 1 || H % KH != 0)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_for_width<float>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale,
-                                   causal, has_window, window, q_offset,
+    return launch_for_width<float>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, Dv,
+                                   scale, causal, has_window, window, q_offset,
                                    kv_len, s);
   if (dtype == 1)
     return launch_for_width<__nv_bfloat16>(q, k, v, o, lse, B, H, KH, Tq, Tk, D,
-                                           scale, causal, has_window, window,
+                                           Dv, scale, causal, has_window, window,
                                            q_offset, kv_len, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core kernel's tiles at head dim D: the tile's head dim (D
-// rounded up to 64, 128 or 256), query rows and keys per tile. Returns 0.
-int flash_attention_wgmma_tiles(int D, int* head_dim_tile, int* block_q,
+// The tensor-core kernel's tiles at head dims D (q, k) and Dv (v, output):
+// the q/K tile's head dim and the V/O tile's (each rounded up to 64, 128 or
+// 256), query rows and keys per tile. Returns 0.
+int flash_attention_wgmma_tiles(int D, int Dv, int* head_dim_tile,
+                                int* v_head_dim_tile, int* block_q,
                                 int* block_k) {
-  *head_dim_tile = D <= 64 ? 64 : D <= 128 ? 128 : 256;
+  *head_dim_tile = head_tile(D);
+  *v_head_dim_tile = head_tile(Dv);
   *block_q = TC_BQ;
-  *block_k = *head_dim_tile == 256 ? 80 : 128;
+  *block_k = *head_dim_tile == 256 || *v_head_dim_tile == 256 ? 80 : 128;
   return 0;
 }
 
-// The tensor-core kernel: bf16, D % 8 == 0, D <= 256, every pointer 16-byte
-// aligned. `lse`: [B, H, Tq] fp32, or nullptr for none. Returns
-// cudaGetLastError() after launch.
+// The tensor-core kernel: bf16, D % 8 == 0 and Dv % 8 == 0, both <= 256,
+// every pointer 16-byte aligned. `lse`: [B, H, Tq] fp32, or nullptr for
+// none. Returns cudaGetLastError() after launch.
 int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
                               void* o, float* lse, int B, int H, int KH,
                               int Tq, int Tk,
-                              int D, float scale, int causal, int has_window,
-                              int window, int q_offset, int kv_len,
-                              void* stream) {
-  if (D < 8 || D > D_MAX || D % 8 != 0 || KH < 1 || H % KH != 0)
+                              int D, int Dv, float scale, int causal,
+                              int has_window, int window, int q_offset,
+                              int kv_len, void* stream) {
+  if (D < 8 || D > D_MAX || D % 8 != 0 || Dv < 8 || Dv > D_MAX || Dv % 8 != 0 ||
+      KH < 1 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16 != 0)
@@ -1042,22 +1095,24 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
   if (B == 0 || Tq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Tk == 0) {      // no key at all: every row is 0, its lse +inf
-    cudaError_t e = cudaMemsetAsync(o, 0, (size_t)B * H * Tq * D * 2, s);
+    cudaError_t e = cudaMemsetAsync(o, 0, (size_t)B * H * Tq * Dv * 2, s);
     if (e != cudaSuccess || lse == nullptr) return (int)e;
     fill_plus_inf<<<64, 256, 0, s>>>(lse, (size_t)B * H * Tq);
     return (int)cudaGetLastError();
   }
-  int dt, bq, bk;
-  flash_attention_wgmma_tiles(D, &dt, &bq, &bk);
-  if (dt == 64)
-    return launch_wgmma<64, 128>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale, causal,
-                                 has_window, window, q_offset, kv_len, s);
-  if (dt == 128)
-    return launch_wgmma<128, 128>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale,
+  switch (head_tile(D)) {
+    case 64:
+      return launch_wgmma_dv<64>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, Dv, scale,
+                                 causal, has_window, window, q_offset, kv_len, s);
+    case 128:
+      return launch_wgmma_dv<128>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, Dv, scale,
                                   causal, has_window, window, q_offset, kv_len,
                                   s);
-  return launch_wgmma<256, 80>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, scale, causal,
-                               has_window, window, q_offset, kv_len, s);
+    default:
+      return launch_wgmma_dv<256>(q, k, v, o, lse, B, H, KH, Tq, Tk, D, Dv, scale,
+                                  causal, has_window, window, q_offset, kv_len,
+                                  s);
+  }
 }
 
 const char* flash_attention_error_string(int err) {

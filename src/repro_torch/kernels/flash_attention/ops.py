@@ -12,18 +12,21 @@ What bounds them on the H100 at the served prefills (bf16, causal): memory
 at qwen3-0.6b's (B=4, H=16, KH=8, T=512, D=128; ~25 MB over 3.35 TB/s, 7.5
 us) and at grok-1-314b's (H=48 over KH=8; ~55 MB, 16 us); the 0.145 TFLOP
 of products at the bf16 tensor-core rate at recurrentgemma-9b's (B=4, H=16,
-KH=1, T=2100, D=256, window 2048; 0.146 ms). Only the tensor cores reach
-that: the fp32 FMA rate alone puts a floor of ~2.2 ms there. So bf16 inputs
-with D % 8 == 0 take the ``"wgmma"`` route: both products on ``wgmma`` (P
-rounded to bf16 for P·V, as the reference's ``p_bf16``), tiles staged by
-TMA through a two-stage ring of mbarriers, a producer warpgroup and two
-consumer warpgroups of 64 query rows that take turns on the tensor cores
+KH=1, T=2100, D=256, window 2048; 0.146 ms); memory again at
+deepseek-v2-lite-16b's MLA heads (B=4, H=KH=16, T=512, D=192, Dv=128; ~42
+MB, 12.5 us). Only the tensor cores reach the floor at recurrentgemma's:
+the fp32 FMA rate alone puts one of ~2.2 ms there. So bf16 inputs with
+D % 8 == 0 and Dv % 8 == 0 take the ``"wgmma"`` route: both products on
+``wgmma`` (P rounded to bf16 for P·V, as the reference's ``p_bf16``),
+tiles staged by TMA through a two-stage ring of mbarriers, a producer
+warpgroup and two consumer warpgroups of 64 query rows that take turns on
+the tensor cores
 (``setmaxnreg`` gives them 240 registers), the online softmax in registers
 under the products, fully masked tiles skipped and the element-wise mask
 only on edge tiles; persistent, heaviest q tiles first.
 fp32 inputs (3e-5 rules out TF32) and head dims that are no multiple of 8
 take the ``"scalar"`` route: fp32 FMAs over 64x64 tiles in shared memory.
-``kernel.kernel_route`` picks the route from dtype and head dim alone.
+``kernel.kernel_route`` picks the route from dtype and head dims alone.
 
 ``impl="kernel"`` takes the plain version (``ref.attention_ref``) only when
 the tensors lie on the CPU. On CUDA tensors it launches a kernel or raises;
@@ -83,7 +86,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None, q_offset: int = 0,
                     impl: str = "xla", block_q: int = 128,
                     block_k: int = 128, p_bf16: bool = False) -> torch.Tensor:
-    """q [B,H,Tq,D], k/v [B,KH,Tk,D] -> [B,H,Tq,D].
+    """q [B,H,Tq,D], k [B,KH,Tk,D], v [B,KH,Tk,Dv] -> [B,H,Tq,Dv]; Dv may
+    differ from D (MLA) on every impl. ``scale`` defaults to D^-0.5.
 
     impl: "kernel" (CUDA kernel; its plain version on CPU tensors), "xla"
     (chunked online softmax in plain PyTorch), "naive" (reference; O(T^2)
@@ -128,7 +132,8 @@ def _kernel_fwd(q, k, v, causal, window, scale, q_offset, return_lse):
                                  scale=scale, q_offset=q_offset,
                                  kv_len=k.shape[2], return_lse=return_lse)
     flash_attention.launches += 1
-    flash_attention.launches_by_route[kernel_route(q.dtype, q.shape[-1])] += 1
+    flash_attention.launches_by_route[
+        kernel_route(q.dtype, q.shape[-1], v.shape[-1])] += 1
     flash_attention.lse_launches += int(return_lse)
     return res
 

@@ -13,14 +13,21 @@ the flash kernel in the prefill of its local-attention layers, whose decode
 reads a ring of ``window`` slots. grok-1-314b (MoE over GQA attention)
 dispatches and combines every MoE layer's tokens through the shuffle kernels
 (``LM(moe_impl="kernel")``), in prefill and in every decode step, and runs
-its prefill attention through the flash kernel. For rwkv6-3b the pool keeps the
+its prefill attention through the flash kernel. deepseek-v2-lite-16b (MLA
+over MoE in every layer) does the same, its prefill attention over the
+per-head K/V expanded from MLA's latent (the flash kernel at q and k heads
+of 192 and v heads of 128), its decode over the expanded per-head cache
+(``LM(mla_absorbed=False)``, the reference's default); the pool keeps the
+config's geometry (16 kv heads of 128), bookkeeping as the reference's. For
+rwkv6-3b the pool keeps the
 reference's geometry (one "kv head" of d_model wide), and for
 recurrentgemma-9b its 38 layers of one kv head of 256; either way it is
 bookkeeping only, as in the JAX package: it holds no recurrent state.
 
 Run: ``python -m repro_torch.launch.serve --arch qwen3-0.6b``, ``--arch
-rwkv6-3b``, ``--arch recurrentgemma-9b`` or ``--arch grok-1-314b`` (on the
-card; ``--device cpu --smoke`` for a small CPU run). Full grok-1-314b (64
+rwkv6-3b``, ``--arch recurrentgemma-9b``, ``--arch grok-1-314b`` or
+``--arch deepseek-v2-lite-16b`` (on the card; ``--device cpu --smoke`` for
+a small CPU run). Full grok-1-314b (64
 layers, 316.5 B parameters) does not fit one card; ``chip_smoke.py`` serves
 it at full width and 4 layers.
 """
@@ -38,6 +45,7 @@ from .._device import DeviceLike, resolve_device
 from ..configs import get_config, smoke_config
 from ..configs.base import ArchConfig
 from ..core import PagedKVCache
+from ..models.lm import torch_dtype
 from ..models.model import build_model
 
 
@@ -158,8 +166,13 @@ def main() -> None:
                                     dtype=np.int32),
                     max_new_tokens=args.new_tokens)
             for i in range(args.requests)]
+    # params drawn in the compute dtype: in fp32 beside their cast,
+    # deepseek-v2-lite-16b's 16.2 B would not fit the card
+    model = build_model(cfg, device=args.device)
+    params = model.init(torch.Generator(device=model.device).manual_seed(0),
+                        dtype=torch_dtype(cfg.compute_dtype))
     loop = ServeLoop(cfg, max_len=args.prompt_len + args.new_tokens + 8,
-                     device=args.device)
+                     params=params, device=args.device)
     out = loop.run(reqs)
     print(f"served {len(out)} requests; stats: {loop.stats}")
 

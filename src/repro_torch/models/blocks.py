@@ -1,5 +1,6 @@
 """Per-layer blocks: GQA attention (with qwen3's qk_norm and local
-attention over a sliding window), the SwiGLU / GeGLU FFN, the MoE block
+attention over a sliding window), deepseek-v2's MLA (low-rank compressed
+KV), the SwiGLU / GeGLU FFN, the MoE block
 (top-k routing, per-row capacity, shared experts), RWKV6's time mix (wkv)
 and channel mix, and recurrentgemma's RG-LRU block.
 
@@ -7,8 +8,8 @@ Every ``*_init`` builds the params of all layers at once, stacked on a
 leading ``layers`` dim (``lead``), with the JAX reference's names and
 layouts, each leaf of rank >= 2 drawn in ``dtype`` (fp32 by default) and
 the others in fp32 (``common.param_dtype``). Every ``*_apply`` takes one
-layer's params. ``attn_apply`` handles both full-sequence (prefill) and
-single-token decode (``cache`` + ``pos``) modes, ``rwkv_apply`` and
+layer's params. ``attn_apply`` and ``mla_apply`` handle both full-sequence
+(prefill) and single-token decode (``cache`` + ``pos``) modes, ``rwkv_apply`` and
 ``rglru_apply`` full-sequence and single-token decode (``state``).
 Products whose operands differ in type go through ``common.einsum``, which
 promotes as the reference's ``jnp.einsum`` does.
@@ -207,6 +208,151 @@ def pack_prefill_cache(cfg: ArchConfig, kv, max_len: int, dtype):
     elif pad < 0:
         k, v = k[:, :, :cache_len], v[:, :, :cache_len]
     return {"k": k.to(dtype), "v": v.to(dtype)}
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (deepseek-v2): low-rank compressed KV
+# ---------------------------------------------------------------------------
+def mla_init(gen: torch.Generator, cfg: ArchConfig,
+             lead: Tuple[int, ...] = (), dtype=None) -> Dict:
+    """The reference's params and layouts: wq [d, H, nope + rope], the
+    latent's down projection w_dkv [d, kv_lora] and its norm kv_norm
+    [kv_lora], the shared rope key's w_kr [d, rope], the up projections
+    w_uk [kv_lora, H, nope] and w_uv [kv_lora, H, v], wo [H, v, d] and the
+    block norm."""
+    d, H = cfg.d_model, cfg.n_heads
+    nope, rope_d, vd, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim,
+                              cfg.v_head_dim, cfg.kv_lora)
+    wt = dtype or torch.float32
+    return {
+        "wq": dense_init(gen, d, (H, nope + rope_d), lead=lead, dtype=wt),
+        "w_dkv": dense_init(gen, d, lora, lead=lead, dtype=wt),
+        "w_kr": dense_init(gen, d, rope_d, lead=lead, dtype=wt),
+        "w_uk": dense_init(gen, lora, (H, nope), lead=lead, dtype=wt),
+        "w_uv": dense_init(gen, lora, (H, vd), lead=lead, dtype=wt),
+        "wo": _normal(gen, (*lead, H, vd, d), 1.0 / math.sqrt(H * vd), wt),
+        "norm": _norm_init(cfg, d, gen, lead, dtype),
+        "kv_norm": _ones(gen, (*lead, lora), dtype),
+    }
+
+
+def _mla_latent(p, h, cfg: ArchConfig, positions):
+    """The latent c_kv = rms_norm(h w_dkv) [B, T, kv_lora] (rounded back to
+    h's dtype) and the rope key shared by all heads [B, T, 1, rope]."""
+    c_kv = rms_norm(einsum("btd,dl->btl", h, p["w_dkv"]), p["kv_norm"])
+    k_rope = apply_rope(einsum("btd,dr->btr", h, p["w_kr"])[:, :, None],
+                        positions, cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def _mla_expand(p, c_kv, k_rope, H: int):
+    """Per-head keys [B, T, H, nope + rope] (the rope key broadcast to every
+    head) and values [B, T, H, v] from the latent."""
+    B, T, _, rope_d = k_rope.shape
+    k_nope = einsum("btl,lhn->bthn", c_kv, p["w_uk"])
+    v = einsum("btl,lhv->bthv", c_kv, p["w_uv"])
+    k = torch.cat([k_nope, k_rope.expand(B, T, H, rope_d)], dim=-1)
+    return k, v
+
+
+def mla_apply(p, x, *, cfg: ArchConfig, positions,
+              cache: Optional[Dict] = None, pos: Optional[int] = None,
+              attn_impl: str = "kernel", absorbed: bool = False):
+    """MLA. Full mode when ``cache`` is None: the per-head K/V expanded from
+    the latent go through ``flash_attention`` (q and k of nope + rope, v of
+    v_head_dim). Decode writes into ``cache`` in place (the reference
+    returns an updated copy) and returns the same dict: the expanded
+    per-head cache {"k", "v"} by default, attended by ``attention_ref``; with
+    ``absorbed`` the compressed {"c_kv", "k_rope"} cache, W_uk folded into
+    q, fp32 scores over the latent masked to ``pos + t``, W_uv applied after.
+    The scale is (nope + rope)^-0.5 on both paths, as the reference's."""
+    B, T, d = x.shape
+    H = cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    h = apply_norm(cfg, p.get("norm"), x)
+    q = einsum("btd,dhk->bthk", h, p["wq"])             # [B, T, H, nope+rope]
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = _mla_latent(p, h, cfg, positions)
+
+    if absorbed and cache is not None:
+        cc, ckr = cache["c_kv"], cache["k_rope"]        # [B, Tmax, l], [B, Tmax, r]
+        Tmax = cc.shape[1]
+        start = min(max(int(pos), 0), Tmax - T)         # dynamic_update_slice
+        cc[:, start:start + T] = c_kv.to(cc.dtype)
+        ckr[:, start:start + T] = k_rope[:, :, 0].to(ckr.dtype)
+        q_lat = einsum("bthn,lhn->bthl", q_nope, p["w_uk"])
+        s = (torch.einsum("bthl,bsl->bhts", q_lat.float(), cc.float())
+             + torch.einsum("bthr,bsr->bhts", q_rope.float(), ckr.float()))
+        s = s * (nope + rope_d) ** -0.5
+        live = torch.arange(Tmax, device=x.device)[None, None, None, :] <= (
+            int(pos) + torch.arange(T, device=x.device)[None, None, :, None])
+        s = torch.where(live, s, torch.full_like(s, -1e30))
+        o_lat = torch.einsum("bhts,bsl->bthl", _softmax(s), cc.float())
+        o = torch.einsum("bthl,lhv->bthv", o_lat, p["w_uv"].float())
+        y = einsum("bthv,hvd->btd", o.to(x.dtype), p["wo"])
+        return x + y, cache
+
+    k, v = _mla_expand(p, c_kv, k_rope, H)
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+    qh, kh, vh = (t.transpose(1, 2) for t in (qq, k, v))
+    new_cache = None
+    if cache is not None:                                # expanded decode
+        ck, cv = cache["k"], cache["v"]                  # [B, H, Tmax, *]
+        Tmax = ck.shape[2]
+        start = min(max(int(pos), 0), Tmax - T)
+        ck[:, :, start:start + T] = kh.to(ck.dtype)
+        cv[:, :, start:start + T] = vh.to(cv.dtype)
+        new_cache = cache
+        o = attention_ref(qh, ck.to(qh.dtype), cv.to(qh.dtype), causal=True,
+                          q_offset=int(pos))
+    else:
+        # the kernel takes contiguous head-major tensors; Dv != D
+        o = flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                            causal=True, impl=attn_impl,
+                            block_k=cfg.attn_block_k)
+    o = o.transpose(1, 2)                                # [B, T, H, v]
+    y = einsum("bthv,hvd->btd", o[..., :vd], p["wo"])
+    return x + y, new_cache
+
+
+def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype, device,
+                   absorbed: bool = False) -> Dict[str, torch.Tensor]:
+    """The decode cache of one layer: expanded per-head {"k": [B, H, max_len,
+    nope + rope], "v": [B, H, max_len, v]}, or with ``absorbed`` the latent
+    {"c_kv": [B, max_len, kv_lora], "k_rope": [B, max_len, rope]}."""
+    if absorbed:
+        shapes = {"c_kv": (batch, max_len, cfg.kv_lora),
+                  "k_rope": (batch, max_len, cfg.qk_rope_dim)}
+    else:
+        hd = cfg.qk_nope_dim + cfg.qk_rope_dim
+        shapes = {"k": (batch, cfg.n_heads, max_len, hd),
+                  "v": (batch, cfg.n_heads, max_len, cfg.v_head_dim)}
+    return {k: torch.zeros(s, dtype=dtype, device=device)
+            for k, s in shapes.items()}
+
+
+def mla_prefill_cache(p, x, *, cfg: ArchConfig, positions, max_len: int,
+                      dtype, absorbed: bool = False) -> Dict[str, torch.Tensor]:
+    """The MLA decode cache of one layer from a prompt ``x`` (the layer's
+    input), in the form ``mla_cache_init`` gives: the latent recomputed from
+    ``x``, then (expanded form) the per-head K/V; zero-padded or cut to
+    ``max_len`` slots."""
+    B, T, _ = x.shape
+    h = apply_norm(cfg, p.get("norm"), x)
+    c_kv, k_rope = _mla_latent(p, h, cfg, positions)
+    pad = max_len - T
+    if absorbed:
+        cc = F.pad(c_kv, (0, 0, 0, max(pad, 0)))[:, :max_len]
+        kr = F.pad(k_rope[:, :, 0], (0, 0, 0, max(pad, 0)))[:, :max_len]
+        return {"c_kv": cc.to(dtype), "k_rope": kr.to(dtype)}
+    k, v = _mla_expand(p, c_kv, k_rope, cfg.n_heads)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    if pad > 0:
+        kh = F.pad(kh, (0, 0, 0, pad))
+        vh = F.pad(vh, (0, 0, 0, pad))
+    return {"k": kh[:, :, :max_len].to(dtype),
+            "v": vh[:, :, :max_len].to(dtype)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Decoder-only LM: the dense family, MoE over GQA attention ("moe"), the
-attention-free RWKV6 ("ssm") and recurrentgemma's RG-LRU + local attention
-("hybrid").
+"""Decoder-only LM: the dense family, MoE over GQA attention or MLA
+("moe": grok-1-314b, deepseek-v2-lite-16b), the attention-free RWKV6
+("ssm") and recurrentgemma's RG-LRU + local attention ("hybrid").
 
 Params keep the JAX reference's layout: a nested dict with the stacked
 ``layers`` dim first (for the hybrid family: superblocks of
@@ -88,24 +88,27 @@ def _stack(states):
 
 
 class LM:
-    """Config-driven language model (dense, MoE, RWKV6 or RG-LRU hybrid).
-    All state is explicit: params and caches are passed in and returned.
-    ``attn_impl`` picks the attention of prefill, ``scan_impl`` the scan of
-    RWKV6 (the wkv) and of RG-LRU (the diagonal scan: "kernel", or the
-    sequential oracle for any other value), ``moe_impl`` the MoE block's
-    dispatch and combine ("kernel": the shuffle kernels; "xla": the
-    reference's dense dispatch mask); all default to the CUDA kernels
-    (their plain versions on CPU tensors)."""
+    """Config-driven language model (dense, MoE, RWKV6 or RG-LRU hybrid;
+    MLA attention where ``cfg.kv_lora``). All state is explicit: params and
+    caches are passed in and returned. ``attn_impl`` picks the attention of
+    prefill, ``scan_impl`` the scan of RWKV6 (the wkv) and of RG-LRU (the
+    diagonal scan: "kernel", or the sequential oracle for any other value),
+    ``moe_impl`` the MoE block's dispatch and combine ("kernel": the
+    shuffle kernels; "xla": the reference's dense dispatch mask); all
+    default to the CUDA kernels (their plain versions on CPU tensors).
+    ``mla_absorbed``: MLA decodes over the compressed latent cache with the
+    up projections absorbed, instead of the expanded per-head cache (the
+    default, as the reference's)."""
 
     def __init__(self, cfg: ArchConfig, attn_impl: str = "kernel",
                  scan_impl: str = "kernel", moe_impl: str = "kernel",
-                 device: DeviceLike = "cuda"):
+                 mla_absorbed: bool = False, device: DeviceLike = "cuda"):
         if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
-                or cfg.kv_lora or (cfg.family == "moe") != bool(cfg.n_experts):
+                or (cfg.family == "moe") != bool(cfg.n_experts):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense, moe (without MLA), ssm (RWKV6) "
-                f"and hybrid (RG-LRU) families are ported "
-                f"(family={cfg.family!r}, kv_lora={cfg.kv_lora})")
+                f"{cfg.name}: only the dense, moe, ssm (RWKV6) and hybrid "
+                f"(RG-LRU) families are ported (family={cfg.family!r}, "
+                f"n_experts={cfg.n_experts})")
         if cfg.rope not in ("rope", "none") or cfg.embed_inputs:
             raise NotImplementedError(
                 f"{cfg.name}: M-RoPE and embedding inputs are not ported "
@@ -114,6 +117,7 @@ class LM:
         self.attn_impl = attn_impl
         self.scan_impl = scan_impl
         self.moe_impl = moe_impl
+        self.mla_absorbed = mla_absorbed
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
@@ -157,16 +161,18 @@ class LM:
         elif cfg.family == "ssm":
             params["layers"] = {"rwkv": blocks.rwkv_init(gen, cfg, lead=(L,),
                                                          dtype=dtype)}
-        elif cfg.n_experts:
-            moe_init = (moe_shardmap_init if self._shardmap()
-                        else blocks.moe_init)
-            params["layers"] = {
-                "attn": blocks.attn_init(gen, cfg, lead=(L,), dtype=dtype),
-                "moe": moe_init(gen, cfg, lead=(L,), dtype=dtype)}
         else:
-            params["layers"] = {
-                "attn": blocks.attn_init(gen, cfg, lead=(L,), dtype=dtype),
-                "ffn": blocks.ffn_init(gen, cfg, lead=(L,), dtype=dtype)}
+            attn_init = blocks.mla_init if cfg.kv_lora else blocks.attn_init
+            params["layers"] = {"attn": attn_init(gen, cfg, lead=(L,),
+                                                  dtype=dtype)}
+            if cfg.n_experts:
+                moe_init = (moe_shardmap_init if self._shardmap()
+                            else blocks.moe_init)
+                params["layers"]["moe"] = moe_init(gen, cfg, lead=(L,),
+                                                   dtype=dtype)
+            else:
+                params["layers"]["ffn"] = blocks.ffn_init(gen, cfg, lead=(L,),
+                                                          dtype=dtype)
         return params
 
     def _shardmap(self) -> bool:
@@ -212,9 +218,15 @@ class LM:
             x, st = blocks.rwkv_apply(p["rwkv"], x, cfg=cfg, state=cache,
                                       scan_impl=self.scan_impl)
             return x, st, 0.0
-        x, c = blocks.attn_apply(p["attn"], x, cfg=cfg,
-                                 positions=positions, cache=cache, pos=pos,
-                                 attn_impl=self.attn_impl)
+        if cfg.kv_lora:
+            x, c = blocks.mla_apply(p["attn"], x, cfg=cfg,
+                                    positions=positions, cache=cache,
+                                    pos=pos, attn_impl=self.attn_impl,
+                                    absorbed=self.mla_absorbed)
+        else:
+            x, c = blocks.attn_apply(p["attn"], x, cfg=cfg,
+                                     positions=positions, cache=cache,
+                                     pos=pos, attn_impl=self.attn_impl)
         if not cfg.n_experts:
             return blocks.ffn_apply(p["ffn"], x, cfg=cfg), c, 0.0
         if self._shardmap() and not prefill:
@@ -350,9 +362,12 @@ class LM:
                                         torch_dtype(cfg.kv_cache_dtype),
                                         self.device)
             return _stack([st] * cfg.n_layers)
-        c = blocks.attn_cache_init(cfg, batch, max_len,
-                                   torch_dtype(cfg.kv_cache_dtype),
-                                   self.device)
+        dt = torch_dtype(cfg.kv_cache_dtype)
+        if cfg.kv_lora:
+            c = blocks.mla_cache_init(cfg, batch, max_len, dt, self.device,
+                                      absorbed=self.mla_absorbed)
+        else:
+            c = blocks.attn_cache_init(cfg, batch, max_len, dt, self.device)
         return {k: v.unsqueeze(0).repeat(cfg.n_layers, *([1] * v.dim()))
                 for k, v in c.items()}
 
@@ -392,7 +407,10 @@ class LM:
         ``max_len`` sizes the kv cache (default: prompt length; local
         attention keeps at most ``window`` slots); RWKV6 returns the stacked
         per-layer states instead (``max_len`` unused), the hybrid family
-        {"super": stacked superblock caches, "rem": [RG-LRU states]}."""
+        {"super": stacked superblock caches, "rem": [RG-LRU states]}. MLA's
+        cache is recomputed from each layer's input after the layer ran
+        (``blocks.mla_prefill_cache``), in ``decode_cache_init``'s form, as
+        the reference does."""
         cfg = self.cfg
         params = self._compute_cast(params)
         x = self._embed(params, batch)
@@ -420,14 +438,18 @@ class LM:
         max_len = max_len or T
         dt = torch_dtype(cfg.kv_cache_dtype)
         positions = self._positions(T)
-        ks, vs = [], []
+        caches = []
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
+            if cfg.kv_lora:
+                x_in = x
+                x, _, _ = self._layer_apply(lp, x, positions, prefill=True)
+                caches.append(blocks.mla_prefill_cache(
+                    lp["attn"], x_in, cfg=cfg, positions=positions,
+                    max_len=max_len, dtype=dt, absorbed=self.mla_absorbed))
+                continue
             kv = blocks.attn_prefill_kv(lp["attn"], x, cfg=cfg,
                                         positions=positions)
-            c = blocks.pack_prefill_cache(cfg, kv, max_len, dt)
-            ks.append(c["k"])
-            vs.append(c["v"])
+            caches.append(blocks.pack_prefill_cache(cfg, kv, max_len, dt))
             x, _, _ = self._layer_apply(lp, x, positions, prefill=True)
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
-        return self._logits(params, x), cache
+        return self._logits(params, x), _stack(caches)

@@ -61,6 +61,20 @@ FLASH_EDGE_CASES = [
     (1, 4, 1, 64, 300, 256, True, 100, 236, 1.0),    # continued, in a window
     (1, 2, 1, 90, 90, 36, True, None, 0, 1.0),       # D % 8 != 0: scalar route
 ]
+# v's head dim Dv unlike q's and k's D (MLA): smoke deepseek-v2-lite-16b's
+# heads (D = 24 = 16 nope + 8 rope, Dv = 16) and its full ones (192, 128),
+# with GQA, causal and not; Dv over D; a V/O tile of 256 beside a q/K tile
+# of 64; D % 8 != 0 with Dv % 8 == 0 (the scalar route)
+FLASH_DV_CASES = [
+    # B, H, KH, Tq, Tk, D, causal, window, q_offset, q scale, Dv
+    (2, 4, 2, 40, 72, 24, True, None, 0, 1.0, 16),
+    (1, 4, 4, 64, 64, 24, False, None, 0, 1.0, 16),
+    (1, 4, 2, 150, 150, 192, True, None, 0, 1.0, 128),
+    (1, 2, 2, 130, 200, 192, False, None, 0, 1.0, 128),
+    (1, 2, 1, 70, 90, 16, True, None, 20, 1.0, 24),
+    (1, 2, 1, 100, 100, 64, True, 40, 0, 1.0, 256),
+    (1, 2, 2, 50, 50, 36, True, None, 0, 1.0, 16),
+]
 PAGED_CASES = [
     # B, H, KH, D, P, page, max_pages
     (2, 4, 2, 32, 16, 8, 4),
@@ -169,9 +183,11 @@ def _close(out, ref, **tol):
 
 
 def flash_case(case):
-    """A FLASH_CASES or FLASH_EDGE_CASES entry as (B, H, KH, Tq, Tk, D,
-    causal, window, q_offset, q scale)."""
-    return tuple(case) + (0, 1.0)[len(case) - 8:]
+    """A FLASH_CASES, FLASH_EDGE_CASES or FLASH_DV_CASES entry as (B, H, KH,
+    Tq, Tk, D, causal, window, q_offset, q scale, Dv); Dv is D unless the
+    entry names it."""
+    case = tuple(case) + (0, 1.0)[len(case) - 8:]
+    return case + (case[5],)[len(case) - 10:]
 
 
 @pytest.mark.cuda
@@ -182,22 +198,26 @@ def flash_case(case):
     (1, 16, 1, 300, 300, 256, True, 128),       # recurrentgemma's heads
     (4, 16, 1, 2100, 2100, 256, True, 2048),    # and its served prefill
     (4, 48, 8, 512, 512, 128, True, None),      # grok-1-314b's prefill
-] + FLASH_EDGE_CASES)
+] + FLASH_EDGE_CASES + FLASH_DV_CASES + [
+    (4, 16, 16, 512, 512, 192, True, None, 0, 1.0, 128),   # deepseek's
+])
 def test_flash_kernel_matches_plain(case, dtype, cuda_device):
-    """Both routes: fp32 (and D % 8 != 0) on the scalar kernel, bf16 on the
-    wgmma kernel; each case asserts which route it took."""
-    B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale = flash_case(case)
+    """Both routes: fp32 (and D or Dv % 8 != 0) on the scalar kernel, bf16
+    on the wgmma kernel; each case asserts which route it took."""
+    B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale, Dv = \
+        flash_case(case)
     rng = np.random.default_rng(42)
     q, k, v = (torch.from_numpy(rng.normal(size=s)).to(cuda_device,
                                                       DTYPES[dtype])
-               for s in ((B, H, Tq, D), (B, KH, Tk, D), (B, KH, Tk, D)))
+               for s in ((B, H, Tq, D), (B, KH, Tk, D), (B, KH, Tk, Dv)))
     q = q * q_scale
-    route = kernel_route(DTYPES[dtype], D)
+    route = kernel_route(DTYPES[dtype], D, Dv)
     assert route == ("wgmma" if dtype == "bfloat16" and D % 8 == 0
-                     else "scalar")
+                     and Dv % 8 == 0 else "scalar")
     if route == "wgmma":
-        tiles = wgmma_tiles(D)
+        tiles = wgmma_tiles(D, Dv)
         assert D <= tiles["head_dim_tile"] in (64, 128, 256)
+        assert Dv <= tiles["v_head_dim_tile"] in (64, 128, 256)
         assert tiles["block_q"] == 128 and tiles["block_k"] in (80, 128)
     before = (flash_attention.launches,
               dict(flash_attention.launches_by_route))
@@ -207,6 +227,7 @@ def test_flash_kernel_matches_plain(case, dtype, cuda_device):
     torch.cuda.synchronize()
     assert flash_attention.launches == before[0] + 1
     assert flash_attention.launches_by_route[route] == before[1][route] + 1
+    assert out.shape == (B, H, Tq, Dv)
     _close(out, attention_ref(q, k, v, causal=causal, window=window,
                               q_offset=q_offset), **_tol(dtype))
 
@@ -236,7 +257,8 @@ LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}       # relative
 GRAD_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
 # the JAX package's attention-gradient case (tests/test_kernels.py), the
 # masks of tests/test_torch_train.py's GRAD_CASES and qwen3-0.6b's training
-# shape: B, H, KH, Tq, Tk, D, causal, window, q_offset, block_k
+# shape: B, H, KH, Tq, Tk, D, causal, window, q_offset, block_k; then MLA's
+# heads (Dv unlike D), smoke and full: ..., block_k, Dv
 FLASH_GRAD_CASES = [
     (1, 4, 2, 48, 48, 16, True, None, 0, 16),
     (2, 4, 1, 40, 72, 16, True, None, 32, 16),
@@ -244,6 +266,8 @@ FLASH_GRAD_CASES = [
     (1, 4, 4, 33, 50, 8, False, None, 0, 16),
     (1, 8, 2, 20, 70, 16, True, 16, 50, 32),
     (8, 16, 8, 512, 512, 128, True, None, 0, 128),
+    (2, 4, 4, 40, 40, 24, True, None, 0, 16, 16),
+    (1, 4, 2, 150, 150, 192, True, None, 0, 128, 128),
 ]
 
 
@@ -252,16 +276,17 @@ FLASH_GRAD_CASES = [
 @pytest.mark.parametrize("case", FLASH_CASES + FLASH_EDGE_CASES + [
     (8, 16, 8, 512, 512, 128, True, None),      # qwen3-0.6b's training shape
     (1, 2, 1, 8, 8, 8, True, None, -3, 1.0),    # rows with no live key
-])
+] + FLASH_DV_CASES)
 def test_flash_kernel_lse_matches_plain(case, dtype, cuda_device):
     """Both routes write each row's lse: relative 1e-5 (fp32) and 1e-3
     (bf16) to the plain version, +inf on the same rows; the output keeps
     the bits of a launch without lse."""
-    B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale = flash_case(case)
+    B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale, Dv = \
+        flash_case(case)
     rng = np.random.default_rng(7)
     q, k, v = (torch.from_numpy(rng.normal(size=s)).to(cuda_device,
                                                       DTYPES[dtype])
-               for s in ((B, H, Tq, D), (B, KH, Tk, D), (B, KH, Tk, D)))
+               for s in ((B, H, Tq, D), (B, KH, Tk, D), (B, KH, Tk, Dv)))
     q = q * q_scale
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     out, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
@@ -301,12 +326,13 @@ def test_flash_function_grads_on_the_card(case, dtype, cuda_device):
     """``_FlashAttention`` through the kernel forward (one launch, with lse)
     and the plain backward: dq, dk, dv against autograd of fp64 attention,
     3e-4 in fp32 and 2e-2 in bf16."""
-    B, H, KH, Tq, Tk, D, causal, window, q_offset, bk = case
+    B, H, KH, Tq, Tk, D, causal, window, q_offset, bk, Dv = \
+        tuple(case) + (case[5],)[len(case) - 10:]
     rng = np.random.default_rng(8)
     q, k, v = (torch.from_numpy(rng.normal(size=s)).to(cuda_device,
                                                       DTYPES[dtype])
-               for s in ((B, H, Tq, D), (B, KH, Tk, D), (B, KH, Tk, D)))
-    w = torch.from_numpy(rng.normal(size=(B, H, Tq, D))).to(cuda_device)
+               for s in ((B, H, Tq, D), (B, KH, Tk, D), (B, KH, Tk, Dv)))
+    w = torch.from_numpy(rng.normal(size=(B, H, Tq, Dv))).to(cuda_device)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = (flash_attention.launches, flash_attention.lse_launches)

@@ -26,8 +26,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-from test_torch_cuda import (FLASH_CASES, FLASH_EDGE_CASES, PAGED_CASES,
-                             flash_case)
+from test_torch_cuda import (FLASH_CASES, FLASH_DV_CASES, FLASH_EDGE_CASES,
+                             PAGED_CASES, flash_case)
 
 torch.set_num_threads(2)
 
@@ -55,18 +55,25 @@ def _np(x):
 
 # -- flash attention --------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FLASH_CASES + FLASH_EDGE_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_EDGE_CASES +
+                         FLASH_DV_CASES)
 def test_flash_plain_paths_match_jax(case, dtype):
-    B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale = flash_case(case)
-    blk = 32 if case in FLASH_CASES else 64   # fewer interpreted grid steps
+    """Held to the reference's ``attention_ref`` and its Pallas kernel
+    (interpreted); where v's head dim Dv differs from D (MLA), to its
+    ``"xla"`` path instead, the one route of the reference that takes
+    Dv != D (its Pallas kernel sizes v and the output by q's D)."""
+    B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale, Dv = \
+        flash_case(case)
+    blk = 32 if case in FLASH_CASES + FLASH_DV_CASES else 64   # fewer
+    # interpreted grid steps
     rng = np.random.default_rng(42)
     jq, q = _both(rng.normal(size=(B, H, Tq, D)) * q_scale, dtype)
     jk, k = _both(rng.normal(size=(B, KH, Tk, D)), dtype)
-    jv, v = _both(rng.normal(size=(B, KH, Tk, D)), dtype)
+    jv, v = _both(rng.normal(size=(B, KH, Tk, Dv)), dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     ref = jax_attention_ref(jq, jk, jv, **kw)
-    jker = jax_flash(jq, jk, jv, impl="kernel", block_q=blk, block_k=blk,
-                     **kw)
+    jker = jax_flash(jq, jk, jv, impl="kernel" if Dv == D else "xla",
+                     block_q=blk, block_k=blk, **kw)
     tol = _tol(dtype)
     np.testing.assert_allclose(_np(jker), _np(ref), **tol)
     outs = {
@@ -76,7 +83,7 @@ def test_flash_plain_paths_match_jax(case, dtype):
                                   block_k=blk, **kw),
     }
     for impl, out in outs.items():
-        assert out.dtype == q.dtype and out.shape == q.shape, impl
+        assert out.dtype == q.dtype and out.shape == (B, H, Tq, Dv), impl
         np.testing.assert_allclose(_np(out), _np(ref), err_msg=impl, **tol)
         np.testing.assert_allclose(_np(out), _np(jker), err_msg=impl, **tol)
 
@@ -93,6 +100,17 @@ def test_flash_kernel_route(dtype, head_dim, route):
     scalar one. The choice reads dtype and shape only."""
     assert flash_kernel.kernel_route(dtype, head_dim) == route
     assert route in flash_kernel.ROUTES
+
+
+@pytest.mark.parametrize("dtype,head_dim,v_head_dim,route", [
+    (torch.bfloat16, 192, 128, "wgmma"), (torch.bfloat16, 24, 16, "wgmma"),
+    (torch.bfloat16, 16, 24, "wgmma"), (torch.bfloat16, 24, 12, "scalar"),
+    (torch.bfloat16, 36, 16, "scalar"), (torch.float32, 192, 128, "scalar")])
+def test_flash_kernel_route_reads_both_head_dims(dtype, head_dim, v_head_dim,
+                                                 route):
+    """With v's head dim unlike q's (MLA), the wgmma route needs both to be
+    multiples of 8: V and the output go through TMA as well."""
+    assert flash_kernel.kernel_route(dtype, head_dim, v_head_dim) == route
 
 
 def test_flash_kernel_plain_version_counts_no_launch():
@@ -187,7 +205,15 @@ def test_flash_kernel_raises_on_what_it_does_not_take(bad):
     elif bad == "contiguity":
         q = torch.zeros(1, 8, 2, 16).transpose(1, 2)
     elif bad == "dv":
-        v = torch.zeros(1, 1, 8, 32)
+        # v's head dim may differ from k's (MLA: 192 and 128), up to 256,
+        # but v must have k's keys
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+            flash_kernel.check_kernel_inputs(q, k, torch.zeros(1, 1, 8, 256))
+            with pytest.raises(ValueError):
+                flash_kernel.check_kernel_inputs(q, k,
+                                                 torch.zeros(1, 1, 9, 16))
+        v = torch.zeros(1, 1, 8, 264)
     elif bad == "alignment":
         # the wgmma route's TMA reads need 16-byte aligned starts
         q = torch.zeros(1 * 2 * 8 * 16 + 1, dtype=torch.bfloat16)[1:].view(

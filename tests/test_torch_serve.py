@@ -2,7 +2,8 @@
 tests/test_system.py::test_serve_loop_with_paging (smoke glm4-9b, 6 requests,
 2 slots, max_len 32, 3 pool pages) with fp32 compute and KV so that no greedy
 argmax tie flips: identical token ids and identical pager stats; the same for
-smoke olmo-1b, minitron-8b, rwkv6-3b, recurrentgemma-9b and grok-1-314b."""
+smoke olmo-1b, minitron-8b, rwkv6-3b, recurrentgemma-9b, grok-1-314b and
+deepseek-v2-lite-16b."""
 import jax
 import numpy as np
 import pytest
@@ -164,6 +165,38 @@ def test_moe_serve_loop_matches_jax_tokens_and_pager_stats():
     assert (dispatch.launches, combine.launches) == before   # CPU: plain
 
 
+def test_mla_serve_loop_matches_jax_tokens_and_pager_stats():
+    """Smoke deepseek-v2-lite-16b (MLA, MoE in every layer) in the same case:
+    identical token ids and pager stats. Both loops decode over the
+    expanded per-head cache (the reference's default); the port's prefill
+    attention is the flash kernel's plain version at D = 24, Dv = 16, its
+    MoE the shuffle path's; the pager's geometry (kv_heads 2, head_dim 16)
+    is bookkeeping, as in the reference."""
+    jcfg = jax_smoke_config("deepseek-v2-lite-16b").with_(**FP32)
+    jloop = JaxServeLoop(jcfg, batch_slots=2, max_len=32, hbm_pages=3)
+    jout = jloop.run([JaxRequest(i, p, max_new_tokens=4)
+                      for i, p in enumerate(_prompts(jcfg.vocab))])
+
+    params = params_from_numpy(jax.tree.map(np.asarray, jloop.params),
+                               device="cpu")
+    cfg = smoke_config("deepseek-v2-lite-16b").with_(**FP32)
+    loop = ServeLoop(cfg, batch_slots=2, max_len=32, hbm_pages=3,
+                     params=params, device="cpu")
+    assert not loop.model.mla_absorbed and loop.model.moe_impl == "kernel"
+    assert (loop.pager.kv_heads, loop.pager.head_dim) == (2, 16)
+    before = (flash_attention.launches, dispatch.launches, combine.launches)
+    out = loop.run([Request(i, p, max_new_tokens=4)
+                    for i, p in enumerate(_prompts(cfg.vocab))])
+
+    assert len(out) == 6 and all(len(v) == 4 for v in out.values())
+    assert out == jout
+    assert loop.stats["offloads"] > 0
+    for key in PAGER_KEYS:
+        assert loop.stats[key] == jloop.stats[key], key
+    assert (flash_attention.launches, dispatch.launches,
+            combine.launches) == before                   # CPU: plain
+
+
 def test_serve_loop_default_params_and_bf16_run():
     cfg = smoke_config("qwen3-0.6b")
     loop = ServeLoop(cfg, batch_slots=2, max_len=24, hbm_pages=2,
@@ -211,6 +244,15 @@ def test_main_serves_grok_on_the_cpu(capsys, monkeypatch):
                                      "--smoke", "--device", "cpu",
                                      "--requests", "2", "--prompt-len", "6",
                                      "--new-tokens", "2"])
+    serve.main()
+    assert "served 2 requests" in capsys.readouterr().out
+
+
+def test_main_serves_deepseek_on_the_cpu(capsys, monkeypatch):
+    monkeypatch.setattr("sys.argv", ["serve", "--arch",
+                                     "deepseek-v2-lite-16b", "--smoke",
+                                     "--device", "cpu", "--requests", "2",
+                                     "--prompt-len", "6", "--new-tokens", "2"])
     serve.main()
     assert "served 2 requests" in capsys.readouterr().out
 
