@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs its serving path, its
-storage tier, its trainer and MLA on a GPU.
+storage tier, its trainer, MLA, the encoder-decoder and M-RoPE on a GPU.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (Hopper,
 ``nvcc`` under ``/usr/local/cuda``): ``python3 chip_smoke.py``.
@@ -74,7 +74,17 @@ non-zero exit):
    tokens, timed beside their bounds (a second ``shuffle_work`` line); one
    full-width deepseek-v2-lite-16b layer (MLA + MoE) in fp32, kernel path
    against plain path in prefill and a decode step, and its absorbed
-   decode against the expanded one within 1e-4;
+   decode against the expanded one within 1e-4; flash at the enc-dec and
+   VLM families' served shapes (``flash_families`` line): seamless-m4t-
+   large-v2's encoder (B=4, H=KH=16, T=1024, D=64, bf16, non-causal) and
+   qwen2-vl-72b's prefill (B=4, 64 query heads over 8, T=512, D=128, bf16,
+   causal) against the plain version and timed beside the bound, the plain
+   version and SDPA, and an fp32 case of each's heads on the scalar route;
+   one full-width seamless encoder layer and decoder layer (self, cross,
+   FFN) in fp32, kernel path against plain path (memory, forward, the
+   cached prompt and a cached step), and one qwen2-vl-72b layer in fp32 at
+   image-grid M-RoPE positions (t, h and w differ), prefill and a decode
+   step with its positions in the batch;
 4. serve: full-width qwen3-0.6b ``ServeLoop`` answers 8 requests of 512
    prompt tokens and 32 new tokens with a page pool too small to hold them,
    prefill through the flash kernel;
@@ -156,7 +166,29 @@ non-zero exit):
     kernels in prefill (walk) and every decode step (direct), decode over
     the expanded per-head cache; a ``deepseek`` line (params, peak device
     GB, the phase's seconds);
-17. profile: as phase 6, for deepseek-v2-lite-16b.
+17. profile: as phase 6, for deepseek-v2-lite-16b;
+18. seamless-m4t-large-v2 at full width and depth (24 + 24 layers, d 1024,
+    16 heads of 64, vocab 256206; 2.04 B params drawn in bf16) through its
+    own entry points, as the JAX package's dry run lowers them: 8 requests
+    of 1024 frame embeddings (the stubbed frontend, drawn from the seed), a
+    128-token decoder prompt and 32 greedy new tokens, in static batches of
+    4: ``encode`` (flash, non-causal, D = 64), ``decode_cache_init`` with
+    the memory, the prompt as one ``decode_step``, 32 one-token steps (the
+    cached decode and cross-attention plain, as the reference's); then one
+    teacher-forced ``forward`` over the first batch, its logits at the
+    prompt's positions held to the cached path's: per sequence, a relative
+    error at most 2e-2 over the plain forward's (``drift_check``: over 48
+    bf16 layers, paths with no kernel already differ by 0.09 absolute); a
+    profile of a warm encode and decode step; a ``seamless`` line;
+19. qwen2-vl-72b at full width and 24 of its 80 layers (23.6 B params
+    drawn in bf16; 80 are ~140 GB): ``ServeLoop`` answers 8 requests of 512
+    prompt tokens and 32 new tokens (M-RoPE at the broadcast positions,
+    flash at 64 query heads over 8), then one ``LM.prefill`` of 4 x 512
+    embeddings at image-grid positions (64 text tokens, a 16 x 16 patch
+    grid, 192 text tokens), its last logits held to the plain path's as in
+    phase 18 (the second plain path the naive attention), and 8 decode
+    steps with their positions in the batch; a ``qwen2vl`` line;
+20. profile: as phase 6, for qwen2-vl-72b.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5
 (flash and paged attention: the qwen3 path), zeroed again just before phase
@@ -173,11 +205,15 @@ just before phase 15's training run and read just after it (flash
 attention: exactly 2 launches a layer a step, the forward and its remat
 recompute, all on the wgmma route and all writing lse), and again just
 before phase 16 and read just after it (flash, dispatch and combine: the
-deepseek-v2-lite-16b path, with no other kernel). Each serve
-phase
-fails unless every kernel of its path made exactly the launches its layers
-and batches call for, every flash launch of a serve phase on the wgmma
-route, every GLA launch on the tensor-core route, and the diagonal scan's
+deepseek-v2-lite-16b path, with no other kernel), and again just before
+phase 18 and read just after it (flash: exactly 24 launches for each of the
+2 encodes and 48 for the forward, 96, all on the wgmma route, no other
+kernel), and again just before phase 19 and read just after it (flash: 24
+a ServeLoop prefill batch and 24 for the embeddings' prefill, 72, all on
+wgmma, no other kernel). Each serve phase fails unless every kernel of
+its path made exactly the launches its layers and batches call for, every
+flash launch of a serve phase on the wgmma route, every GLA launch on the
+tensor-core route, and the diagonal scan's
 launches on the ring (prefill) and the step (decode) route as its layers
 call for, and dispatch's on the walk (prefill) and the direct (decode)
 route. The script's own seconds are logged on an
@@ -615,36 +651,36 @@ def check_flash(rng):
                 cases_max_abs_err=worst, **paths["qwen3-0.6b"], paths=paths)
 
 
-def flash_at(rng, B, H, KH, T, D, window, Dv=None):
-    """The kernel at one serving path's prefill shape (bf16, causal; v's
-    head dim ``Dv``, D by default): its route and tiles, error against the
-    plain version, times of the kernel, the plain version and SDPA (causal,
-    or with the window as a boolean mask; with the backend PyTorch chose
-    for it), and the bound."""
+def flash_at(rng, B, H, KH, T, D, window, Dv=None, causal=True):
+    """The kernel at one serving path's prefill shape (bf16, causal unless
+    ``causal=False``; v's head dim ``Dv``, D by default): its route and
+    tiles, error against the plain version, times of the kernel, the plain
+    version and SDPA (causal, with no mask, or with the window as a boolean
+    mask; with the backend PyTorch chose for it), and the bound."""
     dtype = torch.bfloat16
     Dv = D if Dv is None else Dv
     q = rand(rng, (B, H, T, D), dtype)
     k, v = rand(rng, (B, KH, T, D), dtype), rand(rng, (B, KH, T, Dv), dtype)
-    out = flash_attention(q, k, v, causal=True, window=window, impl="kernel")
+    kw = dict(causal=causal, window=window)
+    out = flash_attention(q, k, v, impl="kernel", **kw)
     torch.cuda.synchronize()
-    ref = attention_ref(q, k, v, causal=True, window=window)
-    err = close_or_fail(out, ref, TOL[dtype], f"flash served shape D={D}"
-                        f" Dv={Dv}")
+    ref = attention_ref(q, k, v, **kw)
+    err = close_or_fail(out, ref, TOL[dtype], f"flash served shape H={H}"
+                        f" KH={KH} D={D} Dv={Dv} causal={causal}")
     del out, ref
 
     def run():
-        return flash_attention(q, k, v, causal=True, window=window,
-                               impl="kernel")
+        return flash_attention(q, k, v, impl="kernel", **kw)
 
     pos = torch.arange(T, device=DEV)
-    mask = pos[None, :] <= pos[:, None]
+    mask = (pos[None, :] <= pos[:, None]) if causal else torch.ones(
+        T, T, dtype=torch.bool, device=DEV)
     if window is not None:
         mask &= pos[None, :] > pos[:, None] - window
     kernel_ms, call_ms = time_ms(run), time_ms(run, spin=False)
-    plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True,
-                                             window=window))
+    plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_kw = (dict(is_causal=True) if window is None
+    sdpa_kw = (dict(is_causal=causal) if window is None
                else dict(attn_mask=mask))
     library_ms = time_ms(lambda: sdpa(q, k, v, enable_gqa=True, **sdpa_kw))
     library_backend = SDPBackend(torch._fused_sdp_choice(
@@ -657,7 +693,8 @@ def flash_at(rng, B, H, KH, T, D, window, Dv=None):
     bound_ms, bound_by = bound(nbytes, 2 * (D + Dv) * pairs, dtype)
     route = kernel_route(dtype, D, Dv)
     return dict(shape=f"B={B} H={H} KH={KH} T={T} D={D}"
-                      + (f" Dv={Dv}" if Dv != D else "") + " bf16 causal"
+                      + (f" Dv={Dv}" if Dv != D else "")
+                      + (" bf16 causal" if causal else " bf16 non-causal")
                       + (f" window={window}" if window else ""),
                 kernel_route=route,
                 tiles=wgmma_tiles(D, Dv) if route == "wgmma" else None,
@@ -915,6 +952,120 @@ def check_mla_small(cfg, rng, T=130):
                 absorbed_tolerance=1e-4)
 
 
+def check_flash_families(rng):
+    """Flash at the served geometries of the enc-dec and VLM families:
+    seamless-m4t-large-v2's encoder (B=4, H=KH=16, T=1024, D=64, bf16,
+    non-causal: every key tile live for every q tile) and qwen2-vl-72b's
+    prefill (B=4, 64 query heads over 8 kv heads of 128, T=512, bf16,
+    causal), each on the wgmma route against the plain version (2e-2) and
+    timed beside its bound, the plain version and SDPA; and an fp32 case of
+    the same heads (B=1, T=300, off the tiles; the scalar route) at 3e-5.
+    Returns ({path: timed shape}, {case: max abs err})."""
+    worst = {}
+    heads = {"seamless-m4t-large-v2 encoder": (16, 16, 64, False, 1024),
+             "qwen2-vl-72b": (64, 8, 128, True, 512)}
+    for name, (H, KH, D, causal, _) in heads.items():
+        dtype = torch.float32
+        q = rand(rng, (1, H, 300, D), dtype)
+        k, v = rand(rng, (1, KH, 300, D), dtype), rand(rng, (1, KH, 300, D),
+                                                       dtype)
+        before = flash_attention.launches_by_route["scalar"]
+        out = flash_attention(q, k, v, causal=causal, impl="kernel")
+        torch.cuda.synchronize()
+        if flash_attention.launches_by_route["scalar"] != before + 1:
+            _fail(f"flash {name} fp32: not on the scalar route")
+        worst[f"scalar float32 {name}"] = close_or_fail(
+            out, attention_ref(q, k, v, causal=causal), TOL[dtype],
+            f"flash {name} fp32")
+    paths = {}
+    for name, (H, KH, D, causal, T) in heads.items():
+        paths[name] = flash_at(rng, 4, H, KH, T, D, None, causal=causal)
+        if paths[name]["kernel_route"] != "wgmma":
+            _fail(f"flash {name}: route {paths[name]['kernel_route']}")
+        worst[f"wgmma bfloat16 {name}"] = paths[name]["max_abs_err"]
+    return paths, worst
+
+
+def grid_positions(B, n_text, grid, n_tail):
+    """M-RoPE positions [B, 3, T] of a prompt that holds one image: n_text
+    text tokens (t = h = w = 0..n_text-1), a gh x gw patch grid (t =
+    n_text, h = n_text + row, w = n_text + column) and n_tail text tokens
+    that go on from the grid's largest coordinate + 1."""
+    gh, gw = grid
+    text = torch.arange(n_text).expand(3, n_text)
+    rows, cols = torch.meshgrid(torch.arange(gh), torch.arange(gw),
+                                indexing="ij")
+    patches = torch.stack([torch.full((gh * gw,), n_text),
+                           n_text + rows.reshape(-1),
+                           n_text + cols.reshape(-1)])
+    start = n_text + max(gh, gw)
+    tail = torch.arange(start, start + n_tail).expand(3, n_tail)
+    pos = torch.cat([text, patches, tail], dim=1)
+    return pos.expand(B, 3, pos.shape[1]).contiguous().to(DEV)
+
+
+def check_encdec_small(cfg, rng, tol=1e-4, S=300, T=130):
+    """One full-width encoder layer and one decoder layer (self, cross,
+    FFN) of ``cfg`` in fp32: the kernel path (flash's scalar route,
+    non-causal in the encoder, causal in the forward's decoder) against the
+    plain path (``attn_impl="xla"``): the encoder memory over S frames, the
+    forward's logits over T tokens, then on each path's own memory the
+    cache, the prompt through one ``decode_step`` and one cached step."""
+    small = cfg.with_(n_layers=1, n_encoder_layers=1,
+                      compute_dtype="float32", kv_cache_dtype="float32")
+    models = {"kernel": build_model(small),
+              "plain": build_model(small, attn_impl="xla")}
+    params = models["kernel"].init(torch.Generator("cuda").manual_seed(1))
+    src = rand(rng, (2, S, small.d_model), torch.float32)
+    toks = torch.from_numpy(rng.integers(0, small.vocab, (2, T + 1)))
+    what = f"{cfg.name} 1+1-layer"
+    out = {}
+    for name, m in models.items():
+        mem = m.encode(params, src)
+        logits, _ = m.forward(params, {"src_embeds": src,
+                                       "tokens": toks[:, :T]})
+        cache = m.decode_cache_init(2, T + 8, memory=mem, params=params)
+        prompt, cache = m.decode_step(params, {"tokens": toks[:, :T]},
+                                      cache, 0)
+        step, _ = m.decode_step(params, {"tokens": toks[:, T:]}, cache, T)
+        torch.cuda.synchronize()
+        out[name] = dict(encode=mem, forward=logits, prompt=prompt,
+                         step=step)
+        del cache
+    return max(close_or_fail(out["kernel"][key], out["plain"][key], tol,
+                             f"{what} {key} kernel vs plain")
+               for key in ("encode", "forward", "prompt", "step"))
+
+
+def check_vlm_small(cfg, rng, tol=1e-4, T=130):
+    """One full-width qwen2-vl-72b layer in fp32 from embeddings at M-RoPE
+    positions whose t, h and w differ (34 text tokens, an 8 x 8 patch grid,
+    32 text tokens after it): the kernel path (flash's scalar route) against
+    the plain path in prefill, and a decode step with its positions in the
+    batch."""
+    small = cfg.with_(n_layers=1, compute_dtype="float32",
+                      kv_cache_dtype="float32")
+    kern, plain = build_model(small), build_model(small, attn_impl="xla")
+    params = kern.init(torch.Generator("cuda").manual_seed(1))
+    pos = grid_positions(2, 34, (8, 8), T - 34 - 64)
+    batch = {"embeds": rand(rng, (2, T, small.d_model), torch.float32),
+             "positions": pos}
+    lk, ck = kern.prefill(params, batch, max_len=T + 8)
+    lp, cp = plain.prefill(params, batch, max_len=T + 8)
+    torch.cuda.synchronize()
+    what = f"{cfg.name} 1-layer"
+    err = close_or_fail(lk, lp, tol, f"{what} prefill kernel vs plain")
+    nxt = {"tokens": lp[:, -1:].argmax(dim=-1),
+           "positions": (pos.amax(dim=(1, 2)) + 1)[:, None, None].expand(
+               2, 3, 1)}
+    del lk, lp
+    dk, _ = kern.decode_step(params, nxt, ck, T)
+    dp, _ = plain.decode_step(params, nxt, cp, T)
+    torch.cuda.synchronize()
+    return max(err, close_or_fail(dk, dp, tol,
+                                  f"{what} decode kernel vs plain"))
+
+
 def paged_inputs(rng, B, H, KH, D, P, page, lengths, dtype):
     q = rand(rng, (B, H, D), dtype)
     kv = rand(rng, (P, page, 2, KH, D), dtype)
@@ -1017,6 +1168,34 @@ def seq_rel_err(out, ref):
     """The largest relative (Frobenius) error of one sequence's output."""
     out, ref = out.float().flatten(1), ref.float().flatten(1)
     return float(((out - ref).norm(dim=1) / ref.norm(dim=1)).max())
+
+
+# full-depth bf16 logits: per sequence, the kernel path's relative error to
+# the plain path may pass that of a second plain path (no kernel) by this
+DRIFT_TOL = 2e-2
+
+
+def drift_check(out, ref, plain_out, what):
+    """Logits of a full-depth bf16 model on the kernel path (``out``)
+    against the plain path (``ref``). Elementwise 2e-2 is one call's
+    tolerance: over 24-48 bf16 layers two plain paths with no kernel already
+    differ by 1.4-1.9% relative and 0.09 absolute (``plain_rel_err``,
+    ``plain_max_abs_err``). So per sequence, the relative (Frobenius)
+    error of ``out`` may pass that of ``plain_out``, a second plain path,
+    by at most DRIFT_TOL. Returns both errors, the largest absolute error
+    and the share of positions with the same argmax."""
+    err, floor = seq_rel_err(out, ref), seq_rel_err(plain_out, ref)
+    if not torch.isfinite(out).all():
+        _fail(f"{what}: non-finite logits")
+    if err > floor + DRIFT_TOL:
+        _fail(f"{what}: relative error {err} over the plain paths' {floor}"
+              f" + {DRIFT_TOL}")
+    return dict(rel_err=err, plain_rel_err=floor, rel_tolerance=DRIFT_TOL,
+                max_abs_err=float((out.float() - ref.float()).abs().max()),
+                plain_max_abs_err=float(
+                    (plain_out.float() - ref.float()).abs().max()),
+                argmax_agree=float((out.argmax(-1) == ref.argmax(-1))
+                                   .float().mean()))
 
 
 def paged_shape(q, kv, bt, ln):
@@ -1957,32 +2136,16 @@ OUR_KERNELS = re.compile(r"\(anonymous namespace\)::(%s)\b" % "|".join(sorted(
         (_build.CSRC / f"{src}.cu").read_text())})))
 
 
-def profile_steps(loop, prompts):
-    """Where a warm prefill (the served batch: 4 x 512 tokens) and one warm
-    decode step spend their time: host wall ms without and with
-    torch.profiler, device busy ms (sum of kernel times in the profiled run),
-    the device's idle share of the profiled wall time, the top kernels and
-    the port's own kernels. Runs after the launch counts are read. Returns
-    the prefill's first tokens."""
+def profile_fns(arch, fns):
+    """Where each warm call of ``fns`` ({name: fn}) spends its time: host
+    wall ms without and with torch.profiler, device busy ms (sum of kernel
+    times in the profiled run), the device's idle share of the profiled
+    wall time, the top kernels and the port's own kernels. Each fn runs
+    once cold first and returns a boolean tensor that must hold (finite
+    logits). Logs a ``profile`` line."""
     from torch.profiler import ProfilerActivity, profile
-    model, params = loop.model, loop.params_c
-    toks = torch.from_numpy(np.stack(prompts[:4]))
-    state = {}
-
-    def prefill():
-        logits, state["cache"] = model.prefill(params, {"tokens": toks},
-                                               max_len=loop.max_len)
-        state["last"] = logits[:, -1].argmax(dim=-1)[:, None]
-        state["finite"] = torch.isfinite(logits[:, -1]).all()
-
-    def decode():
-        logits, _ = model.decode_step(params, {"tokens": state["last"]},
-                                      state["cache"], toks.shape[1])
-        logits[:, 0].argmax(dim=-1)
-        state["finite"] = torch.isfinite(logits).all()
-
     report = {}
-    for name, fn in (("prefill", prefill), ("decode_step", decode)):
+    for name, fn in fns.items():
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1992,7 +2155,7 @@ def profile_steps(loop, prompts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            fn()
+            ok = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = [e for e in prof.key_averages()
@@ -2008,9 +2171,33 @@ def profile_steps(loop, prompts):
                  for e in top],
             ours=[[OUR_KERNELS.search(e.key).group(1),
                    e.self_device_time_total / 1e3, e.count] for e in ours])
-        if not bool(state["finite"]):
-            _fail(f"{loop.cfg.name} {name}: non-finite logits")
-    log("profile", loop.cfg.name, json.dumps(report))
+        if not bool(ok):
+            _fail(f"{arch} {name}: non-finite logits")
+    log("profile", arch, json.dumps(report))
+    return report
+
+
+def profile_steps(loop, prompts):
+    """Where a warm prefill (the served batch: 4 x 512 tokens) and one warm
+    decode step spend their time (``profile_fns``). Runs after the launch
+    counts are read. Returns the prefill's first tokens."""
+    model, params = loop.model, loop.params_c
+    toks = torch.from_numpy(np.stack(prompts[:4]))
+    state = {}
+
+    def prefill():
+        logits, state["cache"] = model.prefill(params, {"tokens": toks},
+                                               max_len=loop.max_len)
+        state["last"] = logits[:, -1].argmax(dim=-1)[:, None]
+        return torch.isfinite(logits[:, -1]).all()
+
+    def decode():
+        logits, _ = model.decode_step(params, {"tokens": state["last"]},
+                                      state["cache"], toks.shape[1])
+        logits[:, 0].argmax(dim=-1)
+        return torch.isfinite(logits).all()
+
+    profile_fns(loop.cfg.name, {"prefill": prefill, "decode_step": decode})
     return state["last"][:, 0].cpu()
 
 
@@ -2509,6 +2696,158 @@ def train_run(cfg):
         peak_device_gb=peak / 1e9)
 
 
+# -- phase 18: seamless-m4t-large-v2 through its own entry points -----------------
+SEAMLESS_FRAMES = 1024       # source frames a request (the stubbed frontend)
+SEAMLESS_PROMPT = 128        # decoder prompt tokens (the reference's dry run)
+NEW_TOKENS = 32
+
+
+def serve_encdec(cfg, params, n_requests=8, batch=4):
+    """Serve ``n_requests`` requests in static batches of ``batch`` through
+    ``EncDecLM``'s entry points, as the reference's dry run lowers them:
+    ``encode`` the frames, ``decode_cache_init(memory=...)``, the prompt as
+    one ``decode_step`` at pos 0, then NEW_TOKENS greedy one-token steps.
+    Then one teacher-forced ``forward`` over the first batch (its prompt and
+    the first NEW_TOKENS - 1 generated tokens), whose logits at the prompt's
+    positions are held to the cached path's (``drift_check``, the second
+    plain path the forward with ``attn_impl="xla"``). Returns the report and
+    a closure that profiles a warm encode and decode step."""
+    model = build_model(cfg)
+    max_len = SEAMLESS_PROMPT + NEW_TOKENS
+    gen = torch.Generator("cuda").manual_seed(70)
+    # frames drawn in bulk on the card; prompts from the seed
+    frames = torch.randn((n_requests, SEAMLESS_FRAMES, cfg.d_model),
+                         generator=gen, device=DEV, dtype=torch.bfloat16)
+    prompts = torch.from_numpy(np.random.default_rng(700).integers(
+        0, cfg.vocab, (n_requests, SEAMLESS_PROMPT))).to(DEV)
+    encode_ms, decode_s, tokens, first = [], 0.0, [], None
+    for b in range(0, n_requests, batch):
+        src, toks = frames[b:b + batch], prompts[b:b + batch]
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        memory = model.encode(params, src)
+        end.record()
+        cache = model.decode_cache_init(batch, max_len, memory=memory,
+                                        params=params)
+        logits, cache = model.decode_step(params, {"tokens": toks}, cache, 0)
+        last = logits[:, -1].argmax(dim=-1)
+        if first is None:                 # the first batch's prompt logits
+            first = logits
+        del logits, memory
+        torch.cuda.synchronize()
+        encode_ms.append(start.elapsed_time(end))
+        out = []
+        t0 = time.perf_counter()
+        for step in range(NEW_TOKENS):
+            logits, cache = model.decode_step(
+                params, {"tokens": last[:, None]}, cache,
+                SEAMLESS_PROMPT + step)
+            last = logits[:, 0].argmax(dim=-1)
+            out.append(last.cpu())                       # syncs, as serving
+        decode_s += time.perf_counter() - t0
+        if not torch.isfinite(logits).all():
+            _fail(f"{cfg.name}: non-finite decode logits")
+        out = torch.stack(out, dim=1)
+        if out.shape != (batch, NEW_TOKENS) or not (
+                (out >= 0) & (out < cfg.vocab)).all():
+            _fail(f"{cfg.name}: tokens {out.shape} {out[:, :4]}")
+        tokens.append(out)
+        del cache
+    teacher = torch.cat([prompts[:batch], tokens[0][:, :-1].to(DEV)], dim=1)
+    logits, _ = model.forward(params, {"src_embeds": frames[:batch],
+                                       "tokens": teacher})
+    plain, _ = build_model(cfg, attn_impl="xla").forward(
+        params, {"src_embeds": frames[:batch], "tokens": prompts[:batch]})
+    torch.cuda.synchronize()
+    forward = drift_check(logits[:, :SEAMLESS_PROMPT], first, plain,
+                          f"{cfg.name} forward vs the cached prompt")
+    del logits, first, plain
+    steps = n_requests // batch * NEW_TOKENS
+    report = dict(
+        requests=n_requests, frames=SEAMLESS_FRAMES,
+        prompt=SEAMLESS_PROMPT, new_tokens=NEW_TOKENS,
+        encode_ms_per_batch=encode_ms,
+        decode_step_ms=decode_s / steps * 1e3,
+        decode_tok_per_s=n_requests * NEW_TOKENS / decode_s,
+        forward_vs_cached=forward)
+
+    def profile():
+        """A warm encode and a warm decode step (``profile_fns``), over the
+        first batch; run after the launch counts are read."""
+        src, toks = frames[:batch], prompts[:batch]
+        cache = model.decode_cache_init(batch, max_len, memory=model.encode(
+            params, src), params=params)
+        model.decode_step(params, {"tokens": toks}, cache, 0)
+
+        def encode():
+            return torch.isfinite(model.encode(params, src)).all()
+
+        def step():
+            logits, _ = model.decode_step(params, {"tokens": toks[:, -1:]},
+                                          cache, SEAMLESS_PROMPT)
+            logits[:, 0].argmax(dim=-1)
+            return torch.isfinite(logits).all()
+
+        return profile_fns(cfg.name, {"encode": encode, "decode_step": step})
+
+    return report, profile
+
+
+# -- phase 19: qwen2-vl-72b from embeddings at image-grid positions ----------------
+def vlm_embeds(loop, n_steps=8):
+    """One ``LM.prefill`` of 4 x 512 embeddings (the stubbed vision
+    frontend's output, drawn on the card) at M-RoPE positions of one image
+    a prompt (64 text tokens, a 16 x 16 patch grid, 192 text tokens), its
+    last logits held to the same prefill on the plain path (``drift_check``,
+    the second plain path the naive attention), then ``n_steps`` greedy
+    decode steps with their positions in the batch."""
+    cfg, model, params = loop.cfg, loop.model, loop.params_c
+    B, T = 4, 512
+    pos = grid_positions(B, 64, (16, 16), 192)
+    embeds = torch.randn((B, T, cfg.d_model), device=DEV,
+                         generator=torch.Generator("cuda").manual_seed(90),
+                         dtype=torch.bfloat16)
+    batch = {"embeds": embeds, "positions": pos}
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, max_len=T + n_steps)
+    first = logits[:, -1].clone()
+    del logits
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    plain = {}
+    for impl in ("xla", "naive"):
+        logits, _ = build_model(cfg, attn_impl=impl).prefill(
+            params, batch, max_len=T + n_steps)
+        plain[impl] = logits[:, -1].clone()
+        del logits
+    check = drift_check(first, plain["xla"], plain["naive"],
+                        f"{cfg.name} embeds prefill kernel vs plain")
+    del plain
+    last = first.argmax(dim=-1)
+    nxt = pos.amax(dim=(1, 2)) + 1
+    t0 = time.perf_counter()
+    for step in range(n_steps):
+        p = (nxt + step)[:, None, None].expand(B, 3, 1)
+        logits, cache = model.decode_step(
+            params, {"tokens": last[:, None], "positions": p}, cache,
+            T + step)
+        last = logits[:, 0].argmax(dim=-1)
+        last.cpu()
+    decode_s = time.perf_counter() - t0
+    if not torch.isfinite(logits).all():
+        _fail(f"{cfg.name}: non-finite decode logits after embeds")
+    return dict(prefill_ms=prefill_s * 1e3,
+                decode_step_ms=decode_s / n_steps * 1e3,
+                first_logits=check,
+                positions="64 text, 16 x 16 patch grid, 192 text")
+
+
+def free_cache():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -2552,6 +2891,12 @@ def main():
         entry["served"].update(ds_entries[name])
         entry["cases_max_abs_err"].update(ds_worst[name])
     log("shuffle_work", json.dumps(ds_work))
+    # the enc-dec and VLM families' flash geometries (their own generator)
+    fam_paths, fam_worst = check_flash_families(np.random.default_rng(25))
+    kernels[0]["paths"].update(fam_paths)
+    kernels[0]["cases_max_abs_err"].update(fam_worst)
+    log("flash_families", json.dumps(dict(paths=fam_paths,
+                                          max_abs_err=fam_worst)))
     lap("kernels")
     flash_build = flash_build_facts()
     log("flash_build", json.dumps(flash_build))
@@ -2585,9 +2930,18 @@ def main():
     dcfg = get_config("deepseek-v2-lite-16b")
     log("model_small", dcfg.name, json.dumps(check_mla_small(
         dcfg, np.random.default_rng(24))))
+    # seamless-m4t-large-v2: one encoder and one decoder layer; qwen2-vl-72b:
+    # one layer at image-grid positions (each its own generator)
+    scfg = get_config("seamless-m4t-large-v2")
+    vcfg = get_config("qwen2-vl-72b").with_(n_layers=24)
+    for c, check, seed in ((scfg, check_encdec_small, 26),
+                           (vcfg, check_vlm_small, 27)):
+        log("model_small", c.name, json.dumps(dict(
+            max_abs_err=check(c, np.random.default_rng(seed)),
+            tolerance=1e-4)))
+        free_cache()
     lap("model_small")
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cache()
     counted = (flash_attention, paged_attention, gla_scan, diag_scan,
                dispatch, combine)
 
@@ -2599,9 +2953,21 @@ def main():
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
     def free():
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_cache()
         torch.cuda.reset_peak_memory_stats()
+
+    def check_path(path, want):
+        """Exactly ``want`` ({counted wrapper: launches}) on the path, every
+        flash launch on the wgmma route, and no other kernel."""
+        for fn in counted:
+            if fn.launches != want.get(fn, 0):
+                _fail(f"{fn.__name__}: {fn.launches} launches on the {path}"
+                      f" path, not {want.get(fn, 0)}")
+        if flash_attention.launches_by_route["wgmma"] != \
+                flash_attention.launches:
+            _fail(f"flash_attention launches by route "
+                  f"{flash_attention.launches_by_route} on the {path} path: "
+                  f"not all on wgmma")
 
     prompts = [np.random.default_rng(100 + i).integers(0, cfg.vocab, 512,
                                                        dtype=np.int32)
@@ -2698,13 +3064,7 @@ def main():
     tier_report, tier, tier_cluster = tier_inproc(cfg, want)
     tier_report["proc"] = tier_proc(want)
     path = f"{cfg.name}/ServingTier"
-    if paged_attention.launches != want["paged"]:
-        _fail(f"paged_attention: {paged_attention.launches} launches on the "
-              f"{path} path, not {want['paged']}")
-    others = {fn.__name__: fn.launches for fn in counted
-              if fn is not paged_attention and fn.launches}
-    if others:
-        _fail(f"{path}: other kernels launched: {others}")
+    check_path(path, {paged_attention: want["paged"]})
     launches["paged_attention"][path] = paged_attention.launches
     tier_shape = tier_timed(tier)
     tier.close()
@@ -2718,15 +3078,7 @@ def main():
     zero_counts()
     durable = durable_tier(cfg, qparams, prompts, qfirst, qmax_len)
     path = f"{cfg.name}/durable"
-    if (flash_attention.launches != cfg.n_layers
-            or flash_attention.launches_by_route["wgmma"] != cfg.n_layers):
-        _fail(f"flash_attention: {flash_attention.launches} launches "
-              f"({flash_attention.launches_by_route}) on the {path} path, "
-              f"not {cfg.n_layers} on wgmma")
-    others = {fn.__name__: fn.launches for fn in counted
-              if fn is not flash_attention and fn.launches}
-    if others:
-        _fail(f"{path}: other kernels launched: {others}")
+    check_path(path, {flash_attention: cfg.n_layers})
     launches["flash_attention"][path] = flash_attention.launches
     flash_routes[path] = dict(flash_attention.launches_by_route)
     del qparams
@@ -2790,11 +3142,8 @@ def main():
                   routes={dispatch: {"walk": dcfg.n_layers,
                                      "direct": dcfg.n_layers * 32},
                           flash_attention: {"wgmma": dcfg.n_layers}})
-    others = {fn.__name__: fn.launches for fn in counted
-              if fn not in (flash_attention, dispatch, combine)
-              and fn.launches}
-    if others:
-        _fail(f"{dcfg.name}: other kernels launched: {others}")
+    check_path(dcfg.name, {flash_attention: 2 * dcfg.n_layers,
+                           dispatch: 2 * per_batch, combine: 2 * per_batch})
     for name, fn in (("flash_attention", flash_attention),
                      ("dispatch", dispatch), ("combine", combine)):
         launches[name][dcfg.name] = fn.launches
@@ -2809,6 +3158,56 @@ def main():
     log("deepseek", json.dumps(dict(
         arch=dcfg.name, params=n_params, peak_device_gb=peak_gb,
         seconds=phase_s[dcfg.name], card=smi)))
+
+    # seamless-m4t-large-v2 at full width and depth (24 + 24 layers, 2.04 B
+    # params drawn in bf16): its encoder on flash non-causal at D = 64, its
+    # decoder's forward on flash causal; cross-attention and the cached
+    # decode plain, as the reference runs them
+    sparams = build_model(scfg).init(torch.Generator("cuda").manual_seed(7),
+                                     dtype=torch.bfloat16)
+    n_params = sum(t.numel() for t in leaves_of(sparams))
+    zero_counts()
+    seamless, seamless_profile = serve_encdec(scfg, sparams)
+    want = 2 * scfg.n_encoder_layers + scfg.n_encoder_layers + scfg.n_layers
+    check_path(scfg.name, {flash_attention: want})
+    launches["flash_attention"][scfg.name] = flash_attention.launches
+    flash_routes[scfg.name] = dict(flash_attention.launches_by_route)
+    seamless["profile"] = seamless_profile()
+    del sparams, seamless_profile
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    free()
+    lap(scfg.name)
+    log("seamless", json.dumps(dict(
+        arch=scfg.name, params=n_params, peak_device_gb=peak_gb,
+        seconds=phase_s[scfg.name], card=smi, **seamless)))
+
+    # qwen2-vl-72b at full width and 24 of its 80 layers (23.6 B params
+    # drawn in bf16; 80 layers are ~140 GB): ServeLoop from token prompts,
+    # then a prefill from embeddings at image-grid positions
+    vparams = build_model(vcfg).init(torch.Generator("cuda").manual_seed(8),
+                                     dtype=torch.bfloat16)
+    n_params = sum(t.numel() for t in leaves_of(vparams))
+    vprompts = [np.random.default_rng(800 + i).integers(0, vcfg.vocab, 512,
+                                                        dtype=np.int32)
+                for i in range(8)]
+    zero_counts()
+    vloop = serve(vcfg, vprompts, {flash_attention: vcfg.n_layers},
+                  params=vparams,
+                  routes={flash_attention: {"wgmma": vcfg.n_layers}})
+    del vparams
+    embeds = vlm_embeds(vloop)
+    check_path(vcfg.name, {flash_attention: 3 * vcfg.n_layers})
+    launches["flash_attention"][vcfg.name] = flash_attention.launches
+    flash_routes[vcfg.name] = dict(flash_attention.launches_by_route)
+    profile_steps(vloop, vprompts)
+    del vloop
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    free()
+    lap(vcfg.name)
+    log("qwen2vl", json.dumps(dict(
+        arch=vcfg.name, layers=vcfg.n_layers, params=n_params,
+        peak_device_gb=peak_gb, seconds=phase_s[vcfg.name], card=smi,
+        embeds=embeds)))
     next(k for k in kernels if k["name"] == "flash_attention").update(
         launches_by_route=flash_routes, build=flash_build)
     for name, lib in (("gla_scan", "linear_scan"), ("diag_scan", "diag_scan")):

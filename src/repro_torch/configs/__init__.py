@@ -3,8 +3,7 @@ smoke configs for CPU tests.
 
 The schema and the config files are copies of the JAX package's, so the
 port imports nothing of it. ``ARCH_IDS`` lists every architecture the repo
-knows; ``get_config`` raises ``NotImplementedError`` for the ones the port
-does not run yet.
+knows, and the port runs all of them.
 """
 from __future__ import annotations
 
@@ -26,13 +25,9 @@ ARCH_IDS = [
     "qwen2-vl-72b",
 ]
 
-# what the port's LM runs today: dense GQA decoders with RoPE (RMSNorm, or
-# OLMo's non-parametric LayerNorm), the attention-free RWKV6 (family
-# "ssm"), RG-LRU with local attention (family "hybrid") and MoE over GQA
-# attention or MLA (family "moe")
-PORTED_ARCH_IDS = ("glm4-9b", "qwen3-0.6b", "olmo-1b", "minitron-8b",
-                   "rwkv6-3b", "recurrentgemma-9b", "grok-1-314b",
-                   "deepseek-v2-lite-16b")
+# what the port runs: every arch of the repo (dense, moe over GQA or MLA,
+# ssm, hybrid, encdec through ``EncDecLM`` and vlm with M-RoPE)
+PORTED_ARCH_IDS = tuple(ARCH_IDS)
 
 
 def _module_name(arch_id: str) -> str:
@@ -42,10 +37,6 @@ def _module_name(arch_id: str) -> str:
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch id {arch_id!r}")
-    if arch_id not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported to repro_torch yet "
-            f"(ported: {', '.join(PORTED_ARCH_IDS)})")
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG
@@ -72,6 +63,8 @@ def smoke_config(arch_id: str) -> ArchConfig:
         kw.update(kv_lora=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
     if cfg.family == "ssm":
         kw.update(rwkv_head_dim=16)
+    if cfg.n_encoder_layers:
+        kw.update(n_encoder_layers=2)
     if cfg.window:
         kw.update(window=16)
     kw["page_size"] = 8

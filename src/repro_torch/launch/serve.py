@@ -18,18 +18,25 @@ over MoE in every layer) does the same, its prefill attention over the
 per-head K/V expanded from MLA's latent (the flash kernel at q and k heads
 of 192 and v heads of 128), its decode over the expanded per-head cache
 (``LM(mla_absorbed=False)``, the reference's default); the pool keeps the
-config's geometry (16 kv heads of 128), bookkeeping as the reference's. For
-rwkv6-3b the pool keeps the
+config's geometry (16 kv heads of 128), bookkeeping as the reference's.
+qwen2-vl-72b is served from token prompts, as the reference serves it: its
+M-RoPE takes the same position on t, h and w (``LM._positions``), and its
+prefill attention (64 query heads over 8 kv heads) runs through the flash
+kernel. The encoder-decoder (seamless-m4t-large-v2) has no ``prefill``, in
+the reference as here: it is served through its own ``encode``,
+``decode_cache_init(memory=...)`` and ``decode_step``. For rwkv6-3b the
+pool keeps the
 reference's geometry (one "kv head" of d_model wide), and for
 recurrentgemma-9b its 38 layers of one kv head of 256; either way it is
 bookkeeping only, as in the JAX package: it holds no recurrent state.
 
 Run: ``python -m repro_torch.launch.serve --arch qwen3-0.6b``, ``--arch
-rwkv6-3b``, ``--arch recurrentgemma-9b``, ``--arch grok-1-314b`` or
-``--arch deepseek-v2-lite-16b`` (on the card; ``--device cpu --smoke`` for
-a small CPU run). Full grok-1-314b (64
-layers, 316.5 B parameters) does not fit one card; ``chip_smoke.py`` serves
-it at full width and 4 layers.
+rwkv6-3b``, ``--arch recurrentgemma-9b``, ``--arch grok-1-314b``, ``--arch
+deepseek-v2-lite-16b`` or ``--arch qwen2-vl-72b`` (on the card; ``--device
+cpu --smoke`` for a small CPU run). Full grok-1-314b (64 layers, 316.5 B
+parameters) and full qwen2-vl-72b (80 layers, ~140 GB in bf16) do not fit
+one card; ``chip_smoke.py`` serves them at full width and 4 and 24
+layers.
 """
 from __future__ import annotations
 
@@ -69,6 +76,10 @@ class ServeLoop:
     def __init__(self, cfg: ArchConfig, *, batch_slots: int = 4,
                  max_len: int = 256, hbm_pages: Optional[int] = None,
                  seed: int = 0, params=None, device: DeviceLike = "cuda"):
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"{cfg.name}: the encoder-decoder has no prefill; serve it "
+                f"through EncDecLM.encode, decode_cache_init and decode_step")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg, device=self.device)

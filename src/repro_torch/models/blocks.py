@@ -1,6 +1,7 @@
-"""Per-layer blocks: GQA attention (with qwen3's qk_norm and local
-attention over a sliding window), deepseek-v2's MLA (low-rank compressed
-KV), the SwiGLU / GeGLU FFN, the MoE block
+"""Per-layer blocks: GQA attention (with qwen3's qk_norm, RoPE or
+Qwen2-VL's M-RoPE, local attention over a sliding window, and enc-dec
+cross-attention over precomputed K/V), deepseek-v2's MLA (low-rank
+compressed KV), the SwiGLU / GeGLU FFN, the MoE block
 (top-k routing, per-row capacity, shared experts), RWKV6's time mix (wkv)
 and channel mix, and recurrentgemma's RG-LRU block.
 
@@ -27,9 +28,9 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
 from ..kernels.linear_scan.ops import diag_scan, gla_scan
 from ..kernels.shuffle_dispatch.ops import combine, compute_slots, dispatch
-from .common import (_const, apply_rope, dense_init, einsum, gelu,
-                     layer_norm, normal, param_dtype, rms_norm, sigmoid,
-                     silu, softplus)
+from .common import (_const, apply_mrope, apply_rope, dense_init, einsum,
+                     gelu, layer_norm, normal, param_dtype, rms_norm,
+                     sigmoid, silu, softplus)
 
 
 def _ones(gen: torch.Generator, shape, dtype=None) -> torch.Tensor:
@@ -67,7 +68,7 @@ def apply_norm(cfg: ArchConfig, w, x):
 
 
 # ---------------------------------------------------------------------------
-# GQA attention (dense / qwen3 qk_norm)
+# GQA attention (dense / qwen3 qk_norm / mrope / cross-attention)
 # ---------------------------------------------------------------------------
 def attn_init(gen: torch.Generator, cfg: ArchConfig,
               lead: Tuple[int, ...] = (), dtype=None) -> Dict:
@@ -87,27 +88,43 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig,
     return p
 
 
-def _rope_qk(cfg: ArchConfig, q, k, positions):
+def _rope(cfg: ArchConfig, x, positions):
+    """RoPE (positions [..., T]) or M-RoPE (positions [B, 3, T]) of x [B, T,
+    H, hd] as ``cfg.rope`` says; x as it is for "none"."""
     if cfg.rope == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope != "none":
-        raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet")
-    return q, k
+        return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return apply_mrope(x, positions, theta=cfg.rope_theta)
+    if cfg.rope != "none":
+        raise ValueError(f"unknown rope {cfg.rope!r}")
+    return x
+
+
+def _rope_qk(cfg: ArchConfig, q, k, positions):
+    return _rope(cfg, q, positions), _rope(cfg, k, positions)
 
 
 def attn_apply(p, x, *, cfg: ArchConfig, positions, causal: bool = True,
                cache: Optional[Dict] = None, pos: Optional[int] = None,
-               attn_impl: str = "kernel"):
+               attn_impl: str = "kernel",
+               kv_memory: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """x: [B, T, d]. Full mode when cache is None; decode otherwise.
 
     In decode mode the new k/v are written into ``cache`` in place (the
     reference returns an updated copy); the returned cache is the same
-    dict."""
+    dict. ``kv_memory``: precomputed head-major (k, v) [B, KH, S, hd] for
+    cross-attention (enc-dec): no k/v projection, no rope, no mask, and
+    the plain ``attention_ref``, as the reference runs it."""
     h = apply_norm(cfg, p.get("norm"), x)
     q = torch.einsum("btd,dhk->bthk", h, p["wq"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
+    if kv_memory is not None:
+        qh = q.transpose(1, 2)
+        kh, vh = kv_memory
+        o = attention_ref(qh, kh.to(qh.dtype), vh.to(qh.dtype), causal=False)
+        y = torch.einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"])
+        return x + y, None
     k = torch.einsum("btd,dhk->bthk", h, p["wk"])
     v = torch.einsum("btd,dhk->bthk", h, p["wv"])
     if cfg.qk_norm:
@@ -178,10 +195,7 @@ def attn_prefill_kv(p, x, *, cfg: ArchConfig, positions):
     v = torch.einsum("btd,dhk->bthk", h, p["wv"])
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"])
-    if cfg.rope == "rope":
-        k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope != "none":
-        raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet")
+    k = _rope(cfg, k, positions)
     return k.transpose(1, 2), v.transpose(1, 2)
 
 

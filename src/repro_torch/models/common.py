@@ -134,6 +134,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: Optional[Tuple[int, int, int]] = None,
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL M-RoPE. x: [..., T, H, D]; positions: [..., 3, T] (t, h, w).
+    The D/2 rotary frequencies are split into three sections, by default
+    (D/2 - 2 floor(D/6), floor(D/6), floor(D/6)), and each frequency turns
+    by its section's coordinate. Angles and rotation in fp32, cast back."""
+    D = x.shape[-1]
+    if sections is None:
+        d6 = D // 2 // 3
+        sections = (D // 2 - 2 * d6, d6, d6)
+    freqs = rope_freqs(D, theta, device=x.device)              # [D/2]
+    sec = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))               # [D/2]
+    coords = positions.float().movedim(-2, 0)                  # [3, ..., T]
+    per_freq = coords[sec].movedim(0, -1)                      # [..., T, D/2]
+    angles = per_freq * freqs
+    cos = torch.cos(angles)[..., None, :]                      # [..., T, 1, D/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_index: int = -100) -> torch.Tensor:
     """Mean CE over valid positions (``labels != ignore_index``), from

@@ -1,6 +1,8 @@
 """Decoder-only LM: the dense family, MoE over GQA attention or MLA
 ("moe": grok-1-314b, deepseek-v2-lite-16b), the attention-free RWKV6
-("ssm") and recurrentgemma's RG-LRU + local attention ("hybrid").
+("ssm"), recurrentgemma's RG-LRU + local attention ("hybrid") and
+qwen2-vl-72b ("vlm": M-RoPE over 3-D positions, precomputed embeddings in
+place of tokens where the batch gives them).
 
 Params keep the JAX reference's layout: a nested dict with the stacked
 ``layers`` dim first (for the hybrid family: superblocks of
@@ -42,7 +44,9 @@ AUX_COEF = 0.01
 # the ROADMAP items that carry training past the dense family
 TRAIN_ITEMS = {"ssm": "Training: the recurrent families",
                "hybrid": "Training: the recurrent families",
-               "moe": "Training: MoE"}
+               "moe": "Training: MoE",
+               "encdec": "Training: enc-dec and VLM",
+               "vlm": "Training: enc-dec and VLM"}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -58,6 +62,20 @@ def tree_map(fn, tree):
     if tree is None:
         return None
     return fn(tree)
+
+
+def compute_cast(params, compute_dtype: str):
+    """Weights of rank >= 2 in fp32 go to ``compute_dtype`` (the stacked
+    layer norms included, as in the reference; unstacked vectors stay
+    fp32). Idempotent: params that were cast already come back as they
+    are."""
+    dt = torch_dtype(compute_dtype)
+
+    def cast(w):
+        if w.dtype == torch.float32 and w.dim() >= 2:
+            return w.to(dt)
+        return w
+    return tree_map(cast, params)
 
 
 def _layer(tree, i: int):
@@ -88,9 +106,9 @@ def _stack(states):
 
 
 class LM:
-    """Config-driven language model (dense, MoE, RWKV6 or RG-LRU hybrid;
-    MLA attention where ``cfg.kv_lora``). All state is explicit: params and
-    caches are passed in and returned. ``attn_impl`` picks the attention of
+    """Config-driven language model (dense, MoE, RWKV6, RG-LRU hybrid or
+    VLM; MLA attention where ``cfg.kv_lora``). All state is explicit:
+    params and caches are passed in and returned. ``attn_impl`` picks the attention of
     prefill, ``scan_impl`` the scan of RWKV6 (the wkv) and of RG-LRU (the
     diagonal scan: "kernel", or the sequential oracle for any other value),
     ``moe_impl`` the MoE block's dispatch and combine ("kernel": the
@@ -103,16 +121,12 @@ class LM:
     def __init__(self, cfg: ArchConfig, attn_impl: str = "kernel",
                  scan_impl: str = "kernel", moe_impl: str = "kernel",
                  mla_absorbed: bool = False, device: DeviceLike = "cuda"):
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm") \
                 or (cfg.family == "moe") != bool(cfg.n_experts):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense, moe, ssm (RWKV6) and hybrid "
-                f"(RG-LRU) families are ported (family={cfg.family!r}, "
-                f"n_experts={cfg.n_experts})")
-        if cfg.rope not in ("rope", "none") or cfg.embed_inputs:
-            raise NotImplementedError(
-                f"{cfg.name}: M-RoPE and embedding inputs are not ported "
-                f"yet")
+                f"{cfg.name}: the LM runs the dense, moe, ssm (RWKV6), "
+                f"hybrid (RG-LRU) and vlm families (family={cfg.family!r}, "
+                f"n_experts={cfg.n_experts}); encdec is EncDecLM's")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.scan_impl = scan_impl
@@ -185,27 +199,33 @@ class LM:
 
     # ------------------------------------------------------------- forward
     def _compute_cast(self, params):
-        """Weights of rank >= 2 in fp32 go to ``compute_dtype`` (the stacked
-        layer norms included, as in the reference; the vectors of the
-        unstacked ``rem`` layers stay fp32). Idempotent: params that were
-        cast already come back as they are."""
-        dt = torch_dtype(self.cfg.compute_dtype)
-
-        def cast(w):
-            if w.dtype == torch.float32 and w.dim() >= 2:
-                return w.to(dt)
-            return w
-        return tree_map(cast, params)
+        """``compute_cast`` to the config's ``compute_dtype`` (the vectors
+        of the hybrid's unstacked ``rem`` layers stay fp32)."""
+        return compute_cast(params, self.cfg.compute_dtype)
 
     def _tokens(self, batch) -> torch.Tensor:
         return torch.as_tensor(batch["tokens"], device=self.device).long()
 
     def _embed(self, params, batch):
+        """``batch["embeds"]`` [B, T, d] where the config takes embedding
+        inputs and the batch has them (a stubbed frontend's output), else
+        the embedding of ``batch["tokens"]``; in ``compute_dtype``."""
         dt = torch_dtype(self.cfg.compute_dtype)
+        if self.cfg.embed_inputs and "embeds" in batch:
+            return torch.as_tensor(batch["embeds"], device=self.device).to(dt)
         return params["embed"][self._tokens(batch)].to(dt)
 
-    def _positions(self, T: int, offset: int = 0) -> torch.Tensor:
-        return torch.arange(T, device=self.device) + offset
+    def _positions(self, batch, T: int, offset: int = 0) -> torch.Tensor:
+        """[T] positions from ``offset``; with M-RoPE [B, 3, T]: the batch's
+        ``positions`` (t, h, w) where it has them, else the same arange on
+        all three."""
+        pos = torch.arange(T, device=self.device) + offset
+        if self.cfg.rope != "mrope":
+            return pos
+        if "positions" in batch:
+            return torch.as_tensor(batch["positions"], device=self.device)
+        B = batch["tokens" if "tokens" in batch else "embeds"].shape[0]
+        return pos.expand(B, 3, T)
 
     def _layer_apply(self, p, x, positions, cache=None, pos=None,
                      prefill: bool = False):
@@ -301,7 +321,7 @@ class LM:
             self._check_trainable()
         params = self._compute_cast(params)
         x = self._embed(params, batch)
-        positions = self._positions(x.shape[1])
+        positions = self._positions(batch, x.shape[1])
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if self.cfg.family == "hybrid":
             n_super, _ = self._hybrid_split()
@@ -372,13 +392,15 @@ class LM:
                 for k, v in c.items()}
 
     def decode_step(self, params, batch, cache, pos: int):
-        """One-token decode. batch: {"tokens": [B, 1]}. Returns (logits
-        [B, 1, V], cache). An attention cache is updated in place; RWKV6 and
-        RG-LRU states come back new, as the reference's scan returns them."""
+        """One-token decode. batch: {"tokens": [B, 1]} (or "embeds"; with
+        M-RoPE the [B, 3, 1] "positions" if given, else pos on all three).
+        Returns (logits [B, 1, V], cache). An attention cache is updated in
+        place; RWKV6 and RG-LRU states come back new, as the reference's
+        scan returns them."""
         params = self._compute_cast(params)
         x = self._embed(params, batch)
+        positions = self._positions(batch, 1, offset=int(pos))
         if self.cfg.family == "hybrid":
-            positions = self._positions(1, offset=int(pos))
             n_super, _ = self._hybrid_split()
             new = []
             for j in range(n_super):
@@ -395,7 +417,6 @@ class LM:
         if self.cfg.family == "ssm":
             return self._rwkv_layers(
                 params, x, [_layer(cache, i) for i in range(self.cfg.n_layers)])
-        positions = self._positions(1, offset=int(pos))
         for i in range(self.cfg.n_layers):
             x, _, _ = self._layer_apply(_layer(params["layers"], i), x,
                                         positions, cache=_layer(cache, i),
@@ -414,9 +435,9 @@ class LM:
         cfg = self.cfg
         params = self._compute_cast(params)
         x = self._embed(params, batch)
+        T = x.shape[1]
+        positions = self._positions(batch, T)
         if cfg.family == "hybrid":
-            T = x.shape[1]
-            positions = self._positions(T)
             n_super, n_rem = self._hybrid_split()
             caches = []
             for j in range(n_super):
@@ -434,10 +455,8 @@ class LM:
                                          torch_dtype(cfg.kv_cache_dtype),
                                          self.device)
             return self._rwkv_layers(params, x, [st0] * cfg.n_layers)
-        T = x.shape[1]
         max_len = max_len or T
         dt = torch_dtype(cfg.kv_cache_dtype)
-        positions = self._positions(T)
         caches = []
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)

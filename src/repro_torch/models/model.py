@@ -1,16 +1,21 @@
-"""Model registry: ``build_model(cfg)`` for the families the port runs."""
+"""Model registry: ``build_model(cfg)`` for every family of the repo."""
 from __future__ import annotations
 
+from typing import Union
+
 from ..configs.base import ArchConfig
+from .encdec import EncDecLM
 from .lm import LM
 
 
-def build_model(cfg: ArchConfig, **kw) -> LM:
-    """The LM of the dense, moe (over GQA attention or MLA), ssm (RWKV6)
-    and hybrid (RG-LRU) families; the others raise
-    ``NotImplementedError``. ``kw`` goes to ``LM`` (the impls,
-    ``mla_absorbed``, ``device``)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet")
+def build_model(cfg: ArchConfig, **kw) -> Union[LM, EncDecLM]:
+    """``EncDecLM`` for the encdec family (``scan_impl``, ``moe_impl`` and
+    ``mla_absorbed`` dropped from ``kw``, as the reference drops what it
+    does not take), else the ``LM`` (dense, moe over GQA or MLA, ssm,
+    hybrid, vlm). ``kw`` goes to the model (the impls, ``mla_absorbed``,
+    ``device``)."""
+    if cfg.family == "encdec":
+        for key in ("scan_impl", "moe_impl", "mla_absorbed"):
+            kw.pop(key, None)
+        return EncDecLM(cfg, **kw)
     return LM(cfg, **kw)

@@ -198,6 +198,8 @@ def flash_case(case):
     (1, 16, 1, 300, 300, 256, True, 128),       # recurrentgemma's heads
     (4, 16, 1, 2100, 2100, 256, True, 2048),    # and its served prefill
     (4, 48, 8, 512, 512, 128, True, None),      # grok-1-314b's prefill
+    (4, 16, 16, 1024, 1024, 64, False, None),   # seamless's encoder
+    (4, 64, 8, 512, 512, 128, True, None),      # qwen2-vl-72b's prefill
 ] + FLASH_EDGE_CASES + FLASH_DV_CASES + [
     (4, 16, 16, 512, 512, 192, True, None, 0, 1.0, 128),   # deepseek's
 ])

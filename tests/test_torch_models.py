@@ -22,8 +22,10 @@ from repro.checkpoint.manager import _flatten
 from repro.configs import smoke_config as jax_smoke_config
 from repro.models.model import build_model as jax_build_model
 from repro_torch.bridge import params_from_numpy, params_to_numpy
-from repro_torch.configs import ARCH_IDS, get_config, smoke_config
+from repro_torch.configs import (ARCH_IDS, PORTED_ARCH_IDS, get_config,
+                                 smoke_config)
 from repro_torch.models import common
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lm import LM
 from repro_torch.models.model import build_model
 
@@ -199,18 +201,17 @@ def test_silu_rounds_like_the_reference_in_bf16():
 
 
 def test_unported_archs_raise():
-    """Two archs are left: seamless (enc-dec) and qwen2-vl (M-RoPE and
-    embedding inputs). MLA no longer raises in the LM, on any ported
-    family; a moe family without experts does."""
-    assert len(ARCH_IDS) == 10
+    """No arch is left unported: every one of the ten builds in the port
+    (seamless as ``EncDecLM``, the others as the ``LM``) and draws its smoke
+    params. What still raises: an unknown arch id, a moe family without
+    experts, and the LM or the registry asked for a family it does not
+    run."""
+    assert len(ARCH_IDS) == 10 and tuple(ARCH_IDS) == PORTED_ARCH_IDS
     for arch in ARCH_IDS:
-        if arch in ARCHS:
-            assert get_config(arch).family in ("dense", "ssm", "hybrid",
-                                               "moe")
-        else:
-            with pytest.raises(NotImplementedError):
-                get_config(arch)
-    assert len([a for a in ARCH_IDS if a not in ARCHS]) == 2
+        cfg = get_config(arch)
+        model = build_model(smoke_config(arch), device="cpu")
+        assert type(model) is (EncDecLM if cfg.family == "encdec" else LM)
+        assert "embed" in model.init(torch.Generator().manual_seed(0))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     mla = LM(smoke_config("grok-1-314b").with_(kv_lora=32), device="cpu")
@@ -219,8 +220,9 @@ def test_unported_archs_raise():
     with pytest.raises(NotImplementedError):
         LM(smoke_config("glm4-9b").with_(family="moe"), device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model(smoke_config("rwkv6-3b").with_(family="encdec"),
-                    device="cpu")
+        LM(smoke_config("seamless-m4t-large-v2"), device="cpu")
+    with pytest.raises(ValueError):
+        EncDecLM(smoke_config("rwkv6-3b"), device="cpu")
 
 
 def test_generator_must_live_on_the_model_device():
