@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs its serving path, its
-storage tier, its trainer, MLA, the encoder-decoder and M-RoPE on a GPU.
+storage tier, its trainer (dense and recurrent families), MLA, the
+encoder-decoder and M-RoPE on a GPU.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (Hopper,
 ``nvcc`` under ``/usr/local/cuda``): ``python3 chip_smoke.py``.
@@ -84,7 +85,21 @@ non-zero exit):
    FFN) in fp32, kernel path against plain path (memory, forward, the
    cached prompt and a cached step), and one qwen2-vl-72b layer in fp32 at
    image-grid M-RoPE positions (t, h and w differ), prefill and a decode
-   step with its positions in the batch;
+   step with its positions in the batch; then the recurrent families'
+   training kernels: the diagonal scan's backward kernel against its plain
+   version (``diag_scan_bwd_ref``) bit for bit at small cases (T = 1,
+   ragged widths, with h0 and a cotangent of h_T) and at
+   recurrentgemma-9b's training shape (4 x 512 x 4096) in bf16 and fp32,
+   timed beside its bound and the plain version (a ``diag_bwd`` line and
+   a ``diag_scan_bwd`` kernels entry); at rwkv6-3b's training shape
+   (B*H = 256, T = 512, D = 80) and the GLA chunk it trains with (16),
+   the GLA kernel's o and S_T under grad (the fp32 FMA route, o in the
+   inputs' dtype) against the chunked plain version (GLA_TOL) and, at
+   unit-scale r and k in bf16, against the exact scan; ``_GLAScan``'s gradients (its plain backward by recompute,
+   which never reads the kernel's o) and ``_DiagScan``'s (the backward
+   kernel) against fp64 autograd of the plain versions at rwkv6-3b's and
+   recurrentgemma-9b's training shapes (3e-4 fp32, 2e-2 bf16), and the
+   GLA's plain backward timed beside its bound (a ``scan_train`` line);
 4. serve: full-width qwen3-0.6b ``ServeLoop`` answers 8 requests of 512
    prompt tokens and 32 new tokens with a page pool too small to hold them,
    prefill through the flash kernel;
@@ -188,7 +203,31 @@ non-zero exit):
     grid, 192 text tokens), its last logits held to the plain path's as in
     phase 18 (the second plain path the naive attention), and 8 decode
     steps with their positions in the batch; a ``qwen2vl`` line;
-20. profile: as phase 6, for qwen2-vl-72b.
+20. profile: as phase 6, for qwen2-vl-72b;
+21. train: full-width, full-depth rwkv6-3b (32 layers, 3.07 B fp32 params,
+    bf16 compute, remat per layer, fp32 AdamW moments) ``run_training`` for
+    12 steps of 8 x 512 tokens over phase 15's 32 repeated sequences, every
+    layer's wkv forward on the GLA kernel (and again in its remat
+    recompute), on its fp32 FMA route (the tensor-core route's 16-bit
+    operands move the bf16 gradient far past the plain path's), and its
+    backward plain by recompute, at GLA chunk 16 (at the JAX package's 64
+    the loss is NaN from step 2): losses finite and
+    falling; one step from the trained params with ``scan_impl="kernel"``
+    against ``"xla_chunked"``: the loss within 2e-2 in bf16 compute, the
+    loss and grad norm within 2e-2 in fp32 compute (in bf16 the full-depth
+    grad norm is not fixed to 2e-2 by any path: two plain algorithms
+    differ by 31% there; at the random init paths that differ only in
+    rounding give grad norms orders apart even in fp32); a profiled
+    warm step (forward, the GLA's plain backward, the rest of the
+    backward, AdamW, idle share) at full width and 4 of the 32 layers,
+    from init; a ``train_rwkv`` line;
+22. train: recurrentgemma-9b at full width and 5 of its 38 layers (one
+    (rec, rec, attn) superblock, rematerialised, and the config's two
+    ``rem`` RG-LRU layers; 3.22 B fp32 params) with batches of 4 x 512
+    tokens over 16 repeated sequences, every RG-LRU layer's scan on the
+    diagonal-scan kernels forward and backward, the local attention on
+    flash at D = 256: the same checks, ``scan_impl="kernel"`` against
+    ``"xla"`` (the sequential oracle); a ``train_hybrid`` line.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5
 (flash and paged attention: the qwen3 path), zeroed again just before phase
@@ -210,14 +249,22 @@ phase 18 and read just after it (flash: exactly 24 launches for each of the
 2 encodes and 48 for the forward, 96, all on the wgmma route, no other
 kernel), and again just before phase 19 and read just after it (flash: 24
 a ServeLoop prefill batch and 24 for the embeddings' prefill, 72, all on
-wgmma, no other kernel). Each serve phase fails unless every kernel of
-its path made exactly the launches its layers and batches call for, every
-flash launch of a serve phase on the wgmma route, every GLA launch on the
-tensor-core route, and the diagonal scan's
-launches on the ring (prefill) and the step (decode) route as its layers
-call for, and dispatch's on the walk (prefill) and the direct (decode)
-route. The script's own seconds are logged on an
-``elapsed`` line; the second-to-last line is ``{"kernels": [...]}``; the
+wgmma, no other kernel), and again just before phase 21's training run and
+read just after it (the GLA scan: exactly 2 launches a layer a step, the
+forward and its remat recompute, all on the fp32 FMA route, and one
+call of its plain backward a layer a step; no other kernel), and again
+just before phase 22's training run and read just after it (the diagonal
+scan: 6 forward launches a step, 2 x 2 in the rematerialised superblock
+and 2 in the ``rem`` layers, all on the ring, and 4 backward launches;
+flash: 2 a step, all wgmma with lse; no other kernel). Each serve phase
+fails unless every kernel of its path made exactly the launches its
+layers and batches call for, every flash launch of a serve phase on the
+wgmma route, every GLA launch of a serve phase on the tensor-core route,
+and the diagonal
+scan's launches on the ring (prefill) and the step (decode) route as its
+layers call for, and dispatch's on the walk (prefill) and the direct
+(decode) route. The script's own seconds are logged on an ``elapsed``
+line; the second-to-last line is ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device":
 {...}}``. Without CUDA, or without
 the rest of the repo beside it, the script exits non-zero and prints no
@@ -268,8 +315,10 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     _attn_bwd_core, flash_attention)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.linear_scan import kernel as scan_kernel  # noqa: E402
-from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan  # noqa: E402
-from repro_torch.kernels.linear_scan.ref import gla_scan_ref  # noqa: E402
+from repro_torch.kernels.linear_scan.ops import (  # noqa: E402
+    _gla_chunked, diag_scan, gla_scan)
+from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
+    diag_scan_bwd_ref, diag_scan_ref, gla_scan_ref)
 from repro_torch.kernels.paged_attention import kernel as paged_kernel  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_attention  # noqa: E402
 from repro_torch.kernels.shuffle_dispatch import kernel as shuffle_kernel  # noqa: E402
@@ -278,11 +327,11 @@ from repro_torch.kernels.shuffle_dispatch.ops import (  # noqa: E402
 from repro_torch.launch.serve import Request, ServeLoop  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     SimulatedFailure, run_training, state_to)
-from repro_torch.models.blocks import _capacity  # noqa: E402
+from repro_torch.models.blocks import (  # noqa: E402
+    TRAIN_GLA_CHUNK, _capacity)
 from repro_torch.models.lm import tree_map  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.optim import (  # noqa: E402
-    adamw_update, make_train_state, make_train_step)
+from repro_torch.optim import adamw_apply, make_train_state  # noqa: E402
 from repro_torch.runtime.cluster import Cluster  # noqa: E402
 from repro_torch.runtime.join import ClusterJoin  # noqa: E402
 from repro_torch.runtime.rpc import pickle_fallbacks  # noqa: E402
@@ -1341,6 +1390,17 @@ def gla_witness(inputs, chunk, what):
     return max(gaps.values())
 
 
+def gla_flops(B, T, D, chunk):
+    """The chunked GLA forward's operations (Dk = Dv = D), products only."""
+    strict = chunk * (chunk - 1) // 2        # A's strictly lower entries
+    return B * (T // chunk) * (      # per (row, chunk):
+        2 * chunk * D * D            # q_inter S
+        + 2 * chunk * D * D          # the state update k_intra^T v
+        + 2 * strict * D             # A = q_intra k_intra^T
+        + 2 * strict * D             # A v
+        + 5 * chunk * D)             # the bonus: sum r u k, times v
+
+
 def check_gla(rng):
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1376,13 +1436,7 @@ def check_gla(rng):
     tv = scan_kernel.mma_dv_tile(B, D, D, chunk, torch.cuda
                                  .get_device_properties(0).multi_processor_count)
     lib = scan_kernel._lib()
-    strict = chunk * (chunk - 1) // 2        # A's strictly lower entries
-    flops = B * (T // chunk) * (     # per (row, chunk), products only:
-        2 * chunk * D * D            # q_inter S
-        + 2 * chunk * D * D          # the state update k_intra^T v
-        + 2 * strict * D             # A = q_intra k_intra^T
-        + 2 * strict * D             # A v
-        + 5 * chunk * D)             # the bonus: sum r u k, times v
+    flops = gla_flops(B, T, D, chunk)
     nbytes = (sum(x.numel() for x in inputs) + B * T * D) \
         * inputs[0].element_size() + B * D * D * 4          # + o, S_T
     bound_ms, bound_by = bound(nbytes, flops, dtype)
@@ -1507,6 +1561,215 @@ def check_diag(rng):
                 kernel_ms=top["ms"], library_ms=None, served=served,
                 **{k: top[k] for k in ("max_abs_err", "ms", "call_ms",
                                        "plain_ms", "bound_ms", "bound_by")})
+
+
+# the diagonal scan's backward: T = 1, ragged widths, a T off the ring's
+# stages; recurrentgemma-9b's training shape (4 x 512 tokens, d_model 4096)
+DIAG_BWD_CASES = [  # B, T, D
+    (2, 1, 16),
+    (2, 37, 16),
+    (2, 77, 33),
+    (1, 100, 8),
+]
+HYBRID_TRAIN = (4, 512, 4096)
+# rwkv6-3b's training shape: 8 x 512 tokens, 32 heads of 80 (B*H = 256),
+# its wkv chunked at ``blocks.TRAIN_GLA_CHUNK`` (16) under grad
+RWKV_TRAIN = (8 * 32, 512, 80)
+# rows of the GLA's fp64 oracle (each row's scan is independent of the rest)
+GLA_ORACLE_ROWS = 32
+
+
+def diag_bwd_close(a, b, g, h0, gT, what):
+    """The backward kernel against ``diag_scan_bwd_ref`` on the forward
+    kernel's own h: da, db and dh0 bit for bit (both walk each channel from
+    the last step down and round the multiply and the add apart). Returns
+    (max abs err, h, h_{t-1})."""
+    h, _ = scan_kernel.diag_scan_kernel(a, b, h0)
+    da, db, dh0 = scan_kernel.diag_scan_bwd_kernel(a, h, g, h0, gT)
+    torch.cuda.synchronize()
+    first = (torch.zeros_like(h[:, 0], dtype=torch.float32) if h0 is None
+             else h0.float())
+    h_prev = torch.cat([first[:, None], h[:, :-1].float()], dim=1)
+    ra, rb, r0 = diag_scan_bwd_ref(a, h_prev, g, gT)
+    err = max(close_or_fail(da, ra, TOL[a.dtype], f"{what} da"),
+              close_or_fail(db, rb, TOL[a.dtype], f"{what} db"))
+    same = torch.equal(da, ra) and torch.equal(db, rb)
+    if h0 is None:
+        if dh0 is not None:
+            _fail(f"{what}: a dh0 without h0")
+    else:
+        err = max(err, close_or_fail(dh0, r0, TOL[torch.float32],
+                                     f"{what} dh0"))
+        same = same and dh0.dtype == torch.float32 and torch.equal(dh0, r0)
+    if not same:
+        _fail(f"{what}: the backward's bits differ from the plain version's "
+              f"(max abs err {err})")
+    return err, h, h_prev
+
+
+def check_diag_bwd(rng):
+    """The diagonal scan's backward kernel (no TPU kernel's counterpart: the
+    JAX package takes this gradient by autodiff of its sequential scan)
+    against its plain version, bit for bit, and timed at recurrentgemma-9b's
+    training shape in bf16 (the superblock's layers) and fp32 (the ``rem``
+    layers) beside its bound and the plain version."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in DIAG_BWD_CASES:
+            B, T, D = case
+            a, b, h0 = diag_inputs(rng, B, T, D, dtype)
+            g, gT = rand(rng, (B, T, D), dtype), rand(rng, (B, D), dtype)
+            for init, cot in ((None, None), (h0, gT), (h0.bfloat16(), None)):
+                err, _, _ = diag_bwd_close(
+                    a, b, g, init, cot, f"diag bwd {case} {dtype} h0 "
+                    f"{None if init is None else init.dtype} gT "
+                    f"{cot is not None}")
+                worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+    B, T, D = HYBRID_TRAIN
+    served = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        a, b, _ = diag_inputs(rng, B, T, D, dtype, near_one=True)
+        g = rand(rng, (B, T, D), dtype)
+        err, h, h_prev = diag_bwd_close(a, b, g, None, None,
+                                        f"diag bwd training shape {dtype}")
+        # a, g and h read, da and db written; an add and two multiplies
+        nbytes = 5 * a.numel() * a.element_size()
+        bound_ms, bound_by = bound(nbytes, 3 * a.numel(), dtype)
+
+        def run():
+            return scan_kernel.diag_scan_bwd_kernel(a, h, g)
+
+        served[str(dtype)] = dict(
+            plan=scan_kernel.diag_bwd_plan_built(B, T, D, dtype),
+            bits_equal_plain=True, max_abs_err=err, ms=time_ms(run),
+            call_ms=time_ms(run, spin=False),
+            plain_ms=time_ms(lambda: diag_scan_bwd_ref(a, h_prev, g), reps=3),
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+            flops=3 * a.numel())
+        del a, b, g, h, h_prev
+    top = served[str(torch.bfloat16)]
+    return dict(name="diag_scan_bwd", route="cuda",
+                source="src/repro_torch/csrc/diag_scan.cu",
+                replaces="src/repro/kernels/linear_scan/kernel.py:49",
+                replaces_note="no Pallas kernel: the gradient of that "
+                "kernel's scan, which the JAX package takes by autodiff of "
+                "its sequential scan (linear_scan/ref.py diag_scan_ref)",
+                shape=f"B={B} T={T} D={D} bf16, no h0 (training)",
+                tolerance="bits", cases_max_abs_err=worst,
+                kernel_ms=top["ms"], library_ms=None, served=served,
+                **{k: top[k] for k in ("max_abs_err", "ms", "call_ms",
+                                       "plain_ms", "bound_ms", "bound_by")})
+
+
+def check_scan_train(rng):
+    """The recurrent families' training path through the scans' autograd
+    Functions at their training shapes. ``_GLAScan`` at rwkv6-3b's, chunk
+    ``TRAIN_GLA_CHUNK``: the kernel's o and S_T (the forward under grad,
+    on the fp32 FMA route whatever the dtype) against the chunked plain
+    version at GLA_TOL, and in bf16 at unit-scale r and k against the
+    exact scan, as close as twice the plain version; its dr, dk, dv, dw,
+    du, which come from the plain
+    backward by recompute and not from the kernel, against fp64 autograd
+    of the sequential scan on the first ``GLA_ORACLE_ROWS`` rows.
+    ``_DiagScan``'s da, db (both kernels) at recurrentgemma-9b's against
+    fp64 autograd of the plain version. Gradients at 3e-4 fp32 and 2e-2
+    bf16; one launch (or backward call) each; and the GLA's plain backward
+    timed in bf16 beside its bound and the forward kernel."""
+    errs = {}
+    R, T, D = RWKV_TRAIN
+    n = GLA_ORACLE_ROWS
+    for dtype in (torch.float32, torch.bfloat16):
+        # r and k scaled by D^-1/2, so that o stays O(1), as in check_gla
+        inputs = gla_inputs(rng, R, T, D, D, -2.0, dtype, rk_scale=D ** -0.5)
+        go = rand(rng, (R, T, D), dtype)
+        leaves = [x.clone().requires_grad_(True) for x in inputs]
+        before = gla_scan.launches_by_route["fma"], gla_scan.bwd_calls
+        o, S = gla_scan(*leaves, impl="kernel", chunk=TRAIN_GLA_CHUNK)
+        torch.autograd.backward(o, go)
+        torch.cuda.synchronize()
+        if (gla_scan.launches_by_route["fma"], gla_scan.bwd_calls) != (
+                before[0] + 1, before[1] + 1) or o.dtype != dtype:
+            _fail(f"scan_train gla {dtype}: not one fma launch and one "
+                  f"plain backward, or o in {o.dtype}")
+        ro, rS = gla_scan(*inputs, impl="xla_chunked", chunk=TRAIN_GLA_CHUNK)
+        errs[f"gla forward {dtype}"] = max(
+            close_or_fail(o.detach(), ro, GLA_TOL[dtype],
+                          f"scan_train gla o {dtype}"),
+            close_or_fail(S, rS, GLA_TOL[dtype], f"scan_train gla S {dtype}"))
+        del ro, rS, S
+        ref = [x[:n].double().requires_grad_(True) for x in inputs]
+        ro, _ = gla_scan_ref(*ref)
+        torch.autograd.backward(ro, go[:n].double())
+        errs[f"gla {dtype}"] = max(
+            close_or_fail(t.grad[:n], r.grad, GRAD_TOL[dtype],
+                          f"scan_train gla d{name} {dtype}")
+            for t, r, name in zip(leaves, ref, "rkvwu"))
+        del leaves, ref, o, ro
+    gla_in, gla_go = inputs, go
+    # unit-scale r and k, as the model feeds the wkv: the Function's o
+    # (bf16) as close to the exact scan as twice the chunked plain version
+    unit = gla_inputs(rng, R, T, D, D, -2.0, torch.bfloat16)
+    exact_o, _ = gla_scan_ref(*(x.double() for x in unit))
+    o, _ = gla_scan(*(x.clone().requires_grad_(True) for x in unit),
+                    impl="kernel", chunk=TRAIN_GLA_CHUNK)
+    po, _ = gla_scan(*unit, impl="xla_chunked", chunk=TRAIN_GLA_CHUNK)
+    gap, plain_gap = rel_gap(o.detach(), exact_o), rel_gap(po, exact_o)
+    if not gap <= 2 * plain_gap:
+        _fail(f"scan_train gla bf16 unit scale: o {gap} from the exact "
+              f"scan, over twice the plain version's {plain_gap}")
+    errs["gla forward bf16 unit scale, vs exact"] = gap
+    errs["gla forward bf16 unit scale, plain vs exact"] = plain_gap
+    del unit, exact_o, o, po
+    B, Td, Dd = HYBRID_TRAIN
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b, _ = diag_inputs(rng, B, Td, Dd, dtype, near_one=True)
+        g = rand(rng, (B, Td, Dd), dtype)
+        leaves = [x.clone().requires_grad_(True) for x in (a, b)]
+        before = diag_scan.launches_by_route["ring"], diag_scan.bwd_launches
+        h, _ = diag_scan(*leaves, impl="kernel")
+        torch.autograd.backward(h, g)
+        torch.cuda.synchronize()
+        if (diag_scan.launches_by_route["ring"], diag_scan.bwd_launches) != (
+                before[0] + 1, before[1] + 1):
+            _fail(f"scan_train diag {dtype}: not one ring launch and one "
+                  f"backward launch")
+        ref = [x.double().requires_grad_(True) for x in (a, b)]
+        rh, _ = diag_scan_ref(*ref)
+        torch.autograd.backward(rh, g.double())
+        errs[f"diag {dtype}"] = max(
+            close_or_fail(t.grad, r.grad, GRAD_TOL[dtype],
+                          f"scan_train diag d{name} {dtype}")
+            for t, r, name in zip(leaves, ref, "ab"))
+        del a, b, g, leaves, ref, h, rh
+
+    def gla_bwd():
+        xs = [x.detach().requires_grad_(True) for x in gla_in]
+        o, _ = _gla_chunked(*xs, chunk=TRAIN_GLA_CHUNK)
+        return torch.autograd.grad(o, xs, gla_go)
+
+    train_leaves = [x.detach().requires_grad_(True) for x in gla_in]
+    elem = gla_in[0].element_size()
+    # read r, k, v, w, u and the cotangent of o; write dr, dk, dv, dw, du;
+    # the recompute and the two products of the backward for each forward one
+    nbytes = (5 * R * T * D + R * D) * elem + (4 * R * T * D + R * D) * elem
+    flops = 3 * gla_flops(R, T, D, TRAIN_GLA_CHUNK)
+    bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    return dict(grads_max_abs_err=errs,
+                grads_tolerance={names[d]: t for d, t in GRAD_TOL.items()},
+                gla_shape=f"B*H={R} T={T} Dk=Dv={D} chunk={TRAIN_GLA_CHUNK}",
+                diag_shape=f"B={B} T={Td} D={Dd}",
+                gla_oracle_rows=n,
+                # the training forward (the fp32 casts and the fma
+                # route) and, for comparison, the served route (mma)
+                gla_forward_kernel_ms=time_ms(lambda: gla_scan(
+                    *train_leaves, impl="kernel", chunk=TRAIN_GLA_CHUNK)),
+                gla_forward_mma_ms=time_ms(lambda: gla_scan(
+                    *gla_in, impl="kernel", chunk=TRAIN_GLA_CHUNK)),
+                gla_backward_plain_ms=time_ms(gla_bwd, reps=5),
+                gla_backward_bound_ms=bound_ms,
+                gla_backward_bound_by=bound_by, gla_backward_bytes=nbytes,
+                gla_backward_flops=flops)
 
 
 def shuffle_inputs(rng, T, D, E, K, C, kind, dtype):
@@ -2500,6 +2763,9 @@ TRAIN_SEQUENCES = 32
 # the crash and restart run at full width and a cut depth: one layout of the
 # full-depth fp32 state (params and both AdamW moments) is ~9 GB
 CRASH_LAYERS = 2
+# rwkv6-3b's profiled step runs at full width and this cut depth: at all 32
+# layers it is ~108 k launches, which took the profiler 108-137 s
+RWKV_PROFILE_LAYERS = 4
 
 
 def state_leaves(state):
@@ -2514,48 +2780,57 @@ def same_bits(a, b):
         a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
 
 
-def train_batch(cfg, seed):
+def train_batch(cfg, seed, batch=TRAIN_BATCH):
     toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ), dtype=np.int32)
+        0, cfg.vocab, (batch, TRAIN_SEQ), dtype=np.int32)
     labels = np.concatenate(
-        [toks[:, 1:], np.full((TRAIN_BATCH, 1), -100, np.int32)], axis=1)
+        [toks[:, 1:], np.full((batch, 1), -100, np.int32)], axis=1)
     return {"tokens": torch.from_numpy(toks).to(DEV),
             "labels": torch.from_numpy(labels).to(DEV)}
 
 
-def train_routes(cfg):
-    """One training step from the same params and batch with attention's
-    forward on the kernel and on the plain chunked path: loss and grad norm
-    within 2e-2 (relative)."""
-    model = build_model(cfg, device=DEV)
-    state = make_train_state(
-        model.init(torch.Generator(DEV).manual_seed(7)),
-        cfg.opt_state_dtype)
-    batch = train_batch(cfg, 8)
+def train_routes(cfg, key="attn_impl", plain="xla", batch=TRAIN_BATCH,
+                 params=None, held=("loss", "grad_norm")):
+    """One training step's loss and gradient norm from the same params
+    (``params``, else drawn from seed 7) and batch with ``key`` (attention's
+    forward, or the scans) on the kernel and on the plain path ``plain``:
+    those named in ``held`` within 2e-2 (relative)."""
+    if params is None:
+        params = build_model(cfg, device=DEV).init(
+            torch.Generator(DEV).manual_seed(7))
+    flat = leaves_of(params)
+    tb = train_batch(cfg, 8, batch)
     out = {}
-    for impl in ("kernel", "xla"):
-        step = make_train_step(build_model(cfg, attn_impl=impl,
-                                           device=DEV).loss)
-        _, metrics = step(state, batch)
-        out[impl] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
-        del metrics
+    for impl in ("kernel", plain):
+        model = build_model(cfg, device=DEV, **{key: impl})
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        it = iter(leaves)
+        loss = model.loss(tree_map(lambda _: next(it), params), tb)
+        grads = torch.autograd.grad(loss, leaves)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in grads))
+        out[impl] = {"loss": float(loss), "grad_norm": float(gnorm)}
+        del loss, grads, leaves, gnorm
         gc.collect()
-    for key in ("loss", "grad_norm"):
-        a, b = out["kernel"][key], out["xla"][key]
+    for name in held:
+        a, b = out["kernel"][name], out[plain][name]
         if not (np.isfinite(a) and abs(a - b) <= 2e-2 * abs(b)):
-            _fail(f"train step {key}: kernel {a} vs plain {b}")
+            _fail(f"{cfg.name} train step {name}: kernel {a} vs plain {b}")
     return out
 
 
-def train_profile(cfg, state, batch):
+def train_profile(cfg, state, batch, plain_bwd=None):
     """Where one warm step's device time goes (torch.profiler): the forward,
-    attention's plain backward (the ``_FlashAttention`` nodes), the rest of
-    the backward (the remat recompute included) and AdamW, with the host
-    wall time and the device's idle share, of the profiled step's wall time
-    and of the same step's unprofiled wall time (the profiler's own cost
-    widens the first). The step is the train step's three parts, each in
-    its own profiler range."""
+    each backward node of ``plain_bwd`` ({output key: autograd node name};
+    by default attention's plain backward, the ``_FlashAttention`` nodes),
+    the rest of the backward (the remat recompute included) and AdamW, with
+    the host wall time and the device's idle share, of the profiled step's
+    wall time and of the same step's unprofiled wall time (the profiler's
+    own cost widens the first). The step is the train step's three parts,
+    each in its own profiler range."""
     from torch.profiler import ProfilerActivity, profile, record_function
+    plain_bwd = plain_bwd or {
+        "attention_backward_plain_ms": "_FlashAttentionBackward"}
     model = build_model(cfg, device=DEV)
     flat = leaves_of(state.params)
 
@@ -2566,11 +2841,13 @@ def train_profile(cfg, state, batch):
         with record_function("train/forward"):
             loss = model.loss(params, batch)
         with record_function("train/backward"):
-            grads = iter(torch.autograd.grad(loss, leaves))
+            grads = list(torch.autograd.grad(loss, leaves))
+        del params, leaves
         with record_function("train/optimizer"):
-            adamw_update(state.params, tree_map(lambda _: next(grads),
-                                                state.params), state.opt)
-        return loss
+            # as run_training's step: each gradient freed as its leaf is
+            # updated, the state's tensors updated in place
+            adamw_apply(state.params, grads, state.opt)
+        return loss.detach()
 
     run()
     torch.cuda.synchronize()
@@ -2604,16 +2881,16 @@ def train_profile(cfg, state, batch):
 
     fwd = range_ms(lambda k: k == "train/forward")
     opt = range_ms(lambda k: k == "train/optimizer")
-    attn_bwd = range_ms(lambda k: "_FlashAttentionBackward" in k)
+    parts = {key: range_ms(lambda k, node=node: node in k)
+             for key, node in plain_bwd.items()}
     bwd = busy_ms - fwd - opt          # the engine's thread runs it
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return dict(wall_ms=plain_wall * 1e3, profiled_wall_ms=wall * 1e3,
                 device_busy_ms=busy_ms,
                 idle_share=1 - busy_ms / (wall * 1e3),
                 idle_share_unprofiled=1 - busy_ms / (plain_wall * 1e3),
-                forward_ms=fwd, backward_ms=bwd,
-                attention_backward_plain_ms=attn_bwd,
-                backward_rest_ms=bwd - attn_bwd, optimizer_ms=opt,
+                forward_ms=fwd, backward_ms=bwd, **parts,
+                backward_rest_ms=bwd - sum(parts.values()), optimizer_ms=opt,
                 kernel_launches=sum(e.count for e in kernels),
                 top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
                      for e in top])
@@ -2663,35 +2940,35 @@ def train_restart(cfg, root):
                 resumed_run_s=resume_s, resumed_loss=res.losses[0])
 
 
-def train_run(cfg):
-    """Full-width qwen3-0.6b (28 layers, fp32 params, bf16 compute, remat
-    per layer, fp32 AdamW moments) trains ``TRAIN_STEPS`` steps of 8 x 512
-    tokens (``TRAIN_SEQUENCES`` sequences, written through the pool and read
-    back by ``BatchLoader``); the losses must be finite
-    and fall (the mean of the last 4 under that of the first 4)."""
+def train_run(cfg, batch=TRAIN_BATCH, sequences=TRAIN_SEQUENCES):
+    """``cfg`` (fp32 params, bf16 compute, remat per layer, fp32 AdamW
+    moments) trains ``TRAIN_STEPS`` steps of ``batch`` x 512 tokens
+    (``sequences`` sequences, written through the pool and read back by
+    ``BatchLoader``); the losses must be finite and fall (the mean of the
+    last 4 under that of the first 4)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = run_training(cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
-                       seq_len=TRAIN_SEQ, num_sequences=TRAIN_SEQUENCES,
-                       seed=5, log_every=4,
-                       device=DEV)
+    res = run_training(cfg, steps=TRAIN_STEPS, batch_size=batch,
+                       seq_len=TRAIN_SEQ, num_sequences=sequences,
+                       seed=5, log_every=4, device=DEV)
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     if len(res.losses) != TRAIN_STEPS or not all(
             np.isfinite(l) for l in res.losses + res.grad_norms):
-        _fail(f"train: losses {res.losses}, grad norms {res.grad_norms}")
+        _fail(f"train {cfg.name}: losses {res.losses}, grad norms "
+              f"{res.grad_norms}")
     if not np.mean(res.losses[-4:]) < np.mean(res.losses[:4]):
-        _fail(f"train: the loss did not fall: {res.losses}")
+        _fail(f"train {cfg.name}: the loss did not fall: {res.losses}")
     warm_s = float(np.median(res.step_seconds[1:]))
     n_params = sum(t.numel() for t in leaves_of(res.state.params))
     return res, dict(
         arch=cfg.name, layers=cfg.n_layers, params=n_params,
-        steps=res.steps, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        steps=res.steps, batch=batch, seq_len=TRAIN_SEQ,
         remat=cfg.remat, compute=cfg.compute_dtype,
         moments=cfg.opt_state_dtype, losses=res.losses,
         grad_norms=res.grad_norms, first_step_ms=res.step_seconds[0] * 1e3,
         ms_per_step=warm_s * 1e3,
-        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / warm_s,
+        tokens_per_s=batch * TRAIN_SEQ / warm_s,
         tokens_per_s_whole_run=res.tokens_per_s, wall_s=wall_s,
         peak_device_gb=peak / 1e9)
 
@@ -2897,6 +3174,14 @@ def main():
     kernels[0]["cases_max_abs_err"].update(fam_worst)
     log("flash_families", json.dumps(dict(paths=fam_paths,
                                           max_abs_err=fam_worst)))
+    # the recurrent families' training path (each its own generator)
+    kernels.append(check_diag_bwd(np.random.default_rng(28)))
+    log("diag_bwd", json.dumps({k: v for k, v in kernels[-1].items()
+                                if k in ("shape", "cases_max_abs_err",
+                                         "served")}))
+    scan_train = check_scan_train(np.random.default_rng(29))
+    log("scan_train", json.dumps(scan_train))
+    next(k for k in kernels if k["name"] == "gla_scan")["train"] = scan_train
     lap("kernels")
     flash_build = flash_build_facts()
     log("flash_build", json.dumps(flash_build))
@@ -2949,6 +3234,8 @@ def main():
         for fn in counted:
             fn.launches = 0
         flash_attention.lse_launches = 0
+        diag_scan.bwd_launches = 0
+        gla_scan.bwd_calls = 0
         for fn in (flash_attention, gla_scan, diag_scan, dispatch):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
@@ -3208,11 +3495,126 @@ def main():
         arch=vcfg.name, layers=vcfg.n_layers, params=n_params,
         peak_device_gb=peak_gb, seconds=phase_s[vcfg.name], card=smi,
         embeds=embeds)))
+    # rwkv6-3b trains at full width and depth: 3.07 B fp32 params, 49 GB
+    # with their gradients and two fp32 moments; its wkv chunked at 16
+    zero_counts()
+    train_res, train = train_run(rcfg)
+    path = f"{rcfg.name}/train"
+    want = 2 * rcfg.n_layers * TRAIN_STEPS      # each forward and its remat
+    if (gla_scan.launches != want or gla_scan.launches_by_route["fma"] != want
+            or gla_scan.bwd_calls != rcfg.n_layers * TRAIN_STEPS):
+        _fail(f"gla_scan: {gla_scan.launches} launches "
+              f"({gla_scan.launches_by_route}), {gla_scan.bwd_calls} plain "
+              f"backward calls on the {path} path, not {want} on fma and "
+              f"{rcfg.n_layers * TRAIN_STEPS}")
+    others = {fn.__name__: fn.launches for fn in counted
+              if fn is not gla_scan and fn.launches}
+    if others or diag_scan.bwd_launches:
+        _fail(f"{path}: other kernels launched: {others}, diag backward "
+              f"{diag_scan.bwd_launches}")
+    launches["gla_scan"][path] = gla_scan.launches
+    scan_routes["gla_scan"][path] = dict(gla_scan.launches_by_route,
+                                         bwd_calls=gla_scan.bwd_calls)
+    # from the trained params: at the random init the full-depth gradient
+    # is ill-conditioned, and paths that differ only in rounding, the two
+    # plain ones included, give grad norms orders apart. In bf16 compute
+    # the loss is held; the grad norm is not fixed to 2e-2 by any path
+    # there (the chunked plain path and the sequential oracle 31% apart, o
+    # perturbed by half a bf16 ulp 13%; tools/rwkv_gla_chunk.py
+    # --trained), so it is held in fp32 compute, where the paths agree to
+    # 1e-6 and the kernel runs the same fp32 route as in training
+    params = train_res.state.params
+    del train_res
+    free()
+    t_part = time.perf_counter()
+    train["kernel_vs_plain"] = train_routes(rcfg, "scan_impl", "xla_chunked",
+                                            params=params, held=("loss",))
+    free()
+    train["kernel_vs_plain_fp32"] = train_routes(
+        rcfg.with_(compute_dtype="float32"), "scan_impl", "xla_chunked",
+        params=params)
+    train["routes_s"] = time.perf_counter() - t_part
+    del params
+    free()
+    # the profiled step: full width, RWKV_PROFILE_LAYERS layers, from init
+    pcfg = rcfg.with_(n_layers=RWKV_PROFILE_LAYERS)
+    pstate = make_train_state(build_model(pcfg, device=DEV).init(
+        torch.Generator(DEV).manual_seed(9)), pcfg.opt_state_dtype)
+    t_part = time.perf_counter()
+    train["profile"] = dict(layers=pcfg.n_layers, **train_profile(
+        pcfg, pstate, train_batch(pcfg, 9),
+        {"gla_backward_plain_ms": "_GLAScanBackward"}))
+    train["profile_s"] = time.perf_counter() - t_part
+    del pstate
+    free()
+    lap(path)
+    train.update(seconds=phase_s[path], card=smi)
+    log("train_rwkv", json.dumps(train))
+
+    # recurrentgemma-9b at full width and 5 of its 38 layers (one superblock
+    # and the two rem layers: 3.22 B fp32 params, 51.6 GB with gradients and
+    # moments; 38 layers would be 167 GB), batches of 4 x 512 (its 256000-
+    # wide logits cost ~10 GB more at 8)
+    hcfg = gcfg.with_(n_layers=5)
+    n_super, n_rem = divmod(hcfg.n_layers, len(hcfg.block_pattern))
+    rec_super = sum(k == "rec" for k in hcfg.block_pattern) * n_super
+    attn_super = n_super * len(hcfg.block_pattern) - rec_super
+    hbatch = 4
+    zero_counts()
+    train_res, train = train_run(hcfg, batch=hbatch, sequences=4 * hbatch)
+    path = f"{hcfg.name}/train"
+    # the superblock's scans run twice (the forward and its remat), the rem
+    # layers' once; one backward launch each; flash twice a superblock
+    want = {"diag": (2 * rec_super + n_rem) * TRAIN_STEPS,
+            "diag_bwd": (rec_super + n_rem) * TRAIN_STEPS,
+            "flash": 2 * attn_super * TRAIN_STEPS}
+    got = {"diag": diag_scan.launches, "diag_bwd": diag_scan.bwd_launches,
+           "flash": flash_attention.launches}
+    if (got != want or diag_scan.launches_by_route["ring"] != want["diag"]
+            or flash_attention.launches_by_route["wgmma"] != want["flash"]
+            or flash_attention.lse_launches != want["flash"]):
+        _fail(f"{path}: launches {got} (diag {diag_scan.launches_by_route}, "
+              f"flash {flash_attention.launches_by_route}, "
+              f"{flash_attention.lse_launches} with lse), not {want}, all "
+              f"on ring and wgmma with lse")
+    others = {fn.__name__: fn.launches for fn in counted
+              if fn not in (diag_scan, flash_attention) and fn.launches}
+    if others or gla_scan.bwd_calls:
+        _fail(f"{path}: other kernels launched: {others}, GLA backward "
+              f"calls {gla_scan.bwd_calls}")
+    launches["diag_scan"][path] = diag_scan.launches
+    launches["diag_scan_bwd"] = {path: diag_scan.bwd_launches}
+    launches["flash_attention"][path] = flash_attention.launches
+    scan_routes["diag_scan"][path] = dict(diag_scan.launches_by_route)
+    flash_routes[path] = dict(flash_attention.launches_by_route,
+                              with_lse=flash_attention.lse_launches)
+    t_part = time.perf_counter()
+    train["profile"] = train_profile(
+        hcfg, train_res.state, train_batch(hcfg, 9, hbatch),
+        {"attention_backward_plain_ms": "_FlashAttentionBackward",
+         "diag_backward_kernel_ms": "_DiagScanBackward"})
+    train["profile_s"] = time.perf_counter() - t_part
+    params = train_res.state.params
+    del train_res
+    free()
+    train["kernel_vs_plain"] = train_routes(hcfg, "scan_impl", "xla", hbatch,
+                                            params=params)
+    del params
+    free()
+    lap(path)
+    train.update(seconds=phase_s[path], card=smi,
+                 cut=f"{hcfg.n_layers} of {gcfg.n_layers} layers, batch "
+                 f"{hbatch}")
+    log("train_hybrid", json.dumps(train))
+
     next(k for k in kernels if k["name"] == "flash_attention").update(
         launches_by_route=flash_routes, build=flash_build)
     for name, lib in (("gla_scan", "linear_scan"), ("diag_scan", "diag_scan")):
         next(k for k in kernels if k["name"] == name).update(
             launches_by_route=scan_routes[name], build=scan_build[lib])
+    next(k for k in kernels if k["name"] == "diag_scan_bwd").update(
+        build={f: v for f, v in scan_build["diag_scan"].items()
+               if "bwd" in f})
     next(k for k in kernels if k["name"] == "dispatch").update(
         launches_by_route=shuffle_routes,
         build={f: v for f, v in shuffle_build.items() if "dispatch" in f})

@@ -77,9 +77,11 @@ _BF16 = np.dtype("V2")
 
 
 def _leaf_array(leaf) -> np.ndarray:
-    """One leaf as numpy: a tensor is copied to the host, bf16 as its bits."""
+    """One leaf as numpy: a tensor is copied to the host, bf16 as its bits
+    (a CPU tensor copied too: the train step updates a donated state in
+    place while an asynchronous save may still be writing this copy)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu").contiguous()
+        t = leaf.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(_BF16)
         return t.numpy()

@@ -40,6 +40,23 @@
 // `__fadd_rn`) and walk each channel in order from h0, exactly as the plain
 // version does, so they give its bits for every T, in fp32 and in bf16
 // (rounded to nearest even once, on the store).
+//
+// The backward (`diag_scan_bwd_ring`, no TPU kernel's counterpart: the
+// reference takes this gradient by autodiff of its sequential scan) is the
+// same recurrence run backwards in time, with the fp32 carry mu (gT, the
+// cotangent of h_T, or 0 before the last step):
+//
+//   lam_t = g_t + mu,   db_t = lam_t,   da_t = lam_t * h_{t-1},   mu = a_t * lam_t
+//
+// and dh0 = mu after t = 0 (h_{-1} = h0). It is the ring kernel walking T
+// from the last step down: one thread a channel, 64 channels a block, a
+// ring of 4 stages filled three ahead by 16-byte `cp.async` copies, a stage
+// holding a, g and h for `bwd_steps` steps (32 of bf16, 16 of fp32: 12 KB),
+// h's rows shifted by one (h_{t-1} beside a_t; the row before t = 0 is h0,
+// read once into a register). It reads a, g and h once and writes da and db
+// once: 5 units of traffic, the bound's (84 MB at [4, 512, 4096] bf16,
+// 0.025 ms). Any T >= 1 takes this one kernel. It rounds as the plain
+// version (`diag_scan_bwd_ref`) does, so it gives its bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,6 +66,7 @@ namespace {
 constexpr int RING_CH = 64;             // channels a block, one a thread
 constexpr int RING_STAGES = 4;
 constexpr int RING_STAGE_BYTES = 16384;  // a and b of one stage
+constexpr int BWD_STAGE_BYTES = 12288;  // a, g and h of one backward stage
 constexpr int STEP_PER_THREAD = 8;      // decode: channels a thread
 constexpr int STEP_THREADS = 128;
 
@@ -168,6 +186,108 @@ diag_scan_ring(const T* __restrict__ a, const T* __restrict__ b,
   if (live) put(hT + (size_t)blockIdx.y * D + d, carry);
 }
 
+// ---------------------------------------------------------------------------
+// Backward: the ring walked from the last time step down
+// ---------------------------------------------------------------------------
+template <typename T>
+__host__ __device__ constexpr int bwd_steps() {    // time steps a stage
+  return BWD_STAGE_BYTES / (3 * RING_CH * (int)sizeof(T));
+}
+
+// Fill one stage of the backward: steps [t0, t0 + rows) of a and g, and h's
+// rows t0 - 1 .. t0 + rows - 2 (row -1, h0, is not loaded), 16-byte
+// cp.async pieces when `vec`, else plain element loads.
+template <typename T>
+__device__ __forceinline__ void fill_bwd(T* st, const T* __restrict__ a,
+                                         const T* __restrict__ g,
+                                         const T* __restrict__ h, size_t base,
+                                         int t0, int rows, int D, int c0,
+                                         bool vec) {
+  constexpr int S = bwd_steps<T>();
+  constexpr int PER = 16 / sizeof(T);
+  constexpr int PIECES = RING_CH / PER;
+  if (rows <= 0) return;
+  if (vec) {
+    for (int e = threadIdx.x; e < 3 * S * PIECES; e += RING_CH) {
+      const int which = e / (S * PIECES), rem = e - which * S * PIECES;
+      const int row = rem / PIECES, col = (rem - row * PIECES) * PER;
+      const int t = t0 + row - (which == 2);
+      if (row >= rows || t < 0 || c0 + col >= D) continue;
+      const T* src = which == 0 ? a : which == 1 ? g : h;
+      cp_async16(st + (which * S + row) * RING_CH + col,
+                 src + base + (size_t)t * D + col);
+    }
+  } else if (c0 + (int)threadIdx.x < D) {
+    const int c = threadIdx.x;
+    for (int row = 0; row < rows; ++row) {
+      const size_t g0 = base + (size_t)(t0 + row) * D + c;
+      st[row * RING_CH + c] = a[g0];
+      st[(S + row) * RING_CH + c] = g[g0];
+      if (t0 + row > 0) st[(2 * S + row) * RING_CH + c] = h[g0 - D];
+    }
+  }
+}
+
+// Grid (ceil(D / 64), B), 64 threads; dynamic shared memory: the ring.
+// da, db: [B, T, D] in T; dh0: [B, D] fp32 or null; gT: [B, D] in T or null.
+template <typename T>
+__global__ void __launch_bounds__(RING_CH)
+diag_scan_bwd_ring(const T* __restrict__ a, const T* __restrict__ h,
+                   const T* __restrict__ g, const T* __restrict__ gT,
+                   const void* __restrict__ h0, int h0_dtype,
+                   T* __restrict__ da, T* __restrict__ db,
+                   float* __restrict__ dh0, int Tlen, int D, int vec) {
+  constexpr int S = bwd_steps<T>();
+  extern __shared__ __align__(16) unsigned char ring_raw[];
+  T* ring = reinterpret_cast<T*>(ring_raw);      // [stage][a | g | h][S][64]
+  const int c = threadIdx.x;
+  const int c0 = blockIdx.x * RING_CH;
+  const int d = c0 + c;
+  const bool live = d < D;
+  const size_t base = (size_t)blockIdx.y * Tlen * D + c0;
+  const int tiles = (Tlen + S - 1) / S;
+  // the j-th stage walked holds tile tiles - 1 - j: steps from its t0
+  auto stage = [&](int j) { return ring + (size_t)(j % RING_STAGES) * 3 * S * RING_CH; };
+  auto t0_of = [&](int j) { return (tiles - 1 - j) * S; };
+  auto rows_of = [&](int j) { return j < tiles ? min(S, Tlen - t0_of(j)) : 0; };
+
+#pragma unroll
+  for (int j = 0; j < RING_STAGES - 1; ++j) {
+    fill_bwd(stage(j), a, g, h, base, t0_of(j), rows_of(j), D, c0, vec);
+    cp_async_commit();
+  }
+  float mu = 0.f, hm1 = 0.f;
+  if (live) {
+    const size_t i = (size_t)blockIdx.y * D + d;
+    if (gT) mu = to_f(gT[i]);
+    hm1 = load_h0(h0, h0_dtype, i);
+  }
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<RING_STAGES - 2>();            // this stage's copies landed
+    __syncthreads();                             // all of them; the stage
+                                                 // refilled next is read out
+    const int ahead = j + RING_STAGES - 1;
+    fill_bwd(stage(ahead), a, g, h, base, t0_of(ahead), rows_of(ahead), D,
+             c0, vec);
+    cp_async_commit();
+    if (!live) continue;
+    const T* sa = stage(j) + c;
+    const T* sg = sa + S * RING_CH;
+    const T* sh = sg + S * RING_CH;
+    const int t0 = t0_of(j);
+    const size_t off = base + (size_t)t0 * D + c;
+    for (int i = rows_of(j) - 1; i >= 0; --i) {
+      const float lam = __fadd_rn(to_f(sg[i * RING_CH]), mu);
+      const float hp = (t0 + i == 0) ? hm1 : to_f(sh[i * RING_CH]);
+      put(db + off + (size_t)i * D, lam);
+      put(da + off + (size_t)i * D, __fmul_rn(lam, hp));
+      mu = __fmul_rn(to_f(sa[i * RING_CH]), lam);
+    }
+  }
+  cp_async_wait<0>();
+  if (live && dh0) dh0[(size_t)blockIdx.y * D + d] = mu;
+}
+
 // 8 elements at p as fp32: one or two 16-byte loads when `vec`, else the
 // first n (0..8) one by one and zeros past them.
 __device__ __forceinline__ void load8(const float* p, bool vec, int n, float* out) {
@@ -277,6 +397,24 @@ int launch(const void* a, const void* b, const void* h0, int h0_dtype, void* h,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_bwd(const void* a, const void* h, const void* g, const void* gT,
+               const void* h0, int h0_dtype, void* da, void* db, float* dh0,
+               int B, int Tlen, int D, cudaStream_t stream) {
+  const int smem = RING_STAGES * BWD_STAGE_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      diag_scan_bwd_ring<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = aligned16(a) && aligned16(h) && aligned16(g) &&
+                  (D * (int)sizeof(T)) % 16 == 0;
+  dim3 grid((D + RING_CH - 1) / RING_CH, B);
+  diag_scan_bwd_ring<T><<<grid, RING_CH, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(h),
+      static_cast<const T*>(g), static_cast<const T*>(gT), h0, h0_dtype,
+      static_cast<T*>(da), static_cast<T*>(db), dh0, Tlen, D, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -328,6 +466,45 @@ int diag_scan_fwd(int dtype, const void* a, const void* b, const void* h0,
     return launch<float>(a, b, h0, h0_dtype, h, hT, B, T, D, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(a, b, h0, h0_dtype, h, hT, B, T, D, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// How a backward call of shape [B, T, D] in dtype runs: blocks, threads a
+// block, time steps a stage, stages and dynamic shared memory bytes a
+// block. Returns 0, or cudaErrorInvalidValue for a shape or dtype the
+// kernel does not take.
+int diag_scan_bwd_plan(int dtype, int B, int T, int D, int* blocks,
+                       int* threads, int* steps, int* stages, int* smem_bytes) {
+  if ((dtype != 0 && dtype != 1) || B < 0 || T < 1 || D < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  *blocks = (D + RING_CH - 1) / RING_CH * B;
+  *threads = RING_CH;
+  *steps = dtype == 0 ? bwd_steps<float>() : bwd_steps<__nv_bfloat16>();
+  *stages = RING_STAGES;
+  *smem_bytes = RING_STAGES * BWD_STAGE_BYTES;
+  return 0;
+}
+
+// The backward of diag_scan_fwd. dtype (of a, h, g, gT, da, db): 0 =
+// float32, 1 = bfloat16. a, h (the forward's output), g (its cotangent),
+// da, db: [B, T, D]; gT (the cotangent of h_T) [B, D] or null for zeros;
+// h0 [B, D] in h0_dtype or null for zeros; dh0 [B, D] fp32, or null when
+// the forward had no h0. All contiguous. Returns cudaGetLastError() after
+// the launch.
+int diag_scan_bwd(int dtype, const void* a, const void* h, const void* g,
+                  const void* gT, const void* h0, int h0_dtype, void* da,
+                  void* db, void* dh0, int B, int T, int D, void* stream) {
+  if (B < 0 || T < 1 || D < 1 || B > 65535 ||
+      (h0 && h0_dtype != 0 && h0_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dh = static_cast<float*>(dh0);
+  if (dtype == 0)
+    return launch_bwd<float>(a, h, g, gT, h0, h0_dtype, da, db, dh, B, T, D, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(a, h, g, gT, h0, h0_dtype, da, db, dh, B,
+                                     T, D, s);
   return (int)cudaErrorInvalidValue;
 }
 

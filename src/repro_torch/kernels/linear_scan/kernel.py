@@ -3,7 +3,8 @@ RG-LRU (``csrc/diag_scan.cu``) and the chunked GLA scan of RWKV6
 (``csrc/linear_scan.cu``).
 
 They replace the Pallas TPU kernels ``diag_scan_kernel`` and
-``gla_scan_kernel`` (``repro/kernels/linear_scan/kernel.py``). The source
+``gla_scan_kernel`` (``repro/kernels/linear_scan/kernel.py``); the diagonal
+scan's backward (``diag_scan_bwd_kernel``) has no TPU counterpart. The source
 note in each ``.cu`` file says what bounds it on the H100 and how its design
 deals with that. ``ops.diag_scan`` and ``ops.gla_scan`` are the wrappers
 that dispatch and count launches.
@@ -28,6 +29,9 @@ _SIGNATURES = {
 _DIAG_SIGNATURES = {
     "diag_scan_fwd": ([_I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P], _I),
     "diag_scan_plan": ([_I] * 4 + [_P] * 7, _I),
+    "diag_scan_bwd": ([_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I] * 3 + [_P],
+                      _I),
+    "diag_scan_bwd_plan": ([_I] * 4 + [_P] * 5, _I),
 }
 D_MAX = 128            # csrc/linear_scan.cu D_MAX (Dk and Dv)
 CHUNK_MAX = 64         # csrc/linear_scan.cu L_MAX
@@ -148,6 +152,65 @@ def diag_scan_kernel(a: torch.Tensor, b: torch.Tensor,
             h.data_ptr(), hT.data_ptr(), B, T, D, stream)
     _build.check(lib, err, "diag_scan_fwd")
     return h, hT
+
+
+def diag_bwd_plan_built(B: int, T: int, D: int, dtype: torch.dtype) -> dict:
+    """How ``csrc/diag_scan.cu`` runs the backward of a [B, T, D] call, as
+    the built library's ``diag_scan_bwd_plan`` gives it (needs ``nvcc``; no
+    launch): blocks, threads a block, time steps a stage, stages and
+    dynamic shared memory a block. Every T takes the one ring kernel."""
+    out = [ctypes.c_int() for _ in range(5)]
+    lib = _build.load("diag_scan", _DIAG_SIGNATURES)
+    err = lib.diag_scan_bwd_plan(_DTYPE_CODE[dtype], B, T, D,
+                                 *map(ctypes.byref, out))
+    _build.check(lib, err, "diag_scan_bwd_plan")
+    keys = ("blocks", "threads", "steps", "stages", "smem_bytes")
+    return dict(zip(keys, (x.value for x in out)))
+
+
+def diag_scan_bwd_kernel(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
+                         h0: Optional[torch.Tensor] = None,
+                         gT: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    Optional[torch.Tensor]]:
+    """Launch the backward ring kernel of ``diag_scan_kernel``. a: its
+    input; h: its output [B, T, D]; g: the cotangent of h; gT: that of
+    h_T ([B, D], None for zeros); h0: the forward's h0 or None. a, h, g and
+    gT are contiguous CUDA tensors of a's dtype (float32 or bfloat16), any
+    T >= 1. Returns (da, db) in a's dtype and dh0 [B, D] in fp32 (None
+    without h0)."""
+    check_diag_inputs(a, g, h0)
+    named = [("h", h)] + ([] if gT is None else [("gT", gT)])
+    B, T, D = a.shape
+    for name, t in named:
+        if not t.is_cuda or t.device != a.device or not t.is_contiguous():
+            raise ValueError(f"diag_scan_bwd kernel: {name} must be a "
+                             f"contiguous tensor on {a.device}")
+        if t.dtype != a.dtype:
+            raise TypeError(f"diag_scan_bwd kernel: a is {a.dtype} but "
+                            f"{name} is {t.dtype}")
+    if tuple(h.shape) != (B, T, D) or (gT is not None
+                                       and tuple(gT.shape) != (B, D)):
+        raise ValueError(f"diag_scan_bwd kernel: h {tuple(h.shape)} or gT "
+                         f"{None if gT is None else tuple(gT.shape)} does "
+                         f"not fit a {tuple(a.shape)}")
+    if h0 is not None and h0.dtype not in _DTYPE_CODE:
+        h0 = h0.float()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = (None if h0 is None else
+           torch.empty((B, D), dtype=torch.float32, device=a.device))
+    lib = _build.load("diag_scan", _DIAG_SIGNATURES)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = lib.diag_scan_bwd(
+            _DTYPE_CODE[a.dtype], a.data_ptr(), h.data_ptr(), g.data_ptr(),
+            None if gT is None else gT.data_ptr(),
+            None if h0 is None else h0.data_ptr(),
+            0 if h0 is None else _DTYPE_CODE[h0.dtype],
+            da.data_ptr(), db.data_ptr(),
+            None if dh0 is None else dh0.data_ptr(), B, T, D, stream)
+    _build.check(lib, err, "diag_scan_bwd")
+    return da, db, dh0
 
 
 # ---------------------------------------------------------------------------

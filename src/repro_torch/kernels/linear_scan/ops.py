@@ -26,6 +26,14 @@ plain version only when the tensors lie on the CPU; on CUDA tensors it
 launches a kernel or raises. ``diag_scan.launches`` counts kernel launches
 and ``diag_scan.launches_by_route`` splits them by route.
 
+Under grad (grad enabled and an input that requires it) ``impl="kernel"``
+goes through ``_DiagScan``: the forward above, and a backward that is the
+same recurrence run backwards in time (``ref.diag_scan_bwd_ref``), on the
+CUDA backward kernel (``kernel.diag_scan_bwd_kernel``, counted by
+``diag_scan.bwd_launches``) on CUDA tensors and the plain version on CPU
+tensors. The reference takes this gradient by autodiff of its sequential
+scan; the kernel has no TPU counterpart.
+
 ``gla_scan`` dispatches between the hand-written CUDA kernels
 (``impl="kernel"``), the chunk-parallel plain-PyTorch path
 (``impl="xla_chunked"``, the mirror of the reference's ``_gla_chunked_xla``:
@@ -53,6 +61,18 @@ the TPU kernel computes) only when the tensors lie on the CPU. On CUDA
 tensors it pads T to a chunk multiple, launches a kernel or raises; it
 never falls back. ``gla_scan.launches`` counts kernel launches and
 ``gla_scan.launches_by_route`` splits them by route.
+
+Under grad ``impl="kernel"`` goes through ``_GLAScan``: the forward above
+on the inputs cast to fp32, so always on the ``"fma"`` route, and a
+backward in plain PyTorch that recomputes ``_gla_chunked`` under autograd
+and takes its gradient, the mirror of ``jax.grad`` through the
+reference's ``_gla_chunked_xla``. The ``"mma"`` route's 16-bit operands
+serve within GLA's bf16 tolerance, but under training they are not
+enough: at full-depth rwkv6-3b's trained params in bf16 compute its
+forward moved a few layer params' gradients 5-8x their size, where the
+chunked plain version moves them 0.3-1x (``tools/rwkv_gla_chunk.py
+--trained``). The backward launches no GLA kernel; ``gla_scan.bwd_calls``
+counts its calls. Serving (no grad) takes neither Function.
 """
 from __future__ import annotations
 
@@ -61,9 +81,15 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .kernel import (DIAG_ROUTES, GLA_ROUTES, diag_route, diag_scan_kernel,
-                     gla_route, gla_scan_kernel)
-from .ref import diag_scan_ref, gla_scan_ref
+from .kernel import (DIAG_ROUTES, GLA_ROUTES, diag_route,
+                     diag_scan_bwd_kernel, diag_scan_kernel, gla_route,
+                     gla_scan_kernel)
+from .ref import diag_scan_bwd_ref, diag_scan_ref, gla_scan_ref
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def diag_scan(a: torch.Tensor, b: torch.Tensor,
@@ -77,13 +103,9 @@ def diag_scan(a: torch.Tensor, b: torch.Tensor,
     sequential oracle). ``chunk`` is the reference's padding unit; neither
     path here needs it."""
     if impl == "kernel":
-        if a.device.type == "cpu":
-            return diag_scan_ref(a, b, h0)
-        out = diag_scan_kernel(a.contiguous(), b.contiguous(),
-                               None if h0 is None else h0.contiguous())
-        diag_scan.launches += 1
-        diag_scan.launches_by_route[diag_route(a.shape[1])] += 1
-        return out
+        if _needs_grad(a, b, h0):
+            return _DiagScan.apply(a, b, h0)
+        return _diag_fwd(a, b, h0)
     if impl == "xla":
         return diag_scan_ref(a, b, h0)
     raise ValueError(f"unknown impl {impl!r}")
@@ -91,6 +113,54 @@ def diag_scan(a: torch.Tensor, b: torch.Tensor,
 
 diag_scan.launches = 0
 diag_scan.launches_by_route = dict.fromkeys(DIAG_ROUTES, 0)
+diag_scan.bwd_launches = 0
+
+
+def _diag_fwd(a, b, h0):
+    """The kernel on CUDA tensors (counted), the oracle on CPU tensors."""
+    if a.device.type == "cpu":
+        return diag_scan_ref(a, b, h0)
+    out = diag_scan_kernel(a.contiguous(), b.contiguous(),
+                           None if h0 is None else h0.contiguous())
+    diag_scan.launches += 1
+    diag_scan.launches_by_route[diag_route(a.shape[1])] += 1
+    return out
+
+
+class _DiagScan(torch.autograd.Function):
+    """``diag_scan`` under grad. Saves a, h0 and the forward's h (h_{t-1}
+    is h shifted by one, h0 in front); the backward walks T from the end
+    with the carry in fp32 and gives da and db in a's dtype and dh0 in
+    h0's."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        ctx.set_materialize_grads(False)
+        h, hT = _diag_fwd(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        ctx.b_dtype = b.dtype
+        return h, hT
+
+    @staticmethod
+    def backward(ctx, g, gT):
+        a, h0, h = ctx.saved_tensors
+        if g is None and gT is None:
+            return None, None, None
+        if g is None:
+            g = torch.zeros_like(h)
+        if a.device.type == "cpu":
+            acc = torch.float64 if a.dtype == torch.float64 else torch.float32
+            first = (torch.zeros_like(h[:, 0], dtype=acc) if h0 is None
+                     else h0.to(acc))
+            h_prev = torch.cat([first[:, None], h[:, :-1].to(acc)], dim=1)
+            da, db, dh0 = diag_scan_bwd_ref(a, h_prev, g, gT)
+        else:
+            da, db, dh0 = diag_scan_bwd_kernel(
+                a.contiguous(), h, g.contiguous(), h0,
+                None if gT is None else gT.contiguous())
+            diag_scan.bwd_launches += 1
+        dh0 = None if h0 is None or dh0 is None else dh0.to(h0.dtype)
+        return da, db.to(ctx.b_dtype), dh0
 
 
 def _pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -109,17 +179,9 @@ def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     "xla_chunked" (chunked plain PyTorch) or "xla" (sequential oracle).
     """
     if impl == "kernel":
-        if r.device.type == "cpu":
-            return _gla_chunked(r, k, v, w, u, chunk=chunk)
-        T = r.shape[1]
-        c = min(chunk, T)
-        pad = (-T) % c
-        o, S = gla_scan_kernel(*(_pad_time(x, pad).contiguous()
-                                 for x in (r, k, v, w)),
-                               u.contiguous(), chunk=c)
-        gla_scan.launches += 1
-        gla_scan.launches_by_route[gla_route(r.dtype)] += 1
-        return (o[:, :T] if pad else o), S
+        if _needs_grad(r, k, v, w, u):
+            return _GLAScan.apply(r, k, v, w, u, chunk)
+        return _gla_fwd(r, k, v, w, u, chunk)
     if impl == "xla":
         return gla_scan_ref(r, k, v, w, u)
     if impl == "xla_chunked":
@@ -129,6 +191,56 @@ def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 gla_scan.launches = 0
 gla_scan.launches_by_route = dict.fromkeys(GLA_ROUTES, 0)
+gla_scan.bwd_calls = 0
+
+
+def _gla_fwd(r, k, v, w, u, chunk):
+    """The kernel on CUDA tensors (T padded to a chunk multiple; counted),
+    ``_gla_chunked`` on CPU tensors."""
+    if r.device.type == "cpu":
+        return _gla_chunked(r, k, v, w, u, chunk=chunk)
+    T = r.shape[1]
+    c = min(chunk, T)
+    pad = (-T) % c
+    o, S = gla_scan_kernel(*(_pad_time(x, pad).contiguous()
+                             for x in (r, k, v, w)),
+                           u.contiguous(), chunk=c)
+    gla_scan.launches += 1
+    gla_scan.launches_by_route[gla_route(r.dtype)] += 1
+    return (o[:, :T] if pad else o), S
+
+
+class _GLAScan(torch.autograd.Function):
+    """``gla_scan`` under grad: the forward of ``_gla_fwd`` on fp32 casts of
+    the inputs (the ``"fma"`` route; o back in v's dtype); the backward
+    recomputes ``_gla_chunked`` from the saved r, k, v, w and u under
+    autograd and takes its gradient for the cotangents of o and (where it
+    has one) S_T."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.chunk = chunk
+        o, S = _gla_fwd(*(x.float() for x in (r, k, v, w, u)), chunk)
+        return o.to(v.dtype), S
+
+    @staticmethod
+    def backward(ctx, go, gS):
+        gla_scan.bwd_calls += 1
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            o, S = _gla_chunked(*inputs, chunk=ctx.chunk)
+        outs = [(y, gy) for y, gy in ((o, go), (S, gS)) if gy is not None]
+        wanted = [t for t in inputs if t.requires_grad]
+        if not outs or not wanted:
+            return (None,) * 6
+        got = iter(torch.autograd.grad([y for y, _ in outs],
+                                       wanted, [gy for _, gy in outs],
+                                       allow_unused=True))
+        return tuple(next(got) if t.requires_grad else None
+                     for t in inputs) + (None,)
 
 
 def _gla_chunked(r, k, v, w, u, *, chunk: int = 64):

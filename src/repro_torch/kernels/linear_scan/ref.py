@@ -42,6 +42,34 @@ def diag_scan_ref(a: torch.Tensor, b: torch.Tensor,
     return out.to(a.dtype), h.to(a.dtype)
 
 
+def diag_scan_bwd_ref(a: torch.Tensor, h_prev: torch.Tensor, g: torch.Tensor,
+                      gT: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``diag_scan_ref``: a diagonal scan run backwards in
+    time. a, g: [B, T, D] (g the cotangent of h); h_prev: [B, T, D], h_{t-1}
+    (the forward's h shifted by one, h0 or zeros in front); gT: [B, D], the
+    cotangent of h_T, or None. With the carry mu in fp32 (mu = gT or 0 before
+    the last step), walking t = T-1 down to 0:
+
+        lam_t = g_t + mu,  db_t = lam_t,  da_t = lam_t * h_{t-1},
+        mu = a_t * lam_t,
+
+    each multiply and add rounded apart. Returns (da, db) in a's dtype and
+    dh0 = a_0 lam_0 [B, D] in the carry's dtype."""
+    B, T, D = a.shape
+    acc = _acc_dtype(a)
+    mu = (torch.zeros((B, D), dtype=acc, device=a.device) if gT is None
+          else gT.to(acc))
+    af, hf, gf = a.to(acc), h_prev.to(acc), g.to(acc)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(T - 1, -1, -1):
+        lam = gf[:, t] + mu
+        db[:, t] = lam.to(a.dtype)
+        da[:, t] = (lam * hf[:, t]).to(a.dtype)
+        mu = af[:, t] * lam
+    return da, db, mu
+
+
 def gla_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  w: torch.Tensor, u: torch.Tensor,
                  s0: Optional[torch.Tensor] = None

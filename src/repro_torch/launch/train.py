@@ -6,10 +6,14 @@ The token dataset is written through the port's ``BufferPool``
 (``synthetic_token_dataset``) and read back by ``BatchLoader``; each batch
 moves to the device for its step. Attention's forward runs the flash
 kernel (``LM(attn_impl="kernel")``, with the rows' lse written) and its
-backward the plain mirror of the reference's custom VJP; the optimizer is
-the port's AdamW. Checkpoints go through the port's ``CheckpointManager``
+backward the plain mirror of the reference's custom VJP; RWKV6's wkv runs
+the GLA-scan kernel forward and a plain backward by recompute, RG-LRU's
+diagonal scan its forward and backward kernels; the optimizer is the
+port's AdamW. Checkpoints go through the port's ``CheckpointManager``
 with the reference's layouts, shard count and flattened keys, so either
-package restores the other's. Training is ported for the dense family.
+package restores the other's. Training is ported for the dense, ssm
+(rwkv6-3b) and hybrid (recurrentgemma-9b) families; ``LM.loss`` raises
+for the others.
 
 Run: ``python -m repro_torch.launch.train --arch qwen3-0.6b`` on the card,
 or ``--smoke --device cpu`` for a small CPU run.
@@ -77,11 +81,13 @@ def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
                  params=None) -> TrainLoopResult:
     """Train on synthetic data staged through the Pangea buffer pool.
 
-    ``params``: initial params (e.g. the reference's, bridged); by default
-    ``LM.init`` draws them from a ``torch.Generator`` seeded with ``seed``
-    on ``device``. ``fail_at_step`` simulates a crash (raises
-    ``SimulatedFailure``, a ``RuntimeError``); calling run_training again
-    with the same ``ckpt_dir`` restores and continues.
+    ``params``: initial params (e.g. the reference's, bridged; the train
+    step updates them in place); by default ``LM.init`` draws them from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``. A checkpoint
+    copies the state to the host before the next step updates it.
+    ``fail_at_step`` simulates a crash (raises ``SimulatedFailure``, a
+    ``RuntimeError``); calling run_training again with the same
+    ``ckpt_dir`` restores and continues.
     """
     dev = resolve_device(device)
     model = build_model(cfg, device=dev)

@@ -571,13 +571,24 @@ def _token_shift(x, prev):
     return shifted
 
 
+# the wkv's chunk: the reference's fixed 64, and 16 under grad. The chunked
+# factorisation scales by e^{a chunk's summed |log decays|}, which passes
+# fp32's range beyond 88: training full-width rwkv6-3b at 64 overflows
+# (its loss is NaN from step 2, tools/rwkv_gla_chunk.py); a chunk of 16
+# sums a quarter as many decays. Both chunks compute the same scan.
+GLA_CHUNK = 64
+TRAIN_GLA_CHUNK = 16
+
+
 def rwkv_apply(p, x, *, cfg: ArchConfig, state: Optional[Dict] = None,
                scan_impl: str = "kernel"):
     """Returns (y, new_state). state: {"tm_x", "cm_x": [B, d], "S":
     [B, H, dk, dv]}. With T > 1 the wkv runs from a zero state (any incoming
     ``S`` is ignored, as in the reference); with ``state`` and T == 1 it is
     one decode step. dtypes follow the reference's promotions: with bf16
-    weights the time mix runs in bf16, the decode state in fp32."""
+    weights the time mix runs in bf16, the decode state in fp32. The wkv
+    is chunked at the reference's ``GLA_CHUNK``, and at
+    ``TRAIN_GLA_CHUNK`` under grad."""
     B, T, d = x.shape
     hd = cfg.rwkv_head_dim
     H = d // hd
@@ -612,7 +623,10 @@ def rwkv_apply(p, x, *, cfg: ArchConfig, state: Optional[Dict] = None,
         S = torch.exp(wh[:, 0])[:, :, None] * S + kv
         new_S = S.reshape(B, H, hd, hd)
     else:
-        o, Sf = gla_scan(rh, kh, vh, wh, u, impl=scan_impl)
+        train = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (rh, kh, vh, wh, u))
+        o, Sf = gla_scan(rh, kh, vh, wh, u, impl=scan_impl,
+                         chunk=TRAIN_GLA_CHUNK if train else GLA_CHUNK)
         new_S = Sf.reshape(B, H, hd, hd)
     o = o.reshape(B, H, T, hd).transpose(1, 2).reshape(B, T, d)
     # per-head group norm: an rms norm (eps 1e-6) scaled by ln_x

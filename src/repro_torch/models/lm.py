@@ -12,14 +12,17 @@ cross-loadable. The reference scans layers with ``lax.scan``; PyTorch runs
 eagerly, so here it is a Python loop over the stacked dim.
 
 Training (``loss``, gradients through ``forward``) is ported for the dense
-family. ``forward`` takes the layers with one ``unbind`` of each cast
+family and the recurrent ones (ssm: RWKV6; hybrid: RG-LRU and local
+attention). ``forward`` takes the layers with one ``unbind`` of each cast
 stacked leaf (under autograd its backward is one ``stack``; slicing layer
 i would write a zero tensor of the whole stack for each layer's
 gradient), and when grad is enabled, a param requires it and
-``cfg.remat == "layer"``, it rematerialises each layer
-(``torch.utils.checkpoint``, non-reentrant), as the reference's
-``jax.checkpoint`` of the scanned body. With no grad, ``unbind`` gives the
-same views as slicing, so serving computes what it did.
+``cfg.remat == "layer"``, it rematerialises each layer, or each hybrid
+superblock (``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint`` of the scanned body; the hybrid's ``rem`` layers, which
+the reference applies outside its scan, are not rematerialised. With no
+grad, ``unbind`` gives the same views as slicing, so serving computes what
+it did.
 """
 from __future__ import annotations
 
@@ -41,10 +44,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 AUX_COEF = 0.01
 
-# the ROADMAP items that carry training past the dense family
-TRAIN_ITEMS = {"ssm": "Training: the recurrent families",
-               "hybrid": "Training: the recurrent families",
-               "moe": "Training: MoE",
+# the ROADMAP items that carry training past the dense and recurrent families
+TRAIN_ITEMS = {"moe": "Training: MoE",
                "encdec": "Training: enc-dec and VLM",
                "vlm": "Training: enc-dec and VLM"}
 
@@ -323,14 +324,17 @@ class LM:
         x = self._embed(params, batch)
         positions = self._positions(batch, x.shape[1])
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        remat = train and self.cfg.remat == "layer"
         if self.cfg.family == "hybrid":
             n_super, _ = self._hybrid_split()
-            for j in range(n_super):
-                x, _ = self._superblock_apply(_layer(params["layers"], j), x,
-                                              positions)
+            for lp in _unstack(params["layers"], n_super):
+                if remat:
+                    x, _ = checkpoint(self._superblock_apply, lp, x,
+                                      positions, use_reentrant=False)
+                else:
+                    x, _ = self._superblock_apply(lp, x, positions)
             x, _ = self._rem_apply(params, x, [None] * len(params["rem"]))
         else:
-            remat = train and self.cfg.remat == "layer"
             for lp in _unstack(params["layers"], self.cfg.n_layers):
                 if remat:
                     x, _, a = checkpoint(self._layer_apply, lp, x, positions,
@@ -341,9 +345,9 @@ class LM:
         return self._logits(params, x), aux
 
     def _check_trainable(self) -> None:
-        """Gradients are ported for the dense family only: the scan and MoE
-        kernels have no backward."""
-        if self.cfg.family != "dense":
+        """Gradients are ported for the dense, ssm and hybrid families; MoE
+        (the shuffle kernels have no backward) and the VLM are not yet."""
+        if self.cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{self.cfg.name}: training the {self.cfg.family!r} family "
                 f"is not ported yet (ROADMAP queue 1, "

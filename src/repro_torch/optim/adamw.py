@@ -2,10 +2,15 @@
 archs), written by hand as the JAX package's ``optim/adamw.py``.
 
 ``torch.optim.AdamW`` is not a port of it: it decays every param, where
-the reference decays only the leaves of rank >= 2. The update is
-functional: it returns new tensors and changes none it was given, so that
-an asynchronous checkpoint of a state never sees the next step's values.
-Moments are kept in ``opt_state_dtype``; the arithmetic runs in fp32.
+the reference decays only the leaves of rank >= 2. ``adamw_update`` is
+functional, as the reference's: it returns new tensors and changes none
+it was given. ``adamw_apply``, the train step's update, writes the same
+values into the state's own tensors and frees each gradient as it goes,
+as the reference's ``run_training`` donates the state to its jitted step
+(``donate_argnums=(0,)``): a 3 B-param fp32 state is 37 GB and its
+gradients 12 GB, so old state, gradients and new state do not fit one
+card together. Moments are kept in ``opt_state_dtype``; the arithmetic
+runs in fp32.
 """
 from __future__ import annotations
 
@@ -44,6 +49,18 @@ def adamw_init(params: Pytree, dtype: str = "float32") -> AdamWState:
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
+def _leaf_update(p, g, m, v, t, lr, b1, b2, eps, weight_decay):
+    """One leaf's new (param, m, v), at step ``t`` (fp32)."""
+    gf = g.float()
+    mf = b1 * m.float() + (1 - b1) * gf
+    vf = b2 * v.float() + (1 - b2) * gf * gf
+    update = (mf / (1.0 - b1 ** t)) / (torch.sqrt(vf / (1.0 - b2 ** t)) + eps)
+    if p.dim() >= 2:  # decay matrices only (standard practice)
+        update = update + weight_decay * p.float()
+    newp = p.float() - lr * update
+    return newp.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
+
+
 @torch.no_grad()
 def adamw_update(params: Pytree, grads: Pytree, state: AdamWState, *,
                  lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
@@ -53,23 +70,31 @@ def adamw_update(params: Pytree, grads: Pytree, state: AdamWState, *,
     new."""
     step = state.step + 1
     t = step.float()
-    bc1 = 1.0 - b1 ** t
-    bc2 = 1.0 - b2 ** t
-
-    def upd(p, g, m, v):
-        gf = g.float()
-        mf = b1 * m.float() + (1 - b1) * gf
-        vf = b2 * v.float() + (1 - b2) * gf * gf
-        update = (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
-        if p.dim() >= 2:  # decay matrices only (standard practice)
-            update = update + weight_decay * p.float()
-        newp = p.float() - lr * update
-        return newp.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
-
-    out = [upd(p, g, m, v) for p, g, m, v in
-           zip(_leaves(params), _leaves(grads), _leaves(state.m),
-               _leaves(state.v))]
+    out = [_leaf_update(p, g, m, v, t, lr, b1, b2, eps, weight_decay)
+           for p, g, m, v in zip(_leaves(params), _leaves(grads),
+                                 _leaves(state.m), _leaves(state.v))]
     new_p = _unflatten_like(params, [o[0] for o in out])
     new_m = _unflatten_like(params, [o[1] for o in out])
     new_v = _unflatten_like(params, [o[2] for o in out])
     return new_p, AdamWState(step=step, m=new_m, v=new_v)
+
+
+@torch.no_grad()
+def adamw_apply(params: Pytree, grads: list, state: AdamWState, *,
+                lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
+                eps: float = 1e-8, weight_decay: float = 0.1):
+    """``adamw_update`` in place: the new params and moments (the same
+    values, bit for bit) are written into ``params``' and ``state``'s own
+    tensors, which are returned with the new step. ``grads`` is a list of
+    leaves in the params' leaf order; each entry is set to None once its
+    leaf is updated, so that the gradients are freed as the update goes."""
+    step = state.step + 1
+    t = step.float()
+    for i, (p, m, v) in enumerate(zip(_leaves(params), _leaves(state.m),
+                                      _leaves(state.v))):
+        g, grads[i] = grads[i], None
+        for old, new in zip((p, m, v), _leaf_update(p, g, m, v, t, lr, b1,
+                                                    b2, eps, weight_decay)):
+            old.copy_(new)
+        del g
+    return params, AdamWState(step=step, m=state.m, v=state.v)

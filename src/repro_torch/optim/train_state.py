@@ -12,8 +12,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from .adamw import AdamWState, _leaves, _unflatten_like, adamw_init, \
-    adamw_update
+from .adamw import AdamWState, _leaves, _unflatten_like, adamw_apply, \
+    adamw_init
 
 Pytree = Any
 
@@ -36,7 +36,10 @@ def make_train_step(loss_fn: Callable[[Pytree, Any], torch.Tensor], *,
     the batch's leading dim in a Python loop (the reference's ``lax.scan``)
     and divides by their count; the loss is the mean of the slices' losses.
     Metrics: ``loss``, ``grad_norm`` (of the averaged gradients, in fp32)
-    and ``step``, as 0-d tensors.
+    and ``step``, as 0-d tensors. The state passed in is donated, as the
+    reference's ``run_training`` jits the step with ``donate_argnums=(0,)``:
+    its params and moments are updated in place (``adamw_apply``) and it
+    may not be read as the old state afterwards.
     """
 
     def grads_of(params, batch):
@@ -61,11 +64,12 @@ def make_train_step(loss_fn: Callable[[Pytree, Any], torch.Tensor], *,
                 loss = loss + l_i.float()
             grads = [g / microbatches for g in gsum]
             loss = loss / microbatches
-        grads = _unflatten_like(params, list(grads))
-        new_params, new_opt = adamw_update(params, grads, state.opt, lr=lr,
-                                           weight_decay=weight_decay)
+        grads = list(grads)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in _leaves(grads)))
+                               for g in grads))
+        # the update empties the list as it goes (``adamw_apply``)
+        new_params, new_opt = adamw_apply(params, grads, state.opt, lr=lr,
+                                          weight_decay=weight_decay)
         metrics = {"loss": loss, "grad_norm": gnorm, "step": new_opt.step}
         return TrainState(new_params, new_opt), metrics
 

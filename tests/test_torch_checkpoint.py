@@ -12,6 +12,7 @@ in as they are (a bf16 tensor is stored as the reference stores a bf16
 array) and come back in a torch template's dtypes.
 """
 import os
+import threading
 import zlib
 
 import ml_dtypes
@@ -122,6 +123,25 @@ def test_async_save_and_gc(tmp_path):
     assert mgr.latest_step() == 4
     dirs = sorted(d for d in os.listdir(tmp_path) if d.startswith("step_"))
     assert len(dirs) == 2
+
+
+def test_async_save_owns_its_copy_of_cpu_tensors(tmp_path):
+    """A save of CPU tensors copies them before it returns: the donated
+    train step then updates the state in place while the save writes."""
+    mgr = CheckpointManager(str(tmp_path), layouts=("row",), num_shards=2)
+    st = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8),
+          "b": torch.ones(8, dtype=torch.bfloat16)}
+    want = {k: v.clone() for k, v in st.items()}
+    gate, write = threading.Event(), mgr._write
+    mgr._write = lambda step, flat: (gate.wait(), write(step, flat))
+    mgr.save(1, st, async_=True)
+    for t in st.values():           # before the save's thread writes
+        t.add_(100)
+    gate.set()
+    mgr.wait()
+    back = mgr.restore({k: torch.zeros_like(v) for k, v in st.items()},
+                       step=1)
+    _assert_bits_equal(back, want)
 
 
 def test_restore_missing_raises(tmp_path):

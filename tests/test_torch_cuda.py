@@ -23,7 +23,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.linear_scan import kernel as scan_kernel
 from repro_torch.kernels.linear_scan.ops import diag_scan, gla_scan
-from repro_torch.kernels.linear_scan.ref import gla_scan_ref
+from repro_torch.kernels.linear_scan.ref import (diag_scan_bwd_ref,
+                                                 diag_scan_ref, gla_scan_ref)
 from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.shuffle_dispatch import kernel as shuffle_kernel
@@ -31,6 +32,7 @@ from repro_torch.kernels.shuffle_dispatch.ops import (combine, compute_slots,
                                                       dispatch)
 from repro_torch.launch.serve import Request, ServeLoop
 from repro_torch.models import blocks
+from repro_torch.models.lm import tree_map
 from repro_torch.models.model import build_model
 from repro_torch.models.moe_shardmap import moe_shardmap_apply
 
@@ -978,6 +980,142 @@ def test_hybrid_kernel_path_matches_plain_path(cuda_device):
     dk, _ = kern.decode_step(params, {"tokens": nxt}, ck, 70)
     dp, _ = plain.decode_step(params, {"tokens": nxt}, cp, 70)
     _close(dk, dp, rtol=1e-4, atol=1e-4)
+
+
+# -- the recurrent families' training path -----------------------------------
+# the diagonal scan's backward: the forward's cases at small widths, T = 1,
+# a width that is not whole 16-byte rows, and recurrentgemma-9b's training
+# shape (4 x 512 tokens of d_model 4096)
+DIAG_BWD_CASES = [  # B, T, D
+    (2, 1, 16),
+    (2, 37, 16),
+    (2, 64, 16),
+    (2, 77, 33),
+    (1, 100, 8),
+    (4, 512, 4096),
+]
+
+
+def _diag_bwd_inputs(B, T, D, dt, device, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.sigmoid(torch.from_numpy(rng.normal(size=(B, T, D))))
+    b, g = (torch.from_numpy(rng.normal(size=(B, T, D))) for _ in range(2))
+    h0, gT = (torch.from_numpy(rng.normal(size=(B, D))) for _ in range(2))
+    return [x.to(device, dt) for x in (a, b, g)] + [h0.to(device).float(),
+                                                   gT.to(device, dt)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DIAG_BWD_CASES)
+def test_diag_bwd_kernel_matches_plain_bit_for_bit(case, dtype, cuda_device):
+    """The backward ring kernel against ``diag_scan_bwd_ref`` on the
+    forward's own h, with and without h0 and a cotangent of h_T: da, db and
+    dh0 are its bits (both walk each channel from the last step down and
+    round the multiply and the add apart)."""
+    B, T, D = case
+    a, b, g, h0, gT = _diag_bwd_inputs(B, T, D, DTYPES[dtype], cuda_device,
+                                       T + D)
+    for init, cot in ((None, None), (h0, None), (h0, gT), (h0.bfloat16(),
+                                                           gT)):
+        h, _ = diag_scan(a, b, init, impl="kernel")
+        da, db, dh0 = scan_kernel.diag_scan_bwd_kernel(a, h, g, init, cot)
+        torch.cuda.synchronize()
+        first = (torch.zeros_like(h[:, 0], dtype=torch.float32)
+                 if init is None else init.float())
+        h_prev = torch.cat([first[:, None], h[:, :-1].float()], dim=1)
+        ra, rb, r0 = diag_scan_bwd_ref(a, h_prev, g, cot)
+        assert da.dtype == db.dtype == a.dtype
+        assert torch.equal(da, ra) and torch.equal(db, rb)
+        if init is None:
+            assert dh0 is None
+        else:
+            assert dh0.dtype == torch.float32 and torch.equal(dh0, r0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_diag_scan_function_grads_on_the_card(dtype, cuda_device):
+    """``_DiagScan``'s da, db, dh0 through the forward and backward kernels
+    (one launch each) against fp64 autograd of the plain version, at 3e-4
+    (fp32) and 2e-2 (bf16)."""
+    a, b, g, h0, gT = _diag_bwd_inputs(3, 200, 40, DTYPES[dtype],
+                                       cuda_device, 5)
+    leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    before = diag_scan.launches, diag_scan.bwd_launches
+    h, hT = diag_scan(*leaves, impl="kernel")
+    torch.autograd.backward([h, hT], [g, gT])
+    assert (diag_scan.launches, diag_scan.bwd_launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    ref = [t.double().requires_grad_(True) for t in (a, b, h0)]
+    rh, rT = diag_scan_ref(*ref)
+    torch.autograd.backward([rh, rT], [g.double(), gT.double()])
+    tol = 3e-4 if dtype == "float32" else 2e-2
+    for t, r in zip(leaves, ref):
+        _close(t.grad, r.grad, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gla_scan_function_grads_on_the_card(dtype, cuda_device):
+    """``_GLAScan``'s gradients (the kernel forward, on the fp32 ``fma``
+    route for either dtype, o in the inputs' dtype; the plain backward by
+    recompute, no GLA launch in it) against fp64 autograd of the exact
+    scan, at 3e-4 (fp32) and 2e-2 (bf16)."""
+    inputs = _gla_inputs(np.random.default_rng(12), 4, 100, 16, 16, -2.0,
+                         DTYPES[dtype], cuda_device, rk_scale=0.25)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    go = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(4, 100, 16))).to(cuda_device)
+    before = (gla_scan.launches, gla_scan.bwd_calls,
+              gla_scan.launches_by_route["fma"])
+    o, _ = gla_scan(*leaves, impl="kernel", chunk=64)
+    (o.float() * go.float()).sum().backward()
+    assert o.dtype == DTYPES[dtype]
+    assert (gla_scan.launches, gla_scan.bwd_calls,
+            gla_scan.launches_by_route["fma"]) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    ref = [t.double().requires_grad_(True) for t in inputs]
+    ro, _ = gla_scan_ref(*ref)
+    (ro * go).sum().backward()
+    tol = 3e-4 if dtype == "float32" else 2e-2
+    for t, r in zip(leaves, ref):
+        _close(t.grad, r.grad, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
+def test_recurrent_lm_grads_on_the_card(arch, cuda_device):
+    """Smoke rwkv6-3b and recurrentgemma-9b in fp32: loss and every param's
+    gradient through the kernels (GLA forward a layer; the diagonal scan's
+    forward and backward a RG-LRU layer; flash a local-attention layer)
+    against the plain path's, at 1e-4."""
+    cfg = smoke_config(arch).with_(compute_dtype="float32")
+    kern = build_model(cfg)
+    plain = build_model(cfg, attn_impl="xla", scan_impl="xla" if
+                        cfg.family == "hybrid" else "xla_chunked")
+    params = kern.init(torch.Generator("cuda").manual_seed(0))
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 40))
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
+    counts = (gla_scan.launches, gla_scan.bwd_calls, diag_scan.launches,
+              diag_scan.bwd_launches)
+    flat, grads = [], []
+    tree_map(flat.append, params)
+    for model in (kern, plain):
+        leaves = [t.detach().clone().requires_grad_(True) for t in flat]
+        it = iter(leaves)
+        loss = model.loss(tree_map(lambda _: next(it), params), batch)
+        grads.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    rec = sum(k == "rec" for k in cfg.block_pattern) + 1 \
+        if cfg.family == "hybrid" else 0
+    gla = cfg.n_layers if cfg.family == "ssm" else 0
+    assert (gla_scan.launches - counts[0], gla_scan.bwd_calls - counts[1],
+            diag_scan.launches - counts[2],
+            diag_scan.bwd_launches - counts[3]) == (gla, gla, rec, rec)
+    _close(grads[0][0], grads[1][0], rtol=1e-4, atol=1e-4)
+    for x, y in zip(grads[0][1], grads[1][1]):
+        _close(x, y, rtol=1e-4, atol=1e-4)
 
 
 # -- the serving tier on the card ---------------------------------------------

@@ -20,7 +20,8 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
-from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
+from repro_torch.optim import (AdamWState, adamw_apply, adamw_init,
+                               adamw_update,
                                compress_int8, compressed_allreduce,
                                decompress_int8, make_train_step)
 from repro_torch.optim.train_state import TrainState, make_train_state
@@ -71,8 +72,9 @@ def test_train_step_microbatching_matches_full_batch():
         return torch.mean((pred - batch["y"]) ** 2)
 
     batch = {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
-    s1 = make_train_state({"w": torch.from_numpy(w)})
-    s2 = make_train_state({"w": torch.from_numpy(w)})
+    # each state its own copy of w: the step updates its params in place
+    s1 = make_train_state({"w": torch.tensor(w)})
+    s2 = make_train_state({"w": torch.tensor(w)})
     s1b, m1 = make_train_step(loss, lr=1e-2)(s1, batch)
     s2b, m2 = make_train_step(loss, lr=1e-2, microbatches=4)(s2, batch)
     # microbatched grads average per-microbatch MEANS == full-batch mean here
@@ -157,6 +159,43 @@ def test_adamw_update_equals_the_reference(moments):
     assert np.array_equal(_np(t0["w"]), before)
 
 
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_donated_step_updates_in_place_to_the_same_bits(moments):
+    """The train step (its state donated, as the reference's jit donates
+    it) writes the functional ``adamw_update``'s values, bit for bit, into
+    the state's own tensors; ``adamw_apply`` frees each gradient as it
+    goes."""
+    w, x, y = _linear_problem()
+    batch = {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
+
+    def loss(p, b):
+        return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+
+    plain = make_train_state({"w": torch.tensor(w)}, moments)
+    given_ = make_train_state({"w": torch.tensor(w)}, moments)
+    tensors = (given_.params["w"], given_.opt.m["w"], given_.opt.v["w"])
+    step = make_train_step(loss, lr=1e-2)
+    for _ in range(3):
+        leaf = plain.params["w"].detach().requires_grad_(True)
+        g, = torch.autograd.grad(loss({"w": leaf}, batch), [leaf])
+        params, opt = adamw_update(plain.params, {"w": g}, plain.opt,
+                                   lr=1e-2)
+        plain = TrainState(params, opt)
+        given_, gm = step(given_, batch)
+    assert all(a is b for a, b in zip(
+        (given_.params["w"], given_.opt.m["w"], given_.opt.v["w"]), tensors))
+    assert int(given_.opt.step) == int(plain.opt.step) == 3
+    for a, b in ((given_.params, plain.params), (given_.opt.m, plain.opt.m),
+                 (given_.opt.v, plain.opt.v)):
+        assert torch.equal(a["w"], b["w"]) and a["w"].dtype == b["w"].dtype
+    assert float(gm["grad_norm"]) == float(torch.sqrt(torch.sum(
+        torch.square(g))))
+    grads = [torch.ones(8, 4)]
+    adamw_apply({"w": torch.zeros(8, 4)}, grads, adamw_init(
+        {"w": torch.zeros(8, 4)}, moments))
+    assert grads == [None]
+
+
 @pytest.mark.parametrize("microbatches", [1, 4])
 @pytest.mark.parametrize("moments", ["float32", "bfloat16"])
 def test_train_step_equals_the_reference(microbatches, moments):
@@ -173,7 +212,7 @@ def test_train_step_equals_the_reference(microbatches, moments):
         pred = batch["x"] @ p["w"] + p["b"]
         return jnp.mean((pred - batch["y"]) ** 2)
 
-    ts = make_train_state({"w": torch.from_numpy(w), "b": torch.from_numpy(b)},
+    ts = make_train_state({"w": torch.tensor(w), "b": torch.tensor(b)},
                           moments)
     js = ref_state({"w": jnp.asarray(w), "b": jnp.asarray(b)}, moments)
     t_step = make_train_step(t_loss, lr=1e-2, microbatches=microbatches)
