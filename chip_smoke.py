@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs its serving path, its
-storage tier, its trainer (dense and recurrent families), MLA, the
+storage tier, its trainer (dense, recurrent and MoE families, MLA), the
 encoder-decoder and M-RoPE on a GPU.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (Hopper,
@@ -100,6 +100,17 @@ non-zero exit):
    kernel) against fp64 autograd of the plain versions at rwkv6-3b's and
    recurrentgemma-9b's training shapes (3e-4 fp32, 2e-2 bf16), and the
    GLA's plain backward timed beside its bound (a ``scan_train`` line);
+   then the MoE families' training path at deepseek-v2-lite-16b's
+   training shape (8 x 512 tokens, top-6 of 64 experts a row: 24576 pairs
+   over 512 buffers of C = 60, D = 2048): ``_Dispatch``'s and
+   ``_Combine``'s gradients on the kernels (each one's backward a launch
+   of the other's kernel, dgates plain) against ``dispatch_bwd_ref`` /
+   ``combine_bwd_ref`` (1e-5 fp32, 2e-2 bf16), one forward and one
+   backward launch each, dispatch's on the walk; the device ms of
+   dispatch's forward, of combine as dispatch's backward, of dispatch as
+   combine's backward and of the plain dgates, each beside its byte bound,
+   its plain version and ``index_add_`` or the gated-mask einsum (a
+   ``moe_train`` line);
 4. serve: full-width qwen3-0.6b ``ServeLoop`` answers 8 requests of 512
    prompt tokens and 32 new tokens with a page pool too small to hold them,
    prefill through the flash kernel;
@@ -227,7 +238,22 @@ non-zero exit):
     tokens over 16 repeated sequences, every RG-LRU layer's scan on the
     diagonal-scan kernels forward and backward, the local attention on
     flash at D = 256: the same checks, ``scan_impl="kernel"`` against
-    ``"xla"`` (the sequential oracle); a ``train_hybrid`` line.
+    ``"xla"`` (the sequential oracle); a ``train_hybrid`` line;
+23. train: deepseek-v2-lite-16b at full width and 4 of its 27 layers (MLA
+    over MoE; 2.76 B fp32 params, 44.1 GB with gradients and fp32 moments)
+    for 12 steps of 8 x 512 tokens over phase 15's 32 repeated sequences,
+    remat per layer, every MLA layer's attention on flash (D = 192, Dv =
+    128, with lse) and every MoE layer's dispatch and combine on the
+    shuffle kernels forward and backward (dispatch's gradient a combine
+    launch with unit gates; combine's a dispatch launch of the
+    gate-weighted rows on the walk, its gate gradient plain): losses
+    finite and falling; a profiled warm step (forward, attention's plain
+    backward, the dispatch and combine backward nodes, the shuffle
+    kernels' own ms, the rest, AdamW, idle share); one step from the
+    trained params with attention and MoE on the kernels against both on
+    ``"xla"`` (the chunked attention, the dense dispatch mask): the loss
+    within 2e-2 in bf16 compute, loss and grad norm in fp32 compute; a
+    ``train_moe`` line.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5
 (flash and paged attention: the qwen3 path), zeroed again just before phase
@@ -256,7 +282,11 @@ call of its plain backward a layer a step; no other kernel), and again
 just before phase 22's training run and read just after it (the diagonal
 scan: 6 forward launches a step, 2 x 2 in the rematerialised superblock
 and 2 in the ``rem`` layers, all on the ring, and 4 backward launches;
-flash: 2 a step, all wgmma with lse; no other kernel). Each serve phase
+flash: 2 a step, all wgmma with lse; no other kernel), and again just
+before phase 23's training run and read just after it (a layer a step:
+flash 2, all wgmma with lse; dispatch 3, all on the walk, the forward, its
+remat recompute and combine's backward; combine 3, the same with
+dispatch's backward; one plain dgates; no other kernel). Each serve phase
 fails unless every kernel of its path made exactly the launches its
 layers and batches call for, every flash launch of a serve phase on the
 wgmma route, every GLA launch of a serve phase on the tensor-core route,
@@ -323,7 +353,9 @@ from repro_torch.kernels.paged_attention import kernel as paged_kernel  # noqa: 
 from repro_torch.kernels.paged_attention.ops import paged_attention  # noqa: E402
 from repro_torch.kernels.shuffle_dispatch import kernel as shuffle_kernel  # noqa: E402
 from repro_torch.kernels.shuffle_dispatch.ops import (  # noqa: E402
-    combine, compute_slots, dispatch)
+    combine, combine_dgates, compute_slots, dispatch)
+from repro_torch.kernels.shuffle_dispatch.ref import (  # noqa: E402
+    combine_bwd_ref, dispatch_bwd_ref)
 from repro_torch.launch.serve import Request, ServeLoop  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     SimulatedFailure, run_training, state_to)
@@ -2035,6 +2067,129 @@ def check_shuffle_deepseek(rng):
     return entries, worst, work
 
 
+def moe_grads_close(x, y, gates, eid, slot, R, C, wd, wc, what):
+    """``_Dispatch`` and ``_Combine`` on the kernels (each one's backward a
+    launch of the other's kernel, dgates plain) against
+    ``dispatch_bwd_ref`` / ``combine_bwd_ref`` on the same cotangents, at
+    SHUFFLE_TOL; fails unless each Function made exactly one forward and
+    one backward launch, dispatch's both on the walk. Returns the max abs
+    error."""
+    dtype = x.dtype
+    leaves = [t.clone().requires_grad_(True) for t in (x, y, gates)]
+    counts = (dispatch.launches_by_route["walk"], combine.launches,
+              dispatch.bwd_launches, combine.bwd_launches, combine.bwd_calls)
+    buf = dispatch(leaves[0], eid, slot, R, C, impl="kernel")
+    out = combine(leaves[1], eid, slot, leaves[2], x.shape[0], impl="kernel")
+    torch.autograd.backward([buf, out], [wd, wc])
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(
+        (dispatch.launches_by_route["walk"], combine.launches,
+         dispatch.bwd_launches, combine.bwd_launches, combine.bwd_calls),
+        counts)]
+    if moved != [2, 2, 1, 1, 1]:
+        _fail(f"moe_train {what}: launches (walk, combine, dispatch bwd, "
+              f"combine bwd, dgates calls) moved by {moved}, not "
+              f"[2, 2, 1, 1, 1]")
+    want = (dispatch_bwd_ref(wd, eid, slot),
+            *combine_bwd_ref(wc, y, eid, slot, gates))
+    err = 0.0
+    for t, w, name in zip(leaves, want, ("dx", "dy", "dgates")):
+        if t.grad.dtype != dtype:
+            _fail(f"moe_train {what} {name}: dtype {t.grad.dtype}")
+        err = max(err, close_or_fail(t.grad, w, SHUFFLE_TOL[dtype],
+                                     f"moe_train {what} {name}"))
+    return err
+
+
+def check_moe_train(rng):
+    """The MoE backward at deepseek-v2-lite-16b's training shape (8 rows of
+    512 tokens, top-6 of 64 experts a row: N = 4096 tokens, 24576 pairs,
+    512 buffers of C = 60, D = 2048): both Functions' gradients on the
+    kernels against the plain backwards in fp32 and bf16, then, in bf16,
+    the device ms of dispatch's forward (the walk over 24576 pairs), of
+    combine as dispatch's backward (K = 6, unit gates), of dispatch as
+    combine's backward (24576 rows of one pair, K = 1; the rows' build
+    timed apart) and of the plain dgates, each beside its byte bound, its
+    plain version and a library call (``index_add_`` and the gated-mask
+    einsum, as the serving rows; none for dgates). A ``moe_train`` line."""
+    cfg = get_config("deepseek-v2-lite-16b")
+    B, T, E, K, D = TRAIN_BATCH, TRAIN_SEQ, cfg.n_experts, cfg.top_k, \
+        cfg.d_model
+    C = _capacity(cfg, T)
+    eid, slot = served_routing(rng, B, T, E, K, C)
+    N, R = B * T, B * E
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, y = rand(rng, (N, D), dtype), rand(rng, (R, C, D), dtype)
+        gates = torch.from_numpy(rng.random((N, K))).to(DEV, dtype)
+        # combine's cotangent at D^-1/2, so that dgates (a dot over D =
+        # 2048) stays O(1): at unit scale two fp32 sums of its 2048 terms
+        # differ by more than 1e-5 where they cancel
+        wd = rand(rng, (R, C, D), dtype)
+        wc = (rand(rng, (N, D), torch.float32) * D ** -0.5).to(dtype)
+        errs[str(dtype)] = moe_grads_close(x, y, gates, eid, slot, R, C,
+                                           wd, wc, str(dtype))
+        if dtype == torch.float32:
+            del x, y, gates, wd, wc
+    kept = (slot >= 0) & (slot < C)
+    tok, kk = torch.nonzero(kept, as_tuple=True)
+    rows = (eid.long() * C + slot.long())[tok, kk]
+    n_kept, elem, ids = int(kept.sum()), x.element_size(), 2 * eid.numel() * 4
+    ones = torch.ones((N, K), dtype=torch.float32, device=DEV)
+    wrows = (wc[:, None, :] * gates[..., None]).to(dtype).reshape(N * K, D)
+    e1, s1 = eid.reshape(N * K, 1), slot.reshape(N * K, 1)
+    mg = torch.zeros((N, R * C), dtype=dtype, device=DEV)
+    mg.index_put_((tok, rows), torch.ones_like(gates[kept]), accumulate=True)
+    mg = mg.reshape(N, R, C)
+    flat = torch.zeros((R * C, D), dtype=dtype, device=DEV)
+    pair = tok * K + kk                                  # flat pair index
+    n_tok = int(torch.unique(tok).numel())
+    runs = {
+        # x's kept tokens read, every buffer row written
+        "dispatch_forward": (
+            lambda: dispatch(x, eid, slot, R, C, impl="kernel"),
+            lambda: dispatch(x, eid, slot, R, C, impl="xla"),
+            lambda: flat.zero_().index_add_(0, rows, x.index_select(0, tok)),
+            (n_tok + R * C) * D * elem + ids, n_kept * D),
+        # dx = combine of dbuf with unit gates: the kept rows read, dx
+        # written
+        "combine_as_dispatch_backward": (
+            lambda: combine(wd, eid, slot, ones, N, impl="kernel"),
+            lambda: dispatch_bwd_ref(wd, eid, slot),
+            lambda: torch.einsum("tec,ecd->td", mg, wd),
+            (n_kept + N) * D * elem + ids + ones.numel() * 4,
+            n_kept * D),
+        # dy = dispatch of the gate-weighted rows: the kept rows read, every
+        # buffer row written
+        "dispatch_as_combine_backward": (
+            lambda: dispatch(wrows, e1, s1, R, C, impl="kernel"),
+            lambda: combine_bwd_ref(wc, y, eid, slot, gates)[0],
+            lambda: flat.zero_().index_add_(0, rows,
+                                            wrows.index_select(0, pair)),
+            (n_kept + R * C) * D * elem + ids, n_kept * D),
+        # dgates: the kept y rows and dout read, [N, K] written
+        "dgates_plain": (
+            lambda: combine_dgates(wc, y, eid, slot),
+            lambda: combine_bwd_ref(wc, y, eid, slot, gates)[1],
+            None, (n_kept + N) * D * elem + ids + N * K * 4,
+            2 * n_kept * D),
+    }
+    out = dict(shape=f"N={B}x{T} tokens K={K} buffers={B}x{E} C={C} D={D}",
+               pairs=N * K, kept_pairs=n_kept,
+               route=shuffle_kernel.dispatch_route(N * K),
+               grads_max_abs_err=errs,
+               grads_tolerance={"float32": SHUFFLE_TOL[torch.float32],
+                                "bfloat16": SHUFFLE_TOL[torch.bfloat16]},
+               rows_build_ms=time_ms(lambda: (
+                   wc[:, None, :] * gates[..., None]).to(dtype)))
+    for name, (kern, plain, lib, nbytes, flops) in runs.items():
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        out[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain, reps=5),
+                         library_ms=None if lib is None else time_ms(lib),
+                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+    return out
+
+
 def check_model_small(cfg, rng, tol, n_layers=2, T=130, **impls):
     """The LM's kernel path against its plain path on a small input:
     ``n_layers`` full-width layers in fp32, prefill logits over ``T`` tokens
@@ -2793,16 +2948,18 @@ def train_routes(cfg, key="attn_impl", plain="xla", batch=TRAIN_BATCH,
                  params=None, held=("loss", "grad_norm")):
     """One training step's loss and gradient norm from the same params
     (``params``, else drawn from seed 7) and batch with ``key`` (attention's
-    forward, or the scans) on the kernel and on the plain path ``plain``:
-    those named in ``held`` within 2e-2 (relative)."""
+    forward, or the scans; a tuple of such impl keys sets each) on the
+    kernel and on the plain path ``plain``: those named in ``held`` within
+    2e-2 (relative)."""
     if params is None:
         params = build_model(cfg, device=DEV).init(
             torch.Generator(DEV).manual_seed(7))
     flat = leaves_of(params)
     tb = train_batch(cfg, 8, batch)
     out = {}
+    keys = (key,) if isinstance(key, str) else key
     for impl in ("kernel", plain):
-        model = build_model(cfg, device=DEV, **{key: impl})
+        model = build_model(cfg, device=DEV, **{k: impl for k in keys})
         leaves = [p.detach().requires_grad_(True) for p in flat]
         it = iter(leaves)
         loss = model.loss(tree_map(lambda _: next(it), params), tb)
@@ -2819,7 +2976,7 @@ def train_routes(cfg, key="attn_impl", plain="xla", batch=TRAIN_BATCH,
     return out
 
 
-def train_profile(cfg, state, batch, plain_bwd=None):
+def train_profile(cfg, state, batch, plain_bwd=None, kernel_names=None):
     """Where one warm step's device time goes (torch.profiler): the forward,
     each backward node of ``plain_bwd`` ({output key: autograd node name};
     by default attention's plain backward, the ``_FlashAttention`` nodes),
@@ -2827,7 +2984,9 @@ def train_profile(cfg, state, batch, plain_bwd=None):
     the host wall time and the device's idle share, of the profiled step's
     wall time and of the same step's unprofiled wall time (the profiler's
     own cost widens the first). The step is the train step's three parts,
-    each in its own profiler range."""
+    each in its own profiler range. ``kernel_names`` ({output key: name
+    part}): the device ms and launches of the kernels whose names hold that
+    part, over the whole step."""
     from torch.profiler import ProfilerActivity, profile, record_function
     plain_bwd = plain_bwd or {
         "attention_backward_plain_ms": "_FlashAttentionBackward"}
@@ -2884,13 +3043,19 @@ def train_profile(cfg, state, batch, plain_bwd=None):
     parts = {key: range_ms(lambda k, node=node: node in k)
              for key, node in plain_bwd.items()}
     bwd = busy_ms - fwd - opt          # the engine's thread runs it
+    for key, part in (kernel_names or {}).items():
+        named = [e for e in kernels if part in e.key]
+        parts[key] = dict(
+            ms=sum(e.self_device_time_total for e in named) / 1e3,
+            launches=sum(e.count for e in named))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return dict(wall_ms=plain_wall * 1e3, profiled_wall_ms=wall * 1e3,
                 device_busy_ms=busy_ms,
                 idle_share=1 - busy_ms / (wall * 1e3),
                 idle_share_unprofiled=1 - busy_ms / (plain_wall * 1e3),
                 forward_ms=fwd, backward_ms=bwd, **parts,
-                backward_rest_ms=bwd - sum(parts.values()), optimizer_ms=opt,
+                backward_rest_ms=bwd - sum(parts[k] for k in plain_bwd),
+                optimizer_ms=opt,
                 kernel_launches=sum(e.count for e in kernels),
                 top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
                      for e in top])
@@ -3120,6 +3285,83 @@ def vlm_embeds(loop, n_steps=8):
                 positions="64 text, 16 x 16 patch grid, 192 text")
 
 
+# -- phase 23: train the MoE families -------------------------------------------
+# deepseek-v2-lite-16b at full width and 4 of its 27 layers: 2.76 B fp32
+# params, 44.1 GB with their gradients and two fp32 moments (6 layers are
+# 62.9 GB and leave too little for the compute copy and the 102400-wide
+# logits)
+MOE_TRAIN_LAYERS = 4
+
+
+def train_moe(mcfg, counted):
+    """Phase 23 on ``mcfg``, the counts zeroed just before: ``train_run``,
+    the exact launches of the path (fails on any other), a profiled warm
+    step, and the kernel route against the plain one from the trained
+    params. Returns the ``train_moe`` line's dict."""
+    train_res, train = train_run(mcfg)
+    path = f"{mcfg.name}/train"
+    L, S = mcfg.n_layers, TRAIN_STEPS
+    # a layer a step: flash on the forward and its remat recompute;
+    # dispatch and combine there too, and each once as the other's backward
+    want = {"flash": 2 * L * S, "flash_wgmma": 2 * L * S,
+            "flash_lse": 2 * L * S, "dispatch": 3 * L * S,
+            "dispatch_walk": 3 * L * S, "combine": 3 * L * S,
+            "dispatch_bwd": L * S, "combine_bwd": L * S,
+            "dgates_calls": L * S}
+    got = {"flash": flash_attention.launches,
+           "flash_wgmma": flash_attention.launches_by_route["wgmma"],
+           "flash_lse": flash_attention.lse_launches,
+           "dispatch": dispatch.launches,
+           "dispatch_walk": dispatch.launches_by_route["walk"],
+           "combine": combine.launches,
+           "dispatch_bwd": dispatch.bwd_launches,
+           "combine_bwd": combine.bwd_launches,
+           "dgates_calls": combine.bwd_calls}
+    if got != want:
+        _fail(f"{path}: launches {got}, not {want}")
+    others = {fn.__name__: fn.launches for fn in counted
+              if fn not in (flash_attention, dispatch, combine)
+              and fn.launches}
+    if others or diag_scan.bwd_launches or gla_scan.bwd_calls:
+        _fail(f"{path}: other kernels launched: {others}, diag backward "
+              f"{diag_scan.bwd_launches}, GLA backward calls "
+              f"{gla_scan.bwd_calls}")
+    # the path's counts, read before the profile and the route check
+    # launch more
+    train["launches"] = got
+    train["launches_a_step"] = {k: v // S for k, v in got.items()}
+    train["routes"] = {"flash_attention": dict(
+        flash_attention.launches_by_route, with_lse=got["flash_lse"]),
+        "dispatch": dict(dispatch.launches_by_route,
+                         as_combine_backward=got["combine_bwd"])}
+    t_part = time.perf_counter()
+    train["profile"] = train_profile(
+        mcfg, train_res.state, train_batch(mcfg, 9),
+        {"attention_backward_plain_ms": "_FlashAttentionBackward",
+         "dispatch_backward_ms": "_DispatchBackward",
+         "combine_backward_ms": "_CombineBackward"},
+        {"dispatch_kernels": "dispatch_", "combine_kernels": "combine_",
+         "flash_kernels": "flash"})
+    train["profile_s"] = time.perf_counter() - t_part
+    params = train_res.state.params
+    del train_res
+    free_cache()
+    # from the trained params, as phase 21: the kernels' route against the
+    # plain one (the dense dispatch mask, the chunked attention), the loss
+    # in bf16 compute and the loss and grad norm in fp32 compute
+    t_part = time.perf_counter()
+    routes = ("attn_impl", "moe_impl")
+    train["kernel_vs_plain"] = train_routes(mcfg, routes, "xla",
+                                            params=params, held=("loss",))
+    free_cache()
+    train["kernel_vs_plain_fp32"] = train_routes(
+        mcfg.with_(compute_dtype="float32"), routes, "xla", params=params)
+    train["routes_s"] = time.perf_counter() - t_part
+    del params
+    free_cache()
+    return train
+
+
 def free_cache():
     gc.collect()
     torch.cuda.empty_cache()
@@ -3168,6 +3410,12 @@ def main():
         entry["served"].update(ds_entries[name])
         entry["cases_max_abs_err"].update(ds_worst[name])
     log("shuffle_work", json.dumps(ds_work))
+    # the MoE families' training path: dispatch and combine under grad at
+    # deepseek-v2-lite-16b's training shape (its own generator)
+    moe_train = check_moe_train(np.random.default_rng(30))
+    log("moe_train", json.dumps(moe_train))
+    for name in ("dispatch", "combine"):
+        next(k for k in kernels if k["name"] == name)["train"] = moe_train
     # the enc-dec and VLM families' flash geometries (their own generator)
     fam_paths, fam_worst = check_flash_families(np.random.default_rng(25))
     kernels[0]["paths"].update(fam_paths)
@@ -3236,6 +3484,8 @@ def main():
         flash_attention.lse_launches = 0
         diag_scan.bwd_launches = 0
         gla_scan.bwd_calls = 0
+        for fn in (dispatch, combine):
+            fn.bwd_launches = fn.bwd_calls = 0
         for fn in (flash_attention, gla_scan, diag_scan, dispatch):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
@@ -3606,6 +3856,21 @@ def main():
                  cut=f"{hcfg.n_layers} of {gcfg.n_layers} layers, batch "
                  f"{hbatch}")
     log("train_hybrid", json.dumps(train))
+
+    # deepseek-v2-lite-16b trains at full width and 4 of its 27 layers
+    mcfg = dcfg.with_(n_layers=MOE_TRAIN_LAYERS)
+    path = f"{mcfg.name}/train"
+    zero_counts()
+    train = train_moe(mcfg, counted)
+    for name, key in (("flash_attention", "flash"), ("dispatch", "dispatch"),
+                      ("combine", "combine")):
+        launches[name][path] = train["launches"][key]
+    flash_routes[path] = train["routes"]["flash_attention"]
+    shuffle_routes[path] = train["routes"]["dispatch"]
+    lap(path)
+    train.update(seconds=phase_s[path], card=smi,
+                 cut=f"{mcfg.n_layers} of {dcfg.n_layers} layers")
+    log("train_moe", json.dumps(train))
 
     next(k for k in kernels if k["name"] == "flash_attention").update(
         launches_by_route=flash_routes, build=flash_build)

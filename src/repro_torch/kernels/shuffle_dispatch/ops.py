@@ -35,6 +35,22 @@ those rows' loads together and sums gate * row in fp32 in k order.
 CPU. On CUDA tensors it launches the kernel or raises; it never falls back.
 ``dispatch.launches`` and ``combine.launches`` count kernel launches, and
 ``dispatch.launches_by_route`` splits dispatch's by route.
+
+Training. Under grad (an input that requires it) ``impl="kernel"`` goes
+through ``_Dispatch`` and ``_Combine``, whose backwards are launches of each
+other's kernels; no backward kernel of its own exists, as the reference
+differentiates its einsum. Dispatch's gradient dx[t] = Σ_k dbuf[e_tk, c_tk]
+is one combine launch with unit gates (``dispatch.bwd_launches``; fp32
+sums in k order, as the forward's). Combine's dy[e, c] = Σ gate_tk *
+dout[t] over the pairs on row (e, c) is one dispatch launch of the
+gate-weighted rows, [N * K, D] with one pair a row (``combine.bwd_launches``;
+at deepseek-v2-lite-16b's training shape 24576 rows, so the ``walk``
+route); its dgates[t, k] = dout[t] · y[e_tk, c_tk] is a plain gather and
+batched row dot in fp32 (``combine.bwd_calls`` counts the backward's
+calls). Both kernel launches count in ``launches`` too. On CPU tensors the
+backwards are ``ref.dispatch_bwd_ref`` and ``ref.combine_bwd_ref``. With
+grad off the wrappers take the forward path alone, the same launches and
+bits as serving.
 """
 from __future__ import annotations
 
@@ -45,7 +61,8 @@ import torch
 
 from .kernel import (DISPATCH_ROUTES, combine_kernel, dispatch_kernel,
                      dispatch_route)
-from .ref import combine_ref, dispatch_ref
+from .ref import (combine_bwd_ref, combine_ref, dispatch_bwd_ref,
+                  dispatch_ref, pair_rows)
 
 
 def host_dispatch_plan(partition_ids: np.ndarray, num_partitions: int
@@ -85,22 +102,22 @@ def compute_slots(expert_id: torch.Tensor, num_experts: int,
     return slot.reshape(expert_id.shape)
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def dispatch(x: torch.Tensor, expert_id: torch.Tensor, slot: torch.Tensor,
              num_experts: int, capacity: int, *,
              impl: str = "xla") -> torch.Tensor:
     """x: [N, D]; expert_id, slot: [N, K] -> buffers [E, C, D] in x's dtype,
     row (e, c) the fp32 sum of x over the pairs with expert e and slot c.
 
-    impl: "kernel" (CUDA kernel; the oracle on CPU tensors) or "xla" (the
-    dense one-hot oracle)."""
+    impl: "kernel" (CUDA kernel; the oracle on CPU tensors; under grad
+    through ``_Dispatch``) or "xla" (the dense one-hot oracle)."""
     if impl == "kernel":
-        if x.device.type == "cpu":
-            return dispatch_ref(x, expert_id, slot, num_experts, capacity)
-        out = dispatch_kernel(x.contiguous(), expert_id.int().contiguous(),
-                              slot.int().contiguous(), num_experts, capacity)
-        dispatch.launches += 1
-        dispatch.launches_by_route[dispatch_route(expert_id.numel())] += 1
-        return out
+        if _needs_grad(x):
+            return _Dispatch.apply(x, expert_id, slot, num_experts, capacity)
+        return _dispatch_fwd(x, expert_id, slot, num_experts, capacity)
     if impl == "xla":
         return dispatch_ref(x, expert_id, slot, num_experts, capacity)
     raise ValueError(f"unknown impl {impl!r}")
@@ -108,6 +125,20 @@ def dispatch(x: torch.Tensor, expert_id: torch.Tensor, slot: torch.Tensor,
 
 dispatch.launches = 0
 dispatch.launches_by_route = dict.fromkeys(DISPATCH_ROUTES, 0)
+dispatch.bwd_calls = 0
+dispatch.bwd_launches = 0
+
+
+def _dispatch_fwd(x, expert_id, slot, num_experts, capacity):
+    """The dispatch kernel on CUDA tensors (counted), the oracle on CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return dispatch_ref(x, expert_id, slot, num_experts, capacity)
+    out = dispatch_kernel(x.contiguous(), expert_id.int().contiguous(),
+                          slot.int().contiguous(), num_experts, capacity)
+    dispatch.launches += 1
+    dispatch.launches_by_route[dispatch_route(expert_id.numel())] += 1
+    return out
 
 
 def combine(y: torch.Tensor, expert_id: torch.Tensor, slot: torch.Tensor,
@@ -118,21 +149,109 @@ def combine(y: torch.Tensor, expert_id: torch.Tensor, slot: torch.Tensor,
     ``num_tokens`` (N) is the reference's argument; it must equal
     expert_id.shape[0].
 
-    impl: "kernel" (CUDA kernel; the oracle on CPU tensors) or "xla" (the
-    dense one-hot oracle)."""
+    impl: "kernel" (CUDA kernel; the oracle on CPU tensors; under grad
+    through ``_Combine``) or "xla" (the dense one-hot oracle)."""
     if num_tokens != expert_id.shape[0]:
         raise ValueError(f"combine: num_tokens {num_tokens} but expert_id "
                          f"has {expert_id.shape[0]} rows")
     if impl == "kernel":
-        if y.device.type == "cpu":
-            return combine_ref(y, expert_id, slot, gates)
-        out = combine_kernel(y.contiguous(), expert_id.int().contiguous(),
-                             slot.int().contiguous(), gates.contiguous())
-        combine.launches += 1
-        return out
+        if _needs_grad(y, gates):
+            return _Combine.apply(y, expert_id, slot, gates)
+        return _combine_fwd(y, expert_id, slot, gates)
     if impl == "xla":
         return combine_ref(y, expert_id, slot, gates)
     raise ValueError(f"unknown impl {impl!r}")
 
 
 combine.launches = 0
+combine.bwd_calls = 0
+combine.bwd_launches = 0
+
+
+def _combine_fwd(y, expert_id, slot, gates):
+    """The combine kernel on CUDA tensors (counted), the oracle on CPU
+    tensors."""
+    if y.device.type == "cpu":
+        return combine_ref(y, expert_id, slot, gates)
+    out = combine_kernel(y.contiguous(), expert_id.int().contiguous(),
+                         slot.int().contiguous(), gates.contiguous())
+    combine.launches += 1
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """``dispatch`` under grad. dx[t] = Σ_k dbuf[e_tk, c_tk] over the kept
+    pairs: combine with unit gates, one combine launch on CUDA tensors
+    (``dispatch.bwd_launches``), ``dispatch_bwd_ref`` on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, expert_id, slot, num_experts, capacity):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(expert_id, slot)
+        return _dispatch_fwd(x, expert_id, slot, num_experts, capacity)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        if dbuf is None:
+            return (None,) * 5
+        expert_id, slot = ctx.saved_tensors
+        dispatch.bwd_calls += 1
+        if dbuf.device.type == "cpu":
+            dx = dispatch_bwd_ref(dbuf, expert_id, slot)
+        else:
+            ones = torch.ones(expert_id.shape, dtype=torch.float32,
+                              device=dbuf.device)
+            dx = _combine_fwd(dbuf, expert_id, slot, ones)
+            dispatch.bwd_launches += 1
+        return dx, None, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``combine`` under grad. dy is the dispatch of the gate-weighted rows
+    gate_tk * dout[t], [N * K, D] in y's dtype with one pair a row: one
+    dispatch launch on CUDA tensors (``combine.bwd_launches``). dgates[t, k]
+    = dout[t] · y[e_tk, c_tk] (0 for a dropped pair) is a plain gather and
+    row dot in fp32. ``combine.bwd_calls`` counts the backward's calls; on
+    CPU tensors both come from ``combine_bwd_ref``."""
+
+    @staticmethod
+    def forward(ctx, y, expert_id, slot, gates):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(y, expert_id, slot, gates)
+        return _combine_fwd(y, expert_id, slot, gates)
+
+    @staticmethod
+    def backward(ctx, dout):
+        if dout is None:
+            return (None,) * 4
+        y, expert_id, slot, gates = ctx.saved_tensors
+        need_y, need_g = ctx.needs_input_grad[0], ctx.needs_input_grad[3]
+        combine.bwd_calls += 1
+        if dout.device.type == "cpu":
+            dy, dgates = combine_bwd_ref(dout, y, expert_id, slot, gates)
+            return (dy if need_y else None), None, None, \
+                (dgates if need_g else None)
+        dy = dgates = None
+        E, C, D = y.shape
+        N, K = expert_id.shape
+        if need_y:
+            rows = (dout[:, None, :] * gates[..., None]).to(y.dtype)
+            dy = _dispatch_fwd(rows.reshape(N * K, D),
+                               expert_id.reshape(N * K, 1),
+                               slot.reshape(N * K, 1), E, C)
+            combine.bwd_launches += 1
+        if need_g:
+            dgates = combine_dgates(dout, y, expert_id, slot).to(gates.dtype)
+        return dy, None, None, dgates
+
+
+def combine_dgates(dout, y, expert_id, slot):
+    """dgates[t, k] = dout[t] · y[e_tk, c_tk] in fp32, 0 for a dropped pair
+    (id outside [0, E) or slot outside [0, C)): a gather of the pairs'
+    rows and one batched product."""
+    E, C, D = y.shape
+    rows, valid = pair_rows(expert_id, slot, E, C)
+    yr = y.reshape(E * C, D).index_select(0, rows.reshape(-1)).reshape(
+        *rows.shape, D)
+    dg = torch.bmm(yr.float(), dout.float()[:, :, None])[..., 0]
+    return torch.where(valid, dg, torch.zeros((), device=dg.device))

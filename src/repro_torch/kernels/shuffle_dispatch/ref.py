@@ -40,3 +40,50 @@ def combine_ref(y: torch.Tensor, expert_id: torch.Tensor, slot: torch.Tensor,
     E, C, _ = y.shape
     mg = _gated_mask(expert_id, slot, gates, E, C)        # [T, E, C]
     return torch.einsum("tec,ecd->td", mg, y.float()).to(y.dtype)
+
+
+def pair_rows(expert_id, slot, num_experts: int, capacity: int):
+    """Each pair's flat row e * C + c (clamped into range) and whether the
+    pair is kept: 0 <= e < E and 0 <= c < C."""
+    valid = ((expert_id >= 0) & (expert_id < num_experts) & (slot >= 0)
+             & (slot < capacity))
+    rows = (expert_id.long().clamp(0, max(num_experts - 1, 0)) * capacity
+            + slot.long().clamp(0, max(capacity - 1, 0)))
+    return rows, valid
+
+
+def dispatch_bwd_ref(dbuf: torch.Tensor, expert_id: torch.Tensor,
+                     slot: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``dispatch_ref`` for the cotangent ``dbuf`` [E, C, D]:
+    dx[t] = Σ_k dbuf[e_tk, c_tk] over token t's kept pairs (fp32 sums in k
+    order), [T, D] in dbuf's dtype; a dropped pair adds nothing. It is
+    ``combine_ref`` with unit gates."""
+    E, C, D = dbuf.shape
+    rows, valid = pair_rows(expert_id, slot, E, C)
+    g = dbuf.reshape(E * C, D).float()[rows.reshape(-1)].reshape(
+        *rows.shape, D)
+    g = torch.where(valid[..., None], g, torch.zeros((), device=g.device))
+    dx = g[:, 0]
+    for k in range(1, g.shape[1]):
+        dx = dx + g[:, k]
+    return dx.to(dbuf.dtype)
+
+
+def combine_bwd_ref(dout: torch.Tensor, y: torch.Tensor,
+                    expert_id: torch.Tensor, slot: torch.Tensor,
+                    gates: torch.Tensor):
+    """The gradients of ``combine_ref`` for the cotangent ``dout`` [T, D]:
+    dy[e, c] = Σ over the kept pairs (t, k) on row (e, c) of gate_tk *
+    dout[t], [E, C, D] in y's dtype (repeated rows sum); dgates[t, k] =
+    dout[t] · y[e_tk, c_tk], 0 for a dropped pair, [T, K] in gates' dtype.
+    Both in fp32."""
+    E, C, D = y.shape
+    rows, valid = pair_rows(expert_id, slot, E, C)
+    df = dout.float()
+    tok, k = torch.nonzero(valid, as_tuple=True)
+    dy = torch.zeros((E * C, D), dtype=torch.float32, device=y.device)
+    dy.index_add_(0, rows[tok, k], gates.float()[tok, k, None] * df[tok])
+    yr = y.reshape(E * C, D).float()[rows.reshape(-1)].reshape(*rows.shape, D)
+    dg = torch.where(valid, (yr * df[:, None, :]).sum(-1),
+                     torch.zeros((), device=y.device))
+    return dy.reshape(E, C, D).to(y.dtype), dg.to(gates.dtype)

@@ -8,12 +8,15 @@ moves to the device for its step. Attention's forward runs the flash
 kernel (``LM(attn_impl="kernel")``, with the rows' lse written) and its
 backward the plain mirror of the reference's custom VJP; RWKV6's wkv runs
 the GLA-scan kernel forward and a plain backward by recompute, RG-LRU's
-diagonal scan its forward and backward kernels; the optimizer is the
-port's AdamW. Checkpoints go through the port's ``CheckpointManager``
-with the reference's layouts, shard count and flattened keys, so either
-package restores the other's. Training is ported for the dense, ssm
-(rwkv6-3b) and hybrid (recurrentgemma-9b) families; ``LM.loss`` raises
-for the others.
+diagonal scan its forward and backward kernels; the MoE block's dispatch
+and combine their shuffle kernels forward and backward (each backward a
+launch of the other's kernel, combine's gate gradient plain); the
+optimizer is the port's AdamW. Checkpoints go through the port's
+``CheckpointManager`` with the reference's layouts, shard count and
+flattened keys, so either package restores the other's. Training is
+ported for the dense, ssm (rwkv6-3b), hybrid (recurrentgemma-9b) and moe
+(grok-1-314b, deepseek-v2-lite-16b with MLA) families; ``LM.loss``
+raises for the VLM and ``EncDecLM`` under grad.
 
 Run: ``python -m repro_torch.launch.train --arch qwen3-0.6b`` on the card,
 or ``--smoke --device cpu`` for a small CPU run.

@@ -279,7 +279,9 @@ def mla_apply(p, x, *, cfg: ArchConfig, positions,
     per-head cache {"k", "v"} by default, attended by ``attention_ref``; with
     ``absorbed`` the compressed {"c_kv", "k_rope"} cache, W_uk folded into
     q, fp32 scores over the latent masked to ``pos + t``, W_uv applied after.
-    The scale is (nope + rope)^-0.5 on both paths, as the reference's."""
+    The scale is (nope + rope)^-0.5 on both paths, as the reference's.
+    Full mode trains (flash's ``_FlashAttention`` at D = nope + rope, Dv =
+    v_head_dim); the decode modes are serving only."""
     B, T, d = x.shape
     H = cfg.n_heads
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -478,7 +480,12 @@ def _moe_shuffle(p, h, eid, gates, E: int, C: int):
     """The same function through the shuffle kernels: slots counted per
     row, then the B rows flattened to N = B*T tokens with row b's expert
     ids offset by b*E, so that B*E buffers hold each row's experts.
-    Returns (y, the kept pairs per (row, expert) in h's dtype)."""
+    Returns (y, the kept pairs per (row, expert) in h's dtype). Under grad
+    dispatch and combine take their autograd Functions (each one's
+    backward a launch of the other's kernel); the slots and the kept
+    counts stay integer, outside autograd, as the reference's mask, and the
+    gates reach combine in h's dtype, as its gated mask has them, so their
+    gradient flows back through the cast to the fp32 router."""
     B, T, K = eid.shape
     d = h.shape[-1]
     N = B * T
@@ -503,7 +510,9 @@ def moe_apply(p, x, *, cfg: ArchConfig, impl: str = "xla"):
     dispatches and combines through the shuffle kernels (their plain
     versions on CPU tensors), with the gates in h's dtype as the
     reference's gated mask has them. The experts' SwiGLU is an einsum over
-    [B, E, C, d] either way."""
+    [B, E, C, d] either way. Both impls train; the aux loss is
+    differentiated through the router's mean probabilities only (the kept
+    counts are integers), as the reference's."""
     B, T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = _capacity(cfg, T)

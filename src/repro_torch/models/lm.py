@@ -12,8 +12,10 @@ cross-loadable. The reference scans layers with ``lax.scan``; PyTorch runs
 eagerly, so here it is a Python loop over the stacked dim.
 
 Training (``loss``, gradients through ``forward``) is ported for the dense
-family and the recurrent ones (ssm: RWKV6; hybrid: RG-LRU and local
-attention). ``forward`` takes the layers with one ``unbind`` of each cast
+family, the recurrent ones (ssm: RWKV6; hybrid: RG-LRU and local
+attention) and MoE (its dispatch and combine through the shuffle kernels'
+autograd Functions, whose backwards launch each other's kernels; MLA's
+full mode through ``_FlashAttention`` at Dv != D). ``forward`` takes the layers with one ``unbind`` of each cast
 stacked leaf (under autograd its backward is one ``stack``; slicing layer
 i would write a zero tensor of the whole stack for each layer's
 gradient), and when grad is enabled, a param requires it and
@@ -44,9 +46,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 AUX_COEF = 0.01
 
-# the ROADMAP items that carry training past the dense and recurrent families
-TRAIN_ITEMS = {"moe": "Training: MoE",
-               "encdec": "Training: enc-dec and VLM",
+# the ROADMAP items that carry training past the dense, recurrent and MoE
+# families
+TRAIN_ITEMS = {"encdec": "Training: enc-dec and VLM",
                "vlm": "Training: enc-dec and VLM"}
 
 
@@ -345,9 +347,9 @@ class LM:
         return self._logits(params, x), aux
 
     def _check_trainable(self) -> None:
-        """Gradients are ported for the dense, ssm and hybrid families; MoE
-        (the shuffle kernels have no backward) and the VLM are not yet."""
-        if self.cfg.family not in ("dense", "ssm", "hybrid"):
+        """Gradients are ported for the dense, ssm, hybrid and MoE families;
+        the VLM's are not yet."""
+        if self.cfg.family not in ("dense", "ssm", "hybrid", "moe"):
             raise NotImplementedError(
                 f"{self.cfg.name}: training the {self.cfg.family!r} family "
                 f"is not ported yet (ROADMAP queue 1, "

@@ -30,6 +30,8 @@ from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.shuffle_dispatch import kernel as shuffle_kernel
 from repro_torch.kernels.shuffle_dispatch.ops import (combine, compute_slots,
                                                       dispatch)
+from repro_torch.kernels.shuffle_dispatch.ref import (combine_bwd_ref,
+                                                      dispatch_bwd_ref)
 from repro_torch.launch.serve import Request, ServeLoop
 from repro_torch.models import blocks
 from repro_torch.models.lm import tree_map
@@ -761,6 +763,152 @@ def test_moe_shardmap_runs_the_shuffle_kernels(cf, cuda_device):
                                                     before[1] + 1)
     _close(yk, yp, rtol=1e-5, atol=1e-5)
     _close(ak, ap, rtol=1e-5, atol=1e-5)
+
+
+# the MoE training path: deepseek-v2-lite-16b's batch of 8 x 512 tokens,
+# top-6 of 64 experts a row (512 buffers of C = 60), D = 2048
+MOE_TRAIN_SHAPE = (8, 512, 64, 6, 60, 2048)     # B, T, E, K, C, D
+
+
+def _shuffle_counts():
+    return (dispatch.launches, dispatch.launches_by_route["walk"],
+            combine.launches, dispatch.bwd_launches, combine.bwd_launches,
+            dispatch.bwd_calls, combine.bwd_calls)
+
+
+def _shuffle_grads(x, y, gates, eid, slot, E, C, wd, wc):
+    """Leaves of x, y, gates through ``_Dispatch`` and ``_Combine`` on the
+    kernels, the gradients of sum(buf wd) + sum(out wc), and the plain
+    backwards' on the same cotangents. Checks one forward and one backward
+    launch each, the backward as the other kernel."""
+    leaves = [t.clone().requires_grad_(True) for t in (x, y, gates)]
+    before = _shuffle_counts()
+    buf = dispatch(leaves[0], eid, slot, E, C, impl="kernel")
+    out = combine(leaves[1], eid, slot, leaves[2], x.shape[0], impl="kernel")
+    torch.autograd.backward([buf, out], [wd, wc])
+    torch.cuda.synchronize()
+    # combine's backward dispatches N * K rows of one pair: the same route
+    walk = 2 * int(shuffle_kernel.dispatch_route(eid.numel()) == "walk")
+    assert [a - b for a, b in zip(_shuffle_counts(), before)] == \
+        [2, walk, 2, 1, 1, 1, 1]
+    dx = dispatch_bwd_ref(wd, eid, slot)
+    dy, dg = combine_bwd_ref(wc, y, eid, slot, gates)
+    return [t.grad for t in leaves], (dx, dy, dg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", SHUFFLE_KINDS)
+@pytest.mark.parametrize("case", SHUFFLE_CASES[:4])
+def test_shuffle_function_grads_on_the_card(case, kind, dtype, cuda_device):
+    """``_Dispatch``'s dx (a combine launch with unit gates) and
+    ``_Combine``'s dy (a dispatch launch of the gate-weighted rows) and
+    dgates (plain) against ``dispatch_bwd_ref`` / ``combine_bwd_ref`` at the
+    reference's MoE tolerance: drops, ids of -1 and E, slots of -1 and C +
+    3, repeated rows."""
+    T, D, E, K, C = case
+    x, y, gates, eid, slot = shuffle_inputs(np.random.default_rng(T + D),
+                                            T, D, E, K, C, kind)
+    dt = DTYPES[dtype]
+    x, y, gates = (torch.from_numpy(a).to(cuda_device, dt)
+                   for a in (x, y, gates))
+    eid, slot = (torch.from_numpy(a).to(cuda_device) for a in (eid, slot))
+    rng = np.random.default_rng(T)
+    wd = torch.from_numpy(rng.normal(size=(E, C, D))).to(cuda_device, dt)
+    wc = torch.from_numpy(rng.normal(size=(T, D))).to(cuda_device, dt)
+    got, want = _shuffle_grads(x, y, gates, eid, slot, E, C, wd, wc)
+    tol = dict(rtol=SHUFFLE_TOL[dtype], atol=SHUFFLE_TOL[dtype])
+    for g, w in zip(got, want):
+        assert g.dtype == dt
+        _close(g, w, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_shuffle_function_grads_at_the_training_shape(dtype, cuda_device):
+    """deepseek-v2-lite-16b's training routing (24576 pairs, so dispatch's
+    ``walk`` in the forward and in combine's backward): the Functions'
+    gradients against the plain backwards; under served routing every row
+    has one pair, so dy is the gate-weighted cotangent, bit for bit, at
+    each kept pair's row."""
+    B, T, E, K, C, D = MOE_TRAIN_SHAPE
+    rng = np.random.default_rng(3)
+    eid, slot = _served_routing(rng, B, T, E, K, C, cuda_device)
+    dt = DTYPES[dtype]
+    x = torch.from_numpy(rng.normal(size=(B * T, D))).to(cuda_device, dt)
+    y = torch.from_numpy(rng.normal(size=(B * E, C, D))).to(cuda_device, dt)
+    gates = torch.from_numpy(rng.random((B * T, K))).to(cuda_device, dt)
+    wd = torch.from_numpy(rng.normal(size=(B * E, C, D))).to(cuda_device, dt)
+    # at D^-1/2, so that dgates (a dot over D = 2048) stays O(1): at unit
+    # scale two fp32 sums of its terms differ by more than 1e-5 where they
+    # cancel
+    wc = torch.from_numpy(rng.normal(size=(B * T, D)) * D ** -0.5).to(
+        cuda_device, dt)
+    got, want = _shuffle_grads(x, y, gates, eid, slot, B * E, C, wd, wc)
+    tol = dict(rtol=SHUFFLE_TOL[dtype], atol=SHUFFLE_TOL[dtype])
+    for g, w in zip(got, want):
+        _close(g, w, **tol)
+    kept = (slot >= 0) & (slot < C)
+    tok, k = torch.nonzero(kept, as_tuple=True)
+    rows = (eid.long() * C + slot.long())[tok, k]
+    expect = torch.zeros((B * E * C, D), dtype=dt, device=cuda_device)
+    expect[rows] = (wc[tok] * gates[tok, k, None]).to(dt)
+    assert torch.equal(got[1].reshape(-1, D), expect)
+
+
+@pytest.mark.cuda
+def test_shuffle_without_grad_keeps_its_bits(cuda_device):
+    """With grad off the wrappers launch the forward kernels once each, the
+    same bits as under grad, and no backward."""
+    T, D, E, K, C = SHUFFLE_CASES[2]
+    x, y, gates, eid, slot = shuffle_inputs(np.random.default_rng(9), T, D,
+                                            E, K, C, "drops")
+    x, y = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+            for a in (x, y))
+    gates = torch.from_numpy(gates).to(cuda_device, torch.bfloat16)
+    eid, slot = (torch.from_numpy(a).to(cuda_device) for a in (eid, slot))
+    xg, yg = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    before = _shuffle_counts()
+    with torch.no_grad():
+        buf = dispatch(xg, eid, slot, E, C, impl="kernel")
+        out = combine(yg, eid, slot, gates, T, impl="kernel")
+    assert buf.grad_fn is None and out.grad_fn is None
+    assert [a - b for a, b in zip(_shuffle_counts(), before)] == \
+        [1, 1, 1, 0, 0, 0, 0]
+    assert torch.equal(buf, dispatch(xg, eid, slot, E, C, impl="kernel"))
+    assert torch.equal(out, combine(yg, eid, slot, gates, T, impl="kernel"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v2-lite-16b"])
+def test_moe_lm_grads_on_the_card(arch, cuda_device):
+    """Smoke grok-1-314b and smoke deepseek-v2-lite-16b (MLA) in fp32: loss
+    and every param's gradient through the kernels (a layer's dispatch and
+    combine forward, each one's backward a launch of the other; flash
+    forward) against the plain path's (the dense dispatch mask, the chunked
+    attention), at 1e-4."""
+    cfg = smoke_config(arch).with_(compute_dtype="float32")
+    kern = build_model(cfg)
+    plain = build_model(cfg, attn_impl="xla", moe_impl="xla")
+    params = kern.init(torch.Generator("cuda").manual_seed(0))
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 40))
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
+    before = _shuffle_counts() + (flash_attention.launches,)
+    flat, grads = [], []
+    tree_map(flat.append, params)
+    for model in (kern, plain):
+        leaves = [t.detach().clone().requires_grad_(True) for t in flat]
+        it = iter(leaves)
+        loss = model.loss(tree_map(lambda _: next(it), params), batch)
+        grads.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    L = cfg.n_layers
+    assert [a - b for a, b in zip(_shuffle_counts() + (
+        flash_attention.launches,), before)] == [2 * L, 2 * L, 2 * L, L, L,
+                                                 L, L, L]
+    _close(grads[0][0], grads[1][0], rtol=1e-4, atol=1e-4)
+    for x, y in zip(grads[0][1], grads[1][1]):
+        _close(x, y, rtol=1e-4, atol=1e-4)
 
 
 def _gla_inputs(rng, B, T, Dk, Dv, w0, dtype, device, rk_scale=1.0):
