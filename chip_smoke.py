@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs its serving path, its
-storage tier, its trainer (dense, recurrent and MoE families, MLA), the
-encoder-decoder and M-RoPE on a GPU.
+storage tier, its trainer (every family: dense, recurrent, MoE with MLA,
+the encoder-decoder and the VLM with M-RoPE) on a GPU.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (Hopper,
 ``nvcc`` under ``/usr/local/cuda``): ``python3 chip_smoke.py``.
@@ -59,9 +59,13 @@ non-zero exit):
    launch without lse, ``_FlashAttention``'s dq, dk, dv through the kernel
    forward against autograd of fp64 attention (3e-4 fp32, 2e-2 bf16) at
    the gradient cases and at qwen3-0.6b's training shape (B=8, H=16, KH=8,
-   T=512, D=128), and there the forward's time with and without lse, the
-   plain backward's beside its bound and SDPA's forward and backward as a
-   yardstick the port never calls (a ``flash_train`` line); then MLA's
+   T=512, D=128) and the enc-dec's and the VLM's (seamless-m4t-large-v2's
+   encoder: B=8, H=KH=16, T=512, D=64, non-causal; qwen2-vl-72b: B=4, 64
+   query heads over 8, T=512, D=128), and at each of the three the
+   forward's time with and without lse beside its bound, the plain
+   backward's beside its bound and SDPA's forward, and its forward and
+   backward, as a yardstick the port never calls (a ``flash_train`` line,
+   the two families under ``families``); then MLA's
    heads, v's head dim Dv unlike q's and k's D (``flash_dv`` line): the
    flash kernel on both routes at smoke deepseek-v2-lite-16b's heads (D =
    24, Dv = 16), its full ones (192, 128) and more (Dv over D, a V tile of
@@ -253,7 +257,25 @@ non-zero exit):
     trained params with attention and MoE on the kernels against both on
     ``"xla"`` (the chunked attention, the dense dispatch mask): the loss
     within 2e-2 in bf16 compute, loss and grad norm in fp32 compute; a
-    ``train_moe`` line.
+    ``train_moe`` line;
+24. train: seamless-m4t-large-v2 at full width and depth (24 + 24 layers,
+    2.03 B fp32 params by the port's own ``count_params``, 32.6 GB with
+    gradients and fp32 moments) for 12 steps of 8 x 512 tokens over phase
+    15's 32 repeated sequences, 8 x 512 standard-normal frames drawn each
+    step from (seed, step), remat per encoder and decoder layer, every
+    self-attention on flash (the encoder's non-causal at D = 64), the
+    cross-attention plain, as the reference runs it: losses finite and
+    falling; a profiled warm step (forward, attention's plain backward,
+    the rest, AdamW, idle share); one step from the trained params with
+    attention on the kernel against ``"xla"``: the loss within 2e-2 in bf16
+    compute, loss and grad norm in fp32 compute; a ``train_encdec`` line;
+25. train: qwen2-vl-72b at full width and 2 of its 80 layers (4.25 B fp32
+    params, bf16 AdamW moments as its config has them) for 12 steps of 4 x
+    512 tokens over 16 repeated sequences, each batch the embeddings of its
+    tokens gathered from the params before the step, at the broadcast
+    M-RoPE positions: the same checks, the route step at image-grid
+    positions (64 text tokens, a 16 x 16 patch grid, 192 text tokens); a
+    ``train_vlm`` line.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5
 (flash and paged attention: the qwen3 path), zeroed again just before phase
@@ -286,8 +308,11 @@ flash: 2 a step, all wgmma with lse; no other kernel), and again just
 before phase 23's training run and read just after it (a layer a step:
 flash 2, all wgmma with lse; dispatch 3, all on the walk, the forward, its
 remat recompute and combine's backward; combine 3, the same with
-dispatch's backward; one plain dgates; no other kernel). Each serve phase
-fails unless every kernel of its path made exactly the launches its
+dispatch's backward; one plain dgates; no other kernel), and again just
+before phase 24's and phase 25's training runs and read just after each
+(flash: 2 launches a self-attention layer a step, all wgmma with lse, the
+encoder's 2 x 24 a step non-causal; 1152 and 48; no other kernel). Each
+serve phase fails unless every kernel of its path made exactly the launches its
 layers and batches call for, every flash launch of a serve phase on the
 wgmma route, every GLA launch of a serve phase on the tensor-core route,
 and the diagonal
@@ -359,11 +384,13 @@ from repro_torch.kernels.shuffle_dispatch.ref import (  # noqa: E402
 from repro_torch.launch.serve import Request, ServeLoop  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     SimulatedFailure, run_training, state_to)
+from repro_torch.launch.train import train_batch as complete_batch  # noqa: E402
 from repro_torch.models.blocks import (  # noqa: E402
     TRAIN_GLA_CHUNK, _capacity)
 from repro_torch.models.lm import tree_map  # noqa: E402
-from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.model import build_model, count_params  # noqa: E402
 from repro_torch.optim import adamw_apply, make_train_state  # noqa: E402
+from repro_torch.optim.train_state import leaf_grads  # noqa: E402
 from repro_torch.runtime.cluster import Cluster  # noqa: E402
 from repro_torch.runtime.join import ClusterJoin  # noqa: E402
 from repro_torch.runtime.rpc import pickle_fallbacks  # noqa: E402
@@ -795,9 +822,18 @@ FLASH_GRAD_CASES = [  # B, H, KH, Tq, Tk, D, causal, window, q_offset, block_k
     (1, 4, 4, 33, 50, 8, False, None, 0, 16),
     (1, 8, 2, 20, 70, 16, True, 16, 50, 32),
     (1, 4, 2, 150, 150, 64, True, None, 0, 128),
+    # the training shapes of seamless-m4t-large-v2's encoder (non-causal,
+    # D = 64) and of qwen2-vl-72b (64 query heads over 8)
+    (8, 16, 16, 512, 512, 64, False, None, 0, 128),
+    (4, 64, 8, 512, 512, 128, True, None, 0, 128),
 ]
 # qwen3-0.6b's training shape: batch 8 of 512 tokens, 16 heads over 8
 TRAIN_SHAPE = (8, 16, 8, 512, 512, 128)
+# the enc-dec's and the VLM's (B, H, KH, T, D, causal), timed beside it
+FAMILY_TRAIN_SHAPES = {
+    "seamless-m4t-large-v2 encoder": (8, 16, 16, 512, 64, False),
+    "qwen2-vl-72b": (4, 64, 8, 512, 128, True),
+}
 LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}      # relative
 GRAD_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
 
@@ -886,46 +922,68 @@ def check_flash_train(rng):
                 worst = max(worst, close_or_fail(
                     t.grad, r.grad, GRAD_TOL[dtype],
                     f"flash d{name} {case} {dtype}"))
-            key = "train shape" if case[:6] == TRAIN_SHAPE else "cases"
+            key = {TRAIN_SHAPE: "train shape", **{
+                (b, h, kh, t, t, d): f"{name} train shape"
+                for name, (b, h, kh, t, d, _) in FAMILY_TRAIN_SHAPES.items()
+            }}.get(case[:6], "cases")
             grad_err[f"{key} {dtype}"] = max(
                 grad_err.get(f"{key} {dtype}", 0.0), worst)
             del leaves, ref, out
-    # times at the training shape, bf16
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
     B, H, KH, T, _, D = TRAIN_SHAPE
+    times = flash_train_times(rng, B, H, KH, T, D, True)
+    return dict(lse_max_rel_err=lse_err,
+                lse_tolerance={names[d]: t for d, t in LSE_TOL.items()},
+                grads_max_abs_err=grad_err,
+                grads_tolerance={names[d]: t for d, t in GRAD_TOL.items()},
+                **times,
+                families={name: flash_train_times(rng, *shape)
+                          for name, shape in FAMILY_TRAIN_SHAPES.items()})
+
+
+def flash_train_times(rng, B, H, KH, T, D, causal):
+    """At one training shape in bf16: the times of the kernel's forward
+    with and without lse beside the forward's bound, of the plain backward
+    (no kernel) beside its bound, and of SDPA's forward and of its forward
+    and backward as a yardstick the port never calls."""
     dtype = torch.bfloat16
     q = rand(rng, (B, H, T, D), dtype)
     k, v = rand(rng, (B, KH, T, D), dtype), rand(rng, (B, KH, T, D), dtype)
     dout = rand(rng, (B, H, T, D), dtype)
-    out, lse = flash_attention_kernel(q, k, v, causal=True, return_lse=True)
+    out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                      return_lse=True)
     scale = D ** -0.5
-    fwd_ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=True))
-    fwd_lse_ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=True,
-                                                        return_lse=True))
-    bwd_ms = time_ms(lambda: _attn_bwd_core(q, k, v, out, dout, lse, True,
+    fwd_ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=causal))
+    fwd_lse_ms = time_ms(lambda: flash_attention_kernel(
+        q, k, v, causal=causal, return_lse=True))
+    bwd_ms = time_ms(lambda: _attn_bwd_core(q, k, v, out, dout, lse, causal,
                                             None, scale, 0, 128), reps=5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
 
     def sdpa_fwd_bwd():
-        o = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+        o = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
         o.backward(dout)
 
+    sdpa_fwd_ms = time_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                       enable_gqa=True))
     sdpa_ms = time_ms(sdpa_fwd_bwd)
-    pairs = B * H * T * (T + 1) // 2
-    # read q, k, v, out, dout and lse once, write dq, dk, dv once; five
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    # the forward: read q, k, v once, write out and the fp32 lse once; two
     # products of 2 D flops over each live (q, k) pair
+    fwd_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
+    fwd_bound_ms, fwd_bound_by = bound(fwd_bytes, 4 * D * pairs, dtype)
+    # the backward: read q, k, v, out, dout and lse once, write dq, dk, dv
+    # once; five products of 2 D flops over each live (q, k) pair
     nbytes = (3 * q.numel() + k.numel() + v.numel()) * 2 \
         + lse.numel() * 4 + (q.numel() + k.numel() + v.numel()) * 2
     bwd_bound_ms, bwd_bound_by = bound(nbytes, 10 * D * pairs, dtype)
-    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-    return dict(lse_max_rel_err=lse_err,
-                lse_tolerance={names[d]: t for d, t in LSE_TOL.items()},
-                grads_max_abs_err=grad_err,
-                grads_tolerance={names[d]: t for d, t in GRAD_TOL.items()},
-                shape=f"B={B} H={H} KH={KH} T={T} D={D} bf16 causal",
+    return dict(shape=f"B={B} H={H} KH={KH} T={T} D={D} bf16 "
+                + ("causal" if causal else "non-causal"),
                 fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
+                fwd_bound_ms=fwd_bound_ms, fwd_bound_by=fwd_bound_by,
                 backward_plain_ms=bwd_ms, backward_bound_ms=bwd_bound_ms,
-                backward_bound_by=bwd_bound_by,
+                backward_bound_by=bwd_bound_by, sdpa_fwd_ms=sdpa_fwd_ms,
                 sdpa_fwd_bwd_ms=sdpa_ms)
 
 
@@ -2935,27 +2993,34 @@ def same_bits(a, b):
         a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
 
 
-def train_batch(cfg, seed, batch=TRAIN_BATCH):
+def train_batch(cfg, seed, batch=TRAIN_BATCH, params=None):
+    """``batch`` x 512 tokens from ``seed``, with their labels, completed
+    as ``run_training`` completes a batch at step 0: the enc-dec's frames,
+    the VLM's embeddings gathered from ``params`` at the broadcast M-RoPE
+    positions."""
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab, (batch, TRAIN_SEQ), dtype=np.int32)
     labels = np.concatenate(
         [toks[:, 1:], np.full((batch, 1), -100, np.int32)], axis=1)
-    return {"tokens": torch.from_numpy(toks).to(DEV),
-            "labels": torch.from_numpy(labels).to(DEV)}
+    return complete_batch(cfg, {"tokens": toks, "labels": labels}, params, 0,
+                          seed, DEV)
 
 
 def train_routes(cfg, key="attn_impl", plain="xla", batch=TRAIN_BATCH,
-                 params=None, held=("loss", "grad_norm")):
+                 params=None, held=("loss", "grad_norm"), positions=None):
     """One training step's loss and gradient norm from the same params
     (``params``, else drawn from seed 7) and batch with ``key`` (attention's
     forward, or the scans; a tuple of such impl keys sets each) on the
     kernel and on the plain path ``plain``: those named in ``held`` within
-    2e-2 (relative)."""
+    2e-2 (relative). ``positions``: the M-RoPE positions of the batch, in
+    place of the broadcast ones."""
     if params is None:
         params = build_model(cfg, device=DEV).init(
             torch.Generator(DEV).manual_seed(7))
     flat = leaves_of(params)
-    tb = train_batch(cfg, 8, batch)
+    tb = train_batch(cfg, 8, batch, params)
+    if positions is not None:
+        tb["positions"] = positions
     out = {}
     keys = (key,) if isinstance(key, str) else key
     for impl in ("kernel", plain):
@@ -2963,7 +3028,7 @@ def train_routes(cfg, key="attn_impl", plain="xla", batch=TRAIN_BATCH,
         leaves = [p.detach().requires_grad_(True) for p in flat]
         it = iter(leaves)
         loss = model.loss(tree_map(lambda _: next(it), params), tb)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = leaf_grads(loss, leaves)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                for g in grads))
         out[impl] = {"loss": float(loss), "grad_norm": float(gnorm)}
@@ -3000,7 +3065,7 @@ def train_profile(cfg, state, batch, plain_bwd=None, kernel_names=None):
         with record_function("train/forward"):
             loss = model.loss(params, batch)
         with record_function("train/backward"):
-            grads = list(torch.autograd.grad(loss, leaves))
+            grads = leaf_grads(loss, leaves)
         del params, leaves
         with record_function("train/optimizer"):
             # as run_training's step: each gradient freed as its leaf is
@@ -3362,6 +3427,75 @@ def train_moe(mcfg, counted):
     return train
 
 
+# -- phases 24-25: train the enc-dec and the VLM ---------------------------------
+# qwen2-vl-72b at full width and 2 of its 80 layers: 4.25 B fp32 params,
+# 51.0 GB with their fp32 gradients and bf16 moments (80 layers are 72.7 B),
+# in batches of 4 x 512 (its 152064-wide logits are 1.25 GB an fp32 copy)
+VLM_TRAIN_LAYERS = 2
+VLM_TRAIN_BATCH = 4
+
+
+def train_family(cfg, counted, batch, sequences, positions=None):
+    """Phases 24-25 on ``cfg`` (the enc-dec or the VLM), the counts zeroed
+    just before: the port's own ``count_params``, ``train_run``, exactly 2
+    flash launches a self-attention layer a step (the forward and its remat
+    recompute), all on wgmma with lse, the encoder's non-causal, and no
+    other kernel; a profiled warm step; the kernel route against the plain
+    (chunked) one from the trained params, the loss in bf16 compute and the
+    loss and grad norm in fp32 compute, at ``positions`` where given.
+    Returns the line's dict."""
+    counted_params = count_params(cfg)
+    log(f"{cfg.name}: {counted_params} params (count_params), "
+        f"{cfg.n_encoder_layers} + {cfg.n_layers} layers")
+    train_res, train = train_run(cfg, batch=batch, sequences=sequences)
+    path = f"{cfg.name}/train"
+    if train["params"] != counted_params:
+        _fail(f"{path}: {train['params']} params trained, count_params "
+              f"{counted_params}")
+    n = 2 * (cfg.n_encoder_layers + cfg.n_layers) * TRAIN_STEPS
+    want = {"flash": n, "flash_wgmma": n, "flash_lse": n,
+            "flash_noncausal": 2 * cfg.n_encoder_layers * TRAIN_STEPS}
+    got = {"flash": flash_attention.launches,
+           "flash_wgmma": flash_attention.launches_by_route["wgmma"],
+           "flash_lse": flash_attention.lse_launches,
+           "flash_noncausal": flash_attention.noncausal_launches}
+    if got != want:
+        _fail(f"{path}: launches {got}, not {want}")
+    others = {fn.__name__: fn.launches for fn in counted
+              if fn is not flash_attention and fn.launches}
+    if others or diag_scan.bwd_launches or gla_scan.bwd_calls \
+            or dispatch.bwd_launches or combine.bwd_launches:
+        _fail(f"{path}: other kernels launched: {others}")
+    # the path's counts, read before the profile and the route check
+    # launch more
+    train.update(params_counted=counted_params, launches=got,
+                 launches_a_step={k: v // TRAIN_STEPS for k, v in got.items()},
+                 routes=dict(flash_attention.launches_by_route,
+                             with_lse=got["flash_lse"],
+                             noncausal=got["flash_noncausal"]))
+    t_part = time.perf_counter()
+    state = train_res.state
+    train["profile"] = train_profile(
+        cfg, state, train_batch(cfg, 9, batch, state.params),
+        kernel_names={"flash_kernels": "flash"})
+    train["profile_s"] = time.perf_counter() - t_part
+    params = state.params
+    del train_res, state
+    free_cache()
+    t_part = time.perf_counter()
+    train["kernel_vs_plain"] = train_routes(cfg, batch=batch, params=params,
+                                            held=("loss",),
+                                            positions=positions)
+    free_cache()
+    train["kernel_vs_plain_fp32"] = train_routes(
+        cfg.with_(compute_dtype="float32"), batch=batch, params=params,
+        positions=positions)
+    train["routes_s"] = time.perf_counter() - t_part
+    del params
+    free_cache()
+    return train
+
+
 def free_cache():
     gc.collect()
     torch.cuda.empty_cache()
@@ -3482,6 +3616,7 @@ def main():
         for fn in counted:
             fn.launches = 0
         flash_attention.lse_launches = 0
+        flash_attention.noncausal_launches = 0
         diag_scan.bwd_launches = 0
         gla_scan.bwd_calls = 0
         for fn in (dispatch, combine):
@@ -3871,6 +4006,33 @@ def main():
     train.update(seconds=phase_s[path], card=smi,
                  cut=f"{mcfg.n_layers} of {dcfg.n_layers} layers")
     log("train_moe", json.dumps(train))
+
+    # seamless-m4t-large-v2 trains at full width and depth (24 + 24 layers,
+    # 2.03 B fp32 params, 32.6 GB with gradients and fp32 moments)
+    path = f"{scfg.name}/train"
+    zero_counts()
+    train = train_family(scfg, counted, TRAIN_BATCH, TRAIN_SEQUENCES)
+    launches["flash_attention"][path] = train["launches"]["flash"]
+    flash_routes[path] = train["routes"]
+    lap(path)
+    train.update(seconds=phase_s[path], card=smi)
+    log("train_encdec", json.dumps(train))
+
+    # qwen2-vl-72b trains at full width and 2 of its 80 layers, bf16 moments;
+    # the route step at image-grid positions (t, h and w apart)
+    tcfg = get_config("qwen2-vl-72b").with_(n_layers=VLM_TRAIN_LAYERS)
+    path = f"{tcfg.name}/train"
+    zero_counts()
+    train = train_family(tcfg, counted, VLM_TRAIN_BATCH, 4 * VLM_TRAIN_BATCH,
+                         positions=grid_positions(VLM_TRAIN_BATCH, 64,
+                                                  (16, 16), 192))
+    launches["flash_attention"][path] = train["launches"]["flash"]
+    flash_routes[path] = train["routes"]
+    lap(path)
+    train.update(seconds=phase_s[path], card=smi,
+                 cut=f"{tcfg.n_layers} of {get_config(tcfg.name).n_layers} "
+                 f"layers, batch {VLM_TRAIN_BATCH}")
+    log("train_vlm", json.dumps(train))
 
     next(k for k in kernels if k["name"] == "flash_attention").update(
         launches_by_route=flash_routes, build=flash_build)

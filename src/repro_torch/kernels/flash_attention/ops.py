@@ -36,7 +36,9 @@ Tk and kv_len themselves, so ``block_q`` / ``block_k`` only shape the
 ``flash_attention.launches`` counts kernel launches,
 ``flash_attention.launches_by_route`` splits them by route and
 ``flash_attention.lse_launches`` counts those that also wrote the rows'
-log-sum-exp (the training path's forwards).
+log-sum-exp (the training path's forwards) and
+``flash_attention.noncausal_launches`` those without the causal mask (the
+enc-dec's encoder).
 
 ``"kernel"`` and ``"xla"`` differ on a row with no live key inside a block
 that is not skipped (a causal row before the first key, ``q_offset < 0``):
@@ -119,6 +121,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention.lse_launches = 0
+flash_attention.noncausal_launches = 0
 
 
 def _kernel_fwd(q, k, v, causal, window, scale, q_offset, return_lse):
@@ -135,6 +138,7 @@ def _kernel_fwd(q, k, v, causal, window, scale, q_offset, return_lse):
     flash_attention.launches_by_route[
         kernel_route(q.dtype, q.shape[-1], v.shape[-1])] += 1
     flash_attention.lse_launches += int(return_lse)
+    flash_attention.noncausal_launches += int(not causal)
     return res
 
 

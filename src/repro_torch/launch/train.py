@@ -13,10 +13,11 @@ and combine their shuffle kernels forward and backward (each backward a
 launch of the other's kernel, combine's gate gradient plain); the
 optimizer is the port's AdamW. Checkpoints go through the port's
 ``CheckpointManager`` with the reference's layouts, shard count and
-flattened keys, so either package restores the other's. Training is
-ported for the dense, ssm (rwkv6-3b), hybrid (recurrentgemma-9b) and moe
-(grok-1-314b, deepseek-v2-lite-16b with MLA) families; ``LM.loss``
-raises for the VLM and ``EncDecLM`` under grad.
+flattened keys, so either package restores the other's. Every family
+trains: dense, ssm (rwkv6-3b), hybrid (recurrentgemma-9b), moe
+(grok-1-314b, deepseek-v2-lite-16b with MLA), vlm (qwen2-vl-72b) and
+encdec (seamless-m4t-large-v2), each batch completed as the reference's
+loop completes it (``train_batch``).
 
 Run: ``python -m repro_torch.launch.train --arch qwen3-0.6b`` on the card,
 or ``--smoke --device cpu`` for a small CPU run.
@@ -71,6 +72,46 @@ def state_to(state: TrainState, device: torch.device) -> TrainState:
                       opt=AdamWState(step=move(opt.step),
                                      m=tree_map(move, opt.m),
                                      v=tree_map(move, opt.v)))
+
+
+def frames_generator(seed: int, step: int,
+                     device: torch.device) -> torch.Generator:
+    """The generator of the enc-dec frames at ``step`` of a run seeded
+    with ``seed``: one (seed, step) pair, one stream, so that a run
+    restarted from a checkpoint draws the frames the first run drew at
+    that step. The pair is mixed into 32 bits by numpy's ``SeedSequence``
+    (the CPU generator keeps only a seed's low 32 bits). The reference
+    draws them from ``jax.random.fold_in(PRNGKey(seed), step)``, which
+    torch cannot reproduce: the two packages draw other frames (ROADMAP
+    queue 3, quirk 12)."""
+    mixed = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def train_batch(cfg: ArchConfig, batch: Dict[str, np.ndarray], params,
+                step: int, seed: int, device: torch.device
+                ) -> Dict[str, torch.Tensor]:
+    """A loader batch (tokens, labels) on ``device``, completed as the
+    reference's ``run_training`` completes it: with M-RoPE the positions
+    ``arange(T)`` on all three of [B, 3, T] (int32); for the VLM the
+    embeddings of the tokens, gathered from the fp32 master ``params``
+    before the step (a new tensor, detached: the step updates the params in
+    place), in place of the tokens; for the enc-dec [B, T, d_model] fp32
+    standard-normal frames from ``frames_generator(seed, step)``."""
+    tb = {k: torch.tensor(v, device=device) for k, v in batch.items()}
+    B, T = tb["tokens"].shape
+    if cfg.rope == "mrope":
+        tb["positions"] = torch.arange(
+            T, dtype=torch.int32, device=device).expand(B, 3, T)
+    if cfg.embed_inputs and cfg.family != "encdec":
+        with torch.no_grad():
+            tb["embeds"] = params["embed"][tb.pop("tokens").long()]
+    if cfg.family == "encdec":
+        tb["src_embeds"] = torch.randn(
+            (B, T, cfg.d_model), generator=frames_generator(seed, step,
+                                                            device),
+            dtype=torch.float32, device=device)
+    return tb
 
 
 def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
@@ -129,7 +170,7 @@ def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
     for batch in batches():
         if done >= steps:
             break
-        tb = {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+        tb = train_batch(cfg, batch, state.params, done, seed, dev)
         t0 = time.time()
         state, metrics = step_fn(state, tb)
         loss = float(metrics["loss"])

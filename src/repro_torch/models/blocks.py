@@ -29,18 +29,18 @@ from ..kernels.flash_attention.ref import attention_ref
 from ..kernels.linear_scan.ops import diag_scan, gla_scan
 from ..kernels.shuffle_dispatch.ops import combine, compute_slots, dispatch
 from .common import (_const, apply_mrope, apply_rope, dense_init, einsum,
-                     gelu, layer_norm, normal, param_dtype, rms_norm,
-                     sigmoid, silu, softplus)
+                     gelu, gen_device, layer_norm, normal, param_dtype,
+                     rms_norm, sigmoid, silu, softplus)
 
 
 def _ones(gen: torch.Generator, shape, dtype=None) -> torch.Tensor:
     return torch.ones(shape, dtype=param_dtype(shape, dtype),
-                      device=gen.device)
+                      device=gen_device(gen))
 
 
 def _zeros(gen: torch.Generator, shape, dtype=None) -> torch.Tensor:
     return torch.zeros(shape, dtype=param_dtype(shape, dtype),
-                       device=gen.device)
+                       device=gen_device(gen))
 
 
 def _normal(gen: torch.Generator, shape, scale: float,
@@ -538,7 +538,7 @@ def moe_apply(p, x, *, cfg: ArchConfig, impl: str = "xla"):
 # ---------------------------------------------------------------------------
 def _uniform(gen: torch.Generator, shape, dtype=None) -> torch.Tensor:
     return torch.rand(shape, generator=gen, dtype=param_dtype(shape, dtype),
-                      device=gen.device)
+                      device=gen_device(gen))
 
 
 def rwkv_init(gen: torch.Generator, cfg: ArchConfig,

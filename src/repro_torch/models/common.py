@@ -29,8 +29,27 @@ def dense_init(gen: torch.Generator, in_dim: int,
     return normal(gen, (*lead, in_dim, *out_dims), dtype).mul_(scale)
 
 
-def normal(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
+META = torch.device("meta")
+
+
+def gen_device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where a draw from ``gen`` lands: the generator's device, or ``meta``
+    for ``gen=None`` (an init on the meta device: shapes and dtypes, no
+    memory, the registry's specs and counts)."""
+    return META if gen is None else gen.device
+
+
+def check_gen(gen: Optional[torch.Generator], device: torch.device) -> None:
+    """A model's ``init`` draws from a generator on its own device; only a
+    model on ``meta`` takes none."""
+    if gen_device(gen).type != device.type:
+        raise ValueError(f"generator on {gen_device(gen)}, model on {device}")
+
+
+def normal(gen: Optional[torch.Generator], shape,
+           dtype=torch.float32) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=gen_device(gen))
 
 
 def param_dtype(shape, dtype: Optional[torch.dtype] = None) -> torch.dtype:

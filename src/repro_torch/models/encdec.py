@@ -12,6 +12,15 @@ Params keep the reference's layout: ``embed``, ``unembed``, ``enc`` {attn,
 ffn} and ``dec`` {self, cross, ffn} stacked on a leading layers dim,
 ``enc_norm`` and ``final_norm``. The reference scans the layers; here they
 run in a Python loop over the stacked dim.
+
+Training: ``loss`` is the reference's, and under grad (a param requires
+it) with ``cfg.remat == "layer"`` each encoder layer and each decoder layer
+is rematerialised (``torch.utils.checkpoint``, non-reentrant), as the
+reference wraps both scans' bodies in ``jax.checkpoint``. The decoder
+layer computes its cross K/V from the memory inside that body, so the
+memory's gradient flows back into the encoder. Self-attention takes
+``_FlashAttention`` (the kernel's forward, the plain backward); the
+cross-attention stays plain autograd through ``attention_ref``.
 """
 from __future__ import annotations
 
@@ -19,13 +28,14 @@ import math
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from . import blocks
-from .common import cross_entropy_loss, einsum, normal, param_dtype
-from .lm import (TRAIN_ITEMS, _layer, _requires_grad, _unstack,
-                 compute_cast, torch_dtype)
+from .common import (check_gen, cross_entropy_loss, einsum, normal,
+                     param_dtype)
+from .lm import _layer, _requires_grad, _unstack, compute_cast, torch_dtype
 
 Pytree = Any
 
@@ -56,13 +66,12 @@ class EncDecLM:
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
-    def init(self, gen: torch.Generator,
+    def init(self, gen: Optional[torch.Generator],
              dtype: Optional[torch.dtype] = None) -> Pytree:
         """Random params drawn from ``gen`` (on the model's device), with
-        the reference's names and shapes; ``dtype`` as in ``LM.init``."""
-        if gen.device.type != self.device.type:
-            raise ValueError(f"generator on {gen.device}, model on "
-                             f"{self.device}")
+        the reference's names and shapes; ``dtype`` and ``gen=None`` as in
+        ``LM.init``."""
+        check_gen(gen, self.device)
         cfg = self.cfg
         d, L, Le = cfg.d_model, cfg.n_layers, cfg.n_encoder_layers
         emb, unemb = (cfg.vocab, d), (d, cfg.vocab)
@@ -86,6 +95,9 @@ class EncDecLM:
     def _compute_cast(self, params):
         return compute_cast(params, self.cfg.compute_dtype)
 
+    def _remat(self, params) -> bool:
+        return _requires_grad(params) and self.cfg.remat == "layer"
+
     # ------------------------------------------------------------- encoder
     def encode(self, params, src_embeds) -> torch.Tensor:
         """Frame embeddings [B, S, d] -> encoder memory [B, S, d]. The params
@@ -98,12 +110,20 @@ class EncDecLM:
         S, d = x.shape[1], x.shape[2]
         x = x + sinusoidal(S, d, device=self.device).to(dt)
         positions = torch.arange(S, device=self.device)
+        remat = self._remat(params)
         for lp in _unstack(params["enc"], cfg.n_encoder_layers):
-            x, _ = blocks.attn_apply(lp["attn"], x, cfg=cfg,
-                                     positions=positions, causal=False,
-                                     attn_impl=self.attn_impl)
-            x = blocks.ffn_apply(lp["ffn"], x, cfg=cfg)
+            if remat:
+                x = checkpoint(self._enc_layer, lp, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._enc_layer(lp, x, positions)
         return blocks.apply_norm(cfg, params.get("enc_norm"), x)
+
+    def _enc_layer(self, lp, x, positions):
+        x, _ = blocks.attn_apply(lp["attn"], x, cfg=self.cfg,
+                                 positions=positions, causal=False,
+                                 attn_impl=self.attn_impl)
+        return blocks.ffn_apply(lp["ffn"], x, cfg=self.cfg)
 
     def _cross_kv(self, lp, memory):
         """One decoder layer's cross-attention k/v from the encoder memory,
@@ -127,32 +147,41 @@ class EncDecLM:
         x = x + sinusoidal(T, cfg.d_model, offset=pos,
                            device=self.device).to(dt)
         positions = torch.arange(T, device=self.device) + pos
+        remat = cache is None and self._remat(params)
         for i, lp in enumerate(_unstack(params["dec"], cfg.n_layers)):
-            if cache is None:
-                x, _ = blocks.attn_apply(lp["self"], x, cfg=cfg,
-                                         positions=positions, causal=True,
-                                         attn_impl=self.attn_impl)
-                kv = self._cross_kv(lp, memory)
+            if remat:
+                x = checkpoint(self._dec_layer, lp, x, positions, memory,
+                               use_reentrant=False)
             else:
-                x, _ = blocks.attn_apply(lp["self"], x, cfg=cfg,
-                                         positions=positions,
-                                         cache=_layer(cache["self"], i),
-                                         pos=pos, attn_impl=self.attn_impl)
-                kv = (cache["cross_k"][i], cache["cross_v"][i])
-            x, _ = blocks.attn_apply(lp["cross"], x, cfg=cfg,
-                                     positions=positions, kv_memory=kv)
-            x = blocks.ffn_apply(lp["ffn"], x, cfg=cfg)
+                x = self._dec_layer(lp, x, positions, memory, cache, i, pos)
         x = blocks.apply_norm(cfg, params.get("final_norm"), x)
         return einsum("btd,dv->btv", x, params["unembed"]), cache
+
+    def _dec_layer(self, lp, x, positions, memory, cache=None, i: int = 0,
+                   pos: int = 0):
+        """Decoder layer ``i``: over the whole sequence against ``memory``
+        (its cross K/V computed here, as in the reference's scanned body),
+        or with ``cache`` at pos."""
+        cfg = self.cfg
+        if cache is None:
+            x, _ = blocks.attn_apply(lp["self"], x, cfg=cfg,
+                                     positions=positions, causal=True,
+                                     attn_impl=self.attn_impl)
+            kv = self._cross_kv(lp, memory)
+        else:
+            x, _ = blocks.attn_apply(lp["self"], x, cfg=cfg,
+                                     positions=positions,
+                                     cache=_layer(cache["self"], i),
+                                     pos=pos, attn_impl=self.attn_impl)
+            kv = (cache["cross_k"][i], cache["cross_v"][i])
+        x, _ = blocks.attn_apply(lp["cross"], x, cfg=cfg,
+                                 positions=positions, kv_memory=kv)
+        return blocks.ffn_apply(lp["ffn"], x, cfg=cfg)
 
     # ------------------------------------------------------------- public
     def forward(self, params, batch):
         """batch: {"src_embeds": [B, S, d], "tokens": [B, T]}. Returns
         (logits [B, T, V], a zero aux loss)."""
-        if _requires_grad(params):
-            raise NotImplementedError(
-                f"{self.cfg.name}: training the encdec family is not ported "
-                f"yet (ROADMAP queue 1, '{TRAIN_ITEMS['encdec']}')")
         params = self._compute_cast(params)
         memory = self.encode(params, batch["src_embeds"])
         logits, _ = self._decoder(params, batch["tokens"], memory)
@@ -160,8 +189,8 @@ class EncDecLM:
                                    device=self.device)
 
     def loss(self, params, batch) -> torch.Tensor:
-        """Mean next-token CE over ``batch["labels"] != -100`` (its value:
-        gradients are not ported)."""
+        """Mean next-token CE over ``batch["labels"] != -100``, as the
+        reference's (no aux term)."""
         logits, _ = self.forward(params, batch)
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         return cross_entropy_loss(logits, labels)

@@ -11,11 +11,13 @@ bridge to the reference is a map over names and checkpoints stay
 cross-loadable. The reference scans layers with ``lax.scan``; PyTorch runs
 eagerly, so here it is a Python loop over the stacked dim.
 
-Training (``loss``, gradients through ``forward``) is ported for the dense
-family, the recurrent ones (ssm: RWKV6; hybrid: RG-LRU and local
-attention) and MoE (its dispatch and combine through the shuffle kernels'
+Training (``loss``, gradients through ``forward``) is ported for every
+family: dense, the recurrent ones (ssm: RWKV6; hybrid: RG-LRU and local
+attention), MoE (its dispatch and combine through the shuffle kernels'
 autograd Functions, whose backwards launch each other's kernels; MLA's
-full mode through ``_FlashAttention`` at Dv != D). ``forward`` takes the layers with one ``unbind`` of each cast
+full mode through ``_FlashAttention`` at Dv != D) and the VLM (from
+``embeds`` at [B, 3, T] M-RoPE positions; ``embed`` then takes no part in
+the loss). ``forward`` takes the layers with one ``unbind`` of each cast
 stacked leaf (under autograd its backward is one ``stack``; slicing layer
 i would write a zero tensor of the whole stack for each layer's
 gradient), and when grad is enabled, a param requires it and
@@ -37,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from . import blocks
-from .common import cross_entropy_loss, einsum, normal, param_dtype
+from .common import (check_gen, cross_entropy_loss, einsum, normal,
+                     param_dtype)
 from .moe_shardmap import moe_shardmap_apply, moe_shardmap_init
 
 Pytree = Any
@@ -45,11 +48,6 @@ Pytree = Any
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 AUX_COEF = 0.01
-
-# the ROADMAP items that carry training past the dense, recurrent and MoE
-# families
-TRAIN_ITEMS = {"encdec": "Training: enc-dec and VLM",
-               "vlm": "Training: enc-dec and VLM"}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -138,19 +136,18 @@ class LM:
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
-    def init(self, gen: torch.Generator,
+    def init(self, gen: Optional[torch.Generator],
              dtype: Optional[torch.dtype] = None) -> Pytree:
         """Random params drawn from ``gen``, which must live on the model's
-        device. Same names and shapes as the reference's ``LM.init``.
+        device. Same names and shapes as the reference's ``LM.init``. A
+        model on ``meta`` (``models.model``'s specs) takes ``gen=None``.
 
         ``dtype`` (e.g. ``torch.bfloat16``): draw every leaf of rank >= 2
         directly in that type, so that each leaf is born in the type the
         compute cast would give it and no fp32 copy of a large leaf ever
         exists (grok-1-314b's expert weights are 25.8 GB a tensor in fp32
         at 4 layers). The default draws every leaf in fp32."""
-        if gen.device.type != self.device.type:
-            raise ValueError(f"generator on {gen.device}, model on "
-                             f"{self.device}")
+        check_gen(gen, self.device)
         cfg = self.cfg
         L = cfg.n_layers
         emb, unemb = (cfg.vocab, cfg.d_model), (cfg.d_model, cfg.vocab)
@@ -320,8 +317,6 @@ class LM:
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (logits, aux_loss)."""
         train = _requires_grad(params)
-        if train:
-            self._check_trainable()
         params = self._compute_cast(params)
         x = self._embed(params, batch)
         positions = self._positions(batch, x.shape[1])
@@ -346,19 +341,9 @@ class LM:
                 aux = aux + a
         return self._logits(params, x), aux
 
-    def _check_trainable(self) -> None:
-        """Gradients are ported for the dense, ssm, hybrid and MoE families;
-        the VLM's are not yet."""
-        if self.cfg.family not in ("dense", "ssm", "hybrid", "moe"):
-            raise NotImplementedError(
-                f"{self.cfg.name}: training the {self.cfg.family!r} family "
-                f"is not ported yet (ROADMAP queue 1, "
-                f"'{TRAIN_ITEMS[self.cfg.family]}')")
-
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token CE over ``batch["labels"] != -100`` plus
         ``AUX_COEF`` times the forward's aux loss, as the reference's."""
-        self._check_trainable()
         logits, aux = self.forward(params, batch)
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         return cross_entropy_loss(logits, labels) + AUX_COEF * aux

@@ -27,6 +27,17 @@ def make_train_state(params: Pytree, opt_dtype: str = "float32") -> TrainState:
     return TrainState(params=params, opt=adamw_init(params, opt_dtype))
 
 
+def leaf_grads(loss: torch.Tensor, leaves: list) -> list:
+    """d loss / d leaf for each leaf. A leaf the loss does not use (the
+    VLM's ``embed`` when the batch brings ``embeds``) gets an fp32 zero
+    gradient of its shape, as ``jax.grad`` gives it zeros: AdamW then still
+    decays it. The zeros are one scalar broadcast, so that a 1.25 B-element
+    leaf costs no memory for them."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros((), dtype=torch.float32, device=p.device).expand(
+        p.shape) if g is None else g for g, p in zip(grads, leaves)]
+
+
 def make_train_step(loss_fn: Callable[[Pytree, Any], torch.Tensor], *,
                     lr: float = 3e-4, weight_decay: float = 0.1,
                     microbatches: int = 1) -> Callable:
@@ -45,8 +56,7 @@ def make_train_step(loss_fn: Callable[[Pytree, Any], torch.Tensor], *,
     def grads_of(params, batch):
         leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
         loss = loss_fn(_unflatten_like(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), grads
+        return loss.detach(), leaf_grads(loss, leaves)
 
     def train_step(state: TrainState, batch) -> tuple:
         params = state.params

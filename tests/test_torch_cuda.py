@@ -262,8 +262,9 @@ def test_flash_kernel_fully_masked_rows_give_zero(dtype, cuda_device):
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}       # relative
 GRAD_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
 # the JAX package's attention-gradient case (tests/test_kernels.py), the
-# masks of tests/test_torch_train.py's GRAD_CASES and qwen3-0.6b's training
-# shape: B, H, KH, Tq, Tk, D, causal, window, q_offset, block_k; then MLA's
+# masks of tests/test_torch_train.py's GRAD_CASES and the training shapes
+# of qwen3-0.6b, seamless-m4t-large-v2's encoder and qwen2-vl-72b: B, H, KH,
+# Tq, Tk, D, causal, window, q_offset, block_k; then MLA's
 # heads (Dv unlike D), smoke and full: ..., block_k, Dv
 FLASH_GRAD_CASES = [
     (1, 4, 2, 48, 48, 16, True, None, 0, 16),
@@ -272,6 +273,10 @@ FLASH_GRAD_CASES = [
     (1, 4, 4, 33, 50, 8, False, None, 0, 16),
     (1, 8, 2, 20, 70, 16, True, 16, 50, 32),
     (8, 16, 8, 512, 512, 128, True, None, 0, 128),
+    # seamless-m4t-large-v2's encoder and qwen2-vl-72b at their training
+    # shapes
+    (8, 16, 16, 512, 512, 64, False, None, 0, 128),
+    (4, 64, 8, 512, 512, 128, True, None, 0, 128),
     (2, 4, 4, 40, 40, 24, True, None, 0, 16, 16),
     (1, 4, 2, 150, 150, 192, True, None, 0, 128, 128),
 ]

@@ -125,17 +125,6 @@ def test_forward_and_loss_match_jax(dtype):
     _close(loss, jloss, TOL[dtype], "loss")
 
 
-def test_loss_under_grad_raises():
-    """The loss is ported as a value: gradients are ROADMAP queue 1 8a."""
-    _, _, tm, tp = _pair("float32")
-    src, toks = _inputs()
-    tp["unembed"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.loss(tp, {"src_embeds": torch.from_numpy(src),
-                     "tokens": torch.from_numpy(toks),
-                     "labels": torch.from_numpy(toks)})
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_cache_init_matches_jax(dtype):
     jm, jp, tm, tp = _pair(dtype)

@@ -232,6 +232,62 @@ def test_train_step_equals_the_reference(microbatches, moments):
                                    atol=1e-7, err_msg=key)
 
 
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_an_unused_leaf_gets_zeros_and_the_reference_bits(moments,
+                                                          microbatches):
+    """A loss that leaves one rank-2 leaf unused (the VLM's ``embed`` when
+    the batch brings ``embeds``): ``leaf_grads`` gives it an fp32 zero
+    gradient of its shape, as ``jax.grad`` gives zeros, and one step
+    matches the reference's ``make_train_step`` bit for bit on every leaf,
+    params and moments: the unused leaf decayed, its moments zero. The
+    loss is linear in the used leaves, so that both packages' gradients
+    are exact and only the step is compared; the reference's step runs as
+    ``make_train_step`` returns it, op by op."""
+    from repro.optim import make_train_step as ref_step
+    from repro.optim.train_state import make_train_state as ref_state
+    from repro_torch.optim.train_state import leaf_grads
+    rng = np.random.default_rng(5)
+    p = {"embed": rng.normal(size=(16, 8)).astype(np.float32),
+         "w": rng.normal(size=(8, 4)).astype(np.float32),
+         "layers": {"norm": rng.normal(size=(2, 4)).astype(np.float32)},
+         "b": rng.normal(size=(4,)).astype(np.float32)}
+    batch = {"w": rng.normal(size=(4, 8, 4)).astype(np.float32),
+             "norm": rng.normal(size=(4, 2, 4)).astype(np.float32),
+             "b": rng.normal(size=(4, 4)).astype(np.float32)}
+
+    def loss(q, bt):                     # torch and jnp alike
+        return ((q["w"] * bt["w"].mean(0)).sum() + (q["layers"]["norm"]
+                * bt["norm"].mean(0)).sum() + (q["b"] * bt["b"].mean(0)).sum())
+
+    leaf = torch.tensor(p["embed"], requires_grad=True)
+    used = torch.tensor(p["b"], requires_grad=True)
+    zero, gb = leaf_grads((used * 2).sum(), [leaf, used])
+    assert zero.dtype == torch.float32 and zero.shape == leaf.shape
+    assert not zero.any() and torch.equal(gb, torch.full((4,), 2.0))
+    ts = make_train_state(jax.tree.map(torch.tensor, p), moments)
+    js = ref_state(jax.tree.map(jnp.asarray, p), moments)
+    ts, tm = make_train_step(loss, lr=1e-2, microbatches=microbatches)(
+        ts, {k: torch.from_numpy(v) for k, v in batch.items()})
+    js, jm = ref_step(loss, lr=1e-2, microbatches=microbatches)(
+        js, {k: jnp.asarray(v) for k, v in batch.items()})
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(_np(tm[key]), np.asarray(jm[key]),
+                                   rtol=1e-6, err_msg=key)
+    for name, ours, ref in (("params", ts.params, js.params),
+                            ("m", ts.opt.m, js.opt.m),
+                            ("v", ts.opt.v, js.opt.v)):
+        for key, a, b in (("embed", ours["embed"], ref["embed"]),
+                          ("w", ours["w"], ref["w"]),
+                          ("norm", ours["layers"]["norm"],
+                           ref["layers"]["norm"]),
+                          ("b", ours["b"], ref["b"])):
+            assert _np(a).tobytes() == np.asarray(b, np.float32).tobytes(), \
+                (name, key)
+    assert not np.array_equal(_np(ts.params["embed"]), p["embed"])
+    assert not ts.opt.m["embed"].any() and not ts.opt.v["embed"].any()
+
+
 ALLREDUCE = r"""
 import json, sys
 import numpy as np, torch, torch.distributed as dist

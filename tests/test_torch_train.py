@@ -194,34 +194,6 @@ def test_serving_forward_is_untouched_by_the_training_path():
     assert torch.equal(train.detach(), plain)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "seamless-m4t-large-v2"])
-def test_training_other_families_raises(arch):
-    """The families whose training is not ported yet raise under grad,
-    naming their ROADMAP item (the LM's VLM family from ``loss`` and from
-    ``forward``; ``EncDecLM`` from ``loss`` and ``forward`` once a param
-    requires grad); serving still runs for each. The MoE family trains
-    (tests/test_torch_train_moe.py)."""
-    cfg = smoke_config(arch)
-    model = build_model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    toks, labels = _batch(256)
-    batch = {"tokens": toks}
-    if cfg.family == "encdec":
-        batch["src_embeds"] = torch.from_numpy(np.random.default_rng(1)
-                                               .normal(size=(2, 10, 64))
-                                               .astype(np.float32))
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.loss(params, dict(batch, labels=labels))
-    params["unembed"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss(params, dict(batch, labels=labels))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward(params, batch)
-    with torch.no_grad():                       # serving still runs
-        assert model.forward(params, batch)[0].shape == (2, 12, cfg.vocab)
-
-
 # -- tests/test_system.py on the port ---------------------------------------------
 def test_train_loss_decreases():
     cfg = smoke_config("olmo-1b")
@@ -251,12 +223,13 @@ def test_train_checkpoint_restart(tmp_path):
     assert all(a[k].tobytes() == b[k].tobytes() for k in a)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmo-1b", "qwen2-vl-72b"])
 def test_run_training_from_bridged_params_follows_the_reference(arch):
     """The reference's ``run_training`` and the port's, started from the
     same params (the reference's init, bridged) on the same tokens (both
     pools' synthetic dataset from one seed), in fp32: the same loss at
-    every step, at 1e-4."""
+    every step, at 1e-4. qwen2-vl-72b's batches are the embeddings gathered
+    from each step's params at the broadcast M-RoPE positions."""
     from repro.launch.train import run_training as ref_run_training
     jcfg = jax_smoke_config(arch).with_(compute_dtype="float32")
     kw = dict(steps=4, batch_size=4, seq_len=16, log_every=100)
