@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs its serving path, its
 storage tier, its trainer (every family: dense, recurrent, MoE with MLA,
-the encoder-decoder and the VLM with M-RoPE) on a GPU.
+the encoder-decoder and the VLM with M-RoPE) and its sharding layer (at
+world size 1; the dry-run of a production cell) on a GPU.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (Hopper,
 ``nvcc`` under ``/usr/local/cuda``): ``python3 chip_smoke.py``.
@@ -275,7 +276,31 @@ non-zero exit):
     tokens gathered from the params before the step, at the broadcast
     M-RoPE positions: the same checks, the route step at image-grid
     positions (64 text tokens, a 16 x 16 patch grid, 192 text tokens); a
-    ``train_vlm`` line.
+    ``train_vlm`` line;
+26. sharded training: phase 15's run (full-width qwen3-0.6b, its seed, its
+    first 3 batches of 8 x 512) through ``run_training(mesh=)`` on a 1 x 1
+    ("data", "model") ``DeviceMesh`` over an NCCL group of world size 1
+    (a ``FileStore`` in a temporary directory), the fsdp_tp preset: params,
+    moments and batches DTensors, every step under ``sharding.use_rules``,
+    every flash launch through ``local_map``; each loss within 1e-4
+    max(|loss|, 1) of phase 15's at that step (the gap printed; the bits
+    are expected equal); a profiled warm step: the step ms beside phase
+    15's, DTensor's host cost and the idle share; a ``train_sharded``
+    line;
+27. the MoE mesh branch: deepseek-v2-lite-16b at phase 23's cut with
+    ``moe_strategy="expert_parallel_shardmap"`` on a 1 x 1 NCCL mesh: the
+    loss of phase 23's first batch from phase 23's initial params through
+    ``moe_shardmap_apply``'s mesh branch (dispatch and combine on each
+    shard's experts, ids shifted, one all-reduce over "model") against the
+    same params' loss with no mesh, within 1e-4 max(|loss|, 1); a
+    ``shardmap`` line;
+28. one production dry-run cell: ``python -m repro_torch.launch.dryrun``
+    for qwen3-0.6b x train_4k x 16x16 in a subprocess (its own fake
+    process group of 256 ranks, no GPU): rc 0, and its per-device argument
+    bytes equal to the figure reckoned from the port's ``sharding_rules``
+    and ``param_axes`` (``reckoned_train_args``); a ``dryrun`` line.
+    Each phase's process group is taken down before the next; the cluster
+    phases' node processes were forked before any group was up.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5
 (flash and paged attention: the qwen3 path), zeroed again just before phase
@@ -311,7 +336,11 @@ remat recompute and combine's backward; combine 3, the same with
 dispatch's backward; one plain dgates; no other kernel), and again just
 before phase 24's and phase 25's training runs and read just after each
 (flash: 2 launches a self-attention layer a step, all wgmma with lse, the
-encoder's 2 x 24 a step non-causal; 1152 and 48; no other kernel). Each
+encoder's 2 x 24 a step non-causal; 1152 and 48; no other kernel), and
+again just before phase 26's run and read just after it (flash: exactly 2
+a layer a step, 168, all wgmma with lse; no other kernel), and again just
+before phase 27's sharded loss and read just after it (a layer: one flash
+on wgmma, one dispatch on the walk, one combine; no other kernel). Each
 serve phase fails unless every kernel of its path made exactly the launches its
 layers and batches call for, every flash launch of a serve phase on the
 wgmma route, every GLA launch of a serve phase on the tensor-core route,
@@ -339,11 +368,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import zlib
 from collections import Counter
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.nn.attention import SDPBackend
 
 
@@ -359,7 +390,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import PagedKVCache  # noqa: E402
+from repro_torch.core import BufferPool, PagedKVCache  # noqa: E402
 from repro_torch.core.pagelog import fsck  # noqa: E402
 from repro_torch.core.services import (  # noqa: E402
     canonical_join_sort, join_output_dtype)
@@ -381,20 +412,26 @@ from repro_torch.kernels.shuffle_dispatch.ops import (  # noqa: E402
     combine, combine_dgates, compute_slots, dispatch)
 from repro_torch.kernels.shuffle_dispatch.ref import (  # noqa: E402
     combine_bwd_ref, dispatch_bwd_ref)
+from repro_torch.data.pipeline import (  # noqa: E402
+    BatchLoader, synthetic_token_dataset)
+from repro_torch.launch.mesh import (  # noqa: E402
+    batch_shardings, distribute, make_mesh, param_shardings, sharding_rules)
 from repro_torch.launch.serve import Request, ServeLoop  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     SimulatedFailure, run_training, state_to)
 from repro_torch.launch.train import train_batch as complete_batch  # noqa: E402
 from repro_torch.models.blocks import (  # noqa: E402
     TRAIN_GLA_CHUNK, _capacity)
-from repro_torch.models.lm import tree_map  # noqa: E402
-from repro_torch.models.model import build_model, count_params  # noqa: E402
+from repro_torch.models.lm import torch_dtype, tree_map  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    _on_meta, build_model, count_params)
 from repro_torch.optim import adamw_apply, make_train_state  # noqa: E402
 from repro_torch.optim.train_state import leaf_grads  # noqa: E402
 from repro_torch.runtime.cluster import Cluster  # noqa: E402
 from repro_torch.runtime.join import ClusterJoin  # noqa: E402
 from repro_torch.runtime.rpc import pickle_fallbacks  # noqa: E402
 from repro_torch.runtime.serving import ServingTier, token_value  # noqa: E402
+from repro_torch.sharding import spec_for, use_rules  # noqa: E402
 
 DEV = torch.device("cuda")
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input type
@@ -3501,6 +3538,194 @@ def free_cache():
     torch.cuda.empty_cache()
 
 
+# -- phases 26-28: the sharding layer at world size 1 -----------------------------
+SHARDED_STEPS = 3
+
+
+def nccl_mesh():
+    """A 1 x 1 ("data", "model") ``DeviceMesh`` over an NCCL group of world
+    size 1, its store a ``FileStore`` in a temporary directory (no
+    network). Returns (mesh, the directory); ``end_group`` takes both
+    down."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(root, "store"), 1),
+        rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    return make_mesh((1, 1), ("data", "model"), device_type="cuda"), root
+
+
+def end_group(root):
+    dist.destroy_process_group()
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def train_sharded(cfg, phase15, zero_counts, counted):
+    """Phase 26: ``run_training`` with ``mesh=`` (a 1 x 1 NCCL mesh, the
+    config's fsdp_tp preset): the params, moments and batches DTensors,
+    each step under ``use_rules``, from phase 15's initial params (drawn
+    again from its seed) on its first ``SHARDED_STEPS`` batches. Each loss
+    within 1e-4 max(|loss|, 1) of phase 15's at that step; exactly 2 flash
+    launches a layer a step, all wgmma with lse; a profiled warm step for
+    the step ms and the idle share beside phase 15's."""
+    mesh, root = nccl_mesh()
+    try:
+        zero_counts()
+        res = run_training(cfg, steps=SHARDED_STEPS, batch_size=TRAIN_BATCH,
+                           seq_len=TRAIN_SEQ, num_sequences=TRAIN_SEQUENCES,
+                           seed=5, log_every=4, device=DEV, mesh=mesh)
+        want = 2 * cfg.n_layers * SHARDED_STEPS
+        got = dict(flash=flash_attention.launches,
+                   wgmma=flash_attention.launches_by_route["wgmma"],
+                   lse=flash_attention.lse_launches)
+        others = {fn.__name__: fn.launches for fn in counted
+                  if fn is not flash_attention and fn.launches}
+        if got != dict(flash=want, wgmma=want, lse=want) or others:
+            _fail(f"{cfg.name}/train_sharded: flash {got}, not {want} on "
+                  f"wgmma with lse; other kernels {others}")
+        ref = phase15["losses"][:SHARDED_STEPS]
+        gaps = [abs(a - b) for a, b in zip(res.losses, ref)]
+        if len(res.losses) != SHARDED_STEPS or not all(
+                g <= 1e-4 * max(abs(b), 1.0) for g, b in zip(gaps, ref)):
+            _fail(f"{cfg.name}/train_sharded: losses {res.losses}, phase "
+                  f"15's {ref}")
+        routes = dict(flash_attention.launches_by_route, with_lse=got["lse"])
+        rules = sharding_rules(cfg, mesh)
+        with use_rules(rules, mesh):
+            batch = train_batch(cfg, 9)
+            prof = train_profile(cfg, res.state,
+                                 distribute(batch, mesh,
+                                            batch_shardings(batch, mesh)))
+        warm_ms = float(np.median(res.step_seconds[1:])) * 1e3
+        del res.state
+    finally:
+        end_group(root)
+    return dict(
+        mesh="1x1 (data, model), nccl, world size 1", preset=cfg.parallelism,
+        steps=SHARDED_STEPS, losses=res.losses, phase15_losses=ref,
+        max_loss_gap=max(gaps), bit_identical=res.losses == ref,
+        launches=got["flash"], routes=routes, ms_per_step=warm_ms,
+        phase15_ms_per_step=phase15["ms_per_step"],
+        dtensor_host_ms=warm_ms - phase15["ms_per_step"],
+        idle_share=prof["idle_share_unprofiled"],
+        phase15_idle_share=phase15["idle_share"], profile=prof)
+
+
+def first_batch(cfg, params):
+    """The first batch ``run_training`` (seed 5, ``TRAIN_SEQUENCES``
+    sequences of ``TRAIN_SEQ``, batches of ``TRAIN_BATCH``) trains on."""
+    ds = synthetic_token_dataset(BufferPool(256 << 20), "train_tokens",
+                                 vocab=cfg.vocab,
+                                 num_sequences=TRAIN_SEQUENCES,
+                                 seq_len=TRAIN_SEQ, seed=5)
+    batch = next(iter(BatchLoader(ds, batch_size=TRAIN_BATCH)))
+    return complete_batch(cfg, batch, params, 0, 5, DEV)
+
+
+def moe_shardmap_mesh(mcfg, zero_counts, counted):
+    """Phase 27: ``mcfg`` (phase 23's cut) with
+    ``moe_strategy="expert_parallel_shardmap"``; the loss of phase 23's
+    first batch from phase 23's initial params through the mesh branch of
+    ``moe_shardmap_apply`` (a 1 x 1 NCCL mesh) against the same params'
+    loss with no mesh, within 1e-4 max(|loss|, 1); a layer exactly one
+    flash (wgmma), one dispatch and one combine launch."""
+    scfg = mcfg.with_(moe_strategy="expert_parallel_shardmap")
+    model = build_model(scfg, device=DEV)
+    params = model.init(torch.Generator(DEV).manual_seed(5))
+    batch = first_batch(scfg, params)
+    with torch.no_grad():
+        plain = float(model.loss(params, batch))
+    L = scfg.n_layers
+    want = {flash_attention: L, dispatch: L, combine: L}
+    mesh, root = nccl_mesh()
+    try:
+        rules = sharding_rules(scfg, mesh)
+        dparams = distribute(params, mesh,
+                             param_shardings(model, scfg, mesh, rules))
+        with use_rules(rules, mesh), torch.no_grad():
+            dbatch = distribute(batch, mesh, batch_shardings(batch, mesh))
+            zero_counts()
+            t0 = time.perf_counter()
+            loss = float(model.loss(dparams, dbatch).full_tensor())
+            torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t0
+        got = {fn: fn.launches for fn in counted}
+        routes = dict(flash=dict(flash_attention.launches_by_route),
+                      dispatch=dict(dispatch.launches_by_route))
+    finally:
+        end_group(root)
+    if any(got[fn] != want.get(fn, 0) for fn in counted) or \
+            routes["flash"]["wgmma"] != L:
+        _fail(f"{scfg.name}/shardmap: launches "
+              f"{ {fn.__name__: n for fn, n in got.items()} } {routes}, not "
+              f"{L} flash (wgmma), dispatch and combine")
+    if not abs(loss - plain) <= 1e-4 * max(abs(plain), 1.0):
+        _fail(f"{scfg.name}/shardmap: mesh loss {loss}, no-mesh {plain}")
+    del params, dparams
+    return dict(layers=L, mesh="1x1 (data, model), nccl, world size 1",
+                loss=loss, no_mesh_loss=plain, gap=abs(loss - plain),
+                launches={fn.__name__: got[fn] for fn in want},
+                routes=routes, forward_s=mesh_s)
+
+
+def reckoned_train_args(cfg, shape=(16, 16), batch=256, seq=4096):
+    """A train cell's per-device argument bytes reckoned from the port's
+    ``sharding_rules`` and ``param_axes`` alone: each param's shard in
+    fp32, two moments' in ``opt_state_dtype``, the int32 step, and the
+    int32 tokens and labels split over "data"."""
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=shape)
+    sizes = dict(zip(mesh.mesh_dim_names, shape))
+    rules = sharding_rules(cfg, mesh)
+    model = _on_meta(cfg)
+
+    def walk(p, ax):
+        if isinstance(p, dict):
+            return sum(walk(p[k], ax[k]) for k in p)
+        if isinstance(p, list):
+            return sum(walk(a, b) for a, b in zip(p, ax))
+        if p is None:
+            return 0
+        n = p.numel()
+        for entry in spec_for(ax, rules, mesh):
+            for a in (() if entry is None else (entry,) if isinstance(
+                    entry, str) else entry):
+                n //= sizes[a]
+        return n
+    local = walk(model.init(None), model.param_axes())
+    moment = torch.tensor([], dtype=torch_dtype(cfg.opt_state_dtype))
+    return (local * 4 + 2 * local * moment.element_size() + 4
+            + 2 * batch // sizes["data"] * seq * 4)
+
+
+def dryrun_cell(cfg):
+    """Phase 28: ``python -m repro_torch.launch.dryrun`` for ``cfg``'s
+    train_4k cell at 16 x 16 in a subprocess (its own fake process group
+    of 256 ranks, no GPU): rc 0, and the record's argument bytes equal to
+    ``reckoned_train_args``."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cfg.name, "--shape", "train_4k", "--force", "--tag", "chip"],
+        env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        _fail(f"dry-run {cfg.name} train_4k: rc {out.returncode}\n"
+              f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    path = os.path.join(os.path.dirname(src), "results", "dryrun_torch",
+                        f"{cfg.name}_train_4k_16x16_chip.json")
+    with open(path) as f:
+        rec = json.load(f)
+    want = reckoned_train_args(cfg)
+    if rec["memory"]["argument_bytes"] != want:
+        _fail(f"dry-run {cfg.name} train_4k: argument bytes "
+              f"{rec['memory']['argument_bytes']}, reckoned {want}")
+    return dict(record=rec, reckoned_argument_bytes=want,
+                ok_line=[l for l in out.stdout.splitlines()
+                         if l.startswith("OK")], subprocess_s=seconds)
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -3793,6 +4018,9 @@ def main():
     train["seconds"] = phase_s["train"]
     train["card"] = smi
     log("train", json.dumps(train))
+    # phase 26 trains the same run sharded, and is held to these
+    phase15 = dict(losses=train["losses"], ms_per_step=train["ms_per_step"],
+                   idle_share=train["profile"]["idle_share_unprofiled"])
 
     # deepseek-v2-lite-16b at full width and full depth: 16.2 B params drawn
     # straight in bf16 (32.4 GB; in fp32 beside their cast they would not
@@ -4033,6 +4261,36 @@ def main():
                  cut=f"{tcfg.n_layers} of {get_config(tcfg.name).n_layers} "
                  f"layers, batch {VLM_TRAIN_BATCH}")
     log("train_vlm", json.dumps(train))
+
+    # the sharding layer: NCCL groups of world size 1, each taken down
+    # before the next phase (the cluster phases above forked their nodes
+    # before any group was up)
+    path = f"{cfg.name}/train_sharded"
+    sharded = train_sharded(cfg, phase15, zero_counts, counted)
+    launches["flash_attention"][path] = sharded["launches"]
+    flash_routes[path] = sharded["routes"]
+    free()
+    lap(path)
+    sharded.update(seconds=phase_s[path], card=smi)
+    log("train_sharded", json.dumps(sharded))
+
+    mcfg = dcfg.with_(n_layers=MOE_TRAIN_LAYERS)
+    path = f"{mcfg.name}/shardmap"
+    shardmap = moe_shardmap_mesh(mcfg, zero_counts, counted)
+    for name in ("flash_attention", "dispatch", "combine"):
+        launches[name][path] = shardmap["launches"][name]
+    flash_routes[path] = shardmap["routes"]["flash"]
+    shuffle_routes[path] = shardmap["routes"]["dispatch"]
+    free()
+    lap(path)
+    shardmap.update(seconds=phase_s[path], card=smi,
+                    cut=f"{mcfg.n_layers} of {dcfg.n_layers} layers")
+    log("shardmap", json.dumps(shardmap))
+
+    dry = dryrun_cell(cfg)
+    lap("dryrun")
+    dry.update(seconds=phase_s["dryrun"], card=smi)
+    log("dryrun", json.dumps(dry))
 
     next(k for k in kernels if k["name"] == "flash_attention").update(
         launches_by_route=flash_routes, build=flash_build)

@@ -70,6 +70,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import local_only
 from .kernel import ROUTES, flash_attention_kernel, kernel_route
 from .ref import attention_ref
 
@@ -127,6 +128,7 @@ flash_attention.noncausal_launches = 0
 def _kernel_fwd(q, k, v, causal, window, scale, q_offset, return_lse):
     """``impl="kernel"``: the CUDA kernel on CUDA tensors (counted), its
     plain version on CPU tensors. Returns out, or (out, lse)."""
+    local_only(q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale, q_offset=q_offset,

@@ -81,6 +81,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import local_only
 from .kernel import (DIAG_ROUTES, GLA_ROUTES, diag_route,
                      diag_scan_bwd_kernel, diag_scan_kernel, gla_route,
                      gla_scan_kernel)
@@ -118,6 +119,7 @@ diag_scan.bwd_launches = 0
 
 def _diag_fwd(a, b, h0):
     """The kernel on CUDA tensors (counted), the oracle on CPU tensors."""
+    local_only(a, b, h0)
     if a.device.type == "cpu":
         return diag_scan_ref(a, b, h0)
     out = diag_scan_kernel(a.contiguous(), b.contiguous(),
@@ -197,6 +199,7 @@ gla_scan.bwd_calls = 0
 def _gla_fwd(r, k, v, w, u, chunk):
     """The kernel on CUDA tensors (T padded to a chunk multiple; counted),
     ``_gla_chunked`` on CPU tensors."""
+    local_only(r, k, v, w, u)
     if r.device.type == "cpu":
         return _gla_chunked(r, k, v, w, u, chunk=chunk)
     T = r.shape[1]

@@ -59,6 +59,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import local_only
 from .kernel import (DISPATCH_ROUTES, combine_kernel, dispatch_kernel,
                      dispatch_route)
 from .ref import (combine_bwd_ref, combine_ref, dispatch_bwd_ref,
@@ -132,6 +133,7 @@ dispatch.bwd_launches = 0
 def _dispatch_fwd(x, expert_id, slot, num_experts, capacity):
     """The dispatch kernel on CUDA tensors (counted), the oracle on CPU
     tensors."""
+    local_only(x, expert_id, slot)
     if x.device.type == "cpu":
         return dispatch_ref(x, expert_id, slot, num_experts, capacity)
     out = dispatch_kernel(x.contiguous(), expert_id.int().contiguous(),
@@ -171,6 +173,7 @@ combine.bwd_launches = 0
 def _combine_fwd(y, expert_id, slot, gates):
     """The combine kernel on CUDA tensors (counted), the oracle on CPU
     tensors."""
+    local_only(y, expert_id, slot, gates)
     if y.device.type == "cpu":
         return combine_ref(y, expert_id, slot, gates)
     out = combine_kernel(y.contiguous(), expert_id.int().contiguous(),

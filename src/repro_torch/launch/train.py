@@ -25,12 +25,14 @@ or ``--smoke --device cpu`` for a small CPU run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .._device import DeviceLike, resolve_device
 from ..checkpoint import CheckpointManager
@@ -38,10 +40,13 @@ from ..configs import get_config, smoke_config
 from ..configs.base import ArchConfig
 from ..core import BufferPool
 from ..data.pipeline import BatchLoader, synthetic_token_dataset
+from ..models.blocks import embed
 from ..models.lm import tree_map
 from ..models.model import build_model
 from ..optim import AdamWState, TrainState, make_train_state, make_train_step
 from ..runtime import StepTimer
+from ..sharding import use_rules
+from .mesh import batch_shardings, distribute, param_shardings, sharding_rules
 
 
 @dataclass
@@ -105,13 +110,18 @@ def train_batch(cfg: ArchConfig, batch: Dict[str, np.ndarray], params,
             T, dtype=torch.int32, device=device).expand(B, 3, T)
     if cfg.embed_inputs and cfg.family != "encdec":
         with torch.no_grad():
-            tb["embeds"] = params["embed"][tb.pop("tokens").long()]
+            tb["embeds"] = embed(params["embed"], tb.pop("tokens").long())
     if cfg.family == "encdec":
         tb["src_embeds"] = torch.randn(
             (B, T, cfg.d_model), generator=frames_generator(seed, step,
                                                             device),
             dtype=torch.float32, device=device)
     return tb
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A metric as one tensor (a DTensor's value gathered)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
@@ -122,7 +132,7 @@ def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
                  log_every: int = 5,
                  fail_at_step: Optional[int] = None,
                  device: DeviceLike = "cuda",
-                 params=None) -> TrainLoopResult:
+                 params=None, mesh=None) -> TrainLoopResult:
     """Train on synthetic data staged through the Pangea buffer pool.
 
     ``params``: initial params (e.g. the reference's, bridged; the train
@@ -132,11 +142,25 @@ def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
     ``fail_at_step`` simulates a crash (raises ``SimulatedFailure``, a
     ``RuntimeError``); calling run_training again with the same
     ``ckpt_dir`` restores and continues.
+
+    ``mesh``: a ``DeviceMesh`` over ("data", "model") (``launch/mesh.py``):
+    the params, moments and each batch become DTensors with the placements
+    of ``sharding_rules(cfg, mesh)`` and every step runs under
+    ``sharding.use_rules``; the losses and grad norms are read whole.
+    Checkpoints of a sharded state are not ported (``ckpt_dir`` raises).
     """
     dev = resolve_device(device)
     model = build_model(cfg, device=dev)
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    rules = None
+    if mesh is not None:
+        if ckpt_dir:
+            raise ValueError("run_training: checkpoints of a sharded state "
+                             "are not ported; pass mesh or ckpt_dir")
+        rules = sharding_rules(cfg, mesh)
+        params = distribute(params, mesh,
+                            param_shardings(model, cfg, mesh, rules))
     state = make_train_state(params, cfg.opt_state_dtype)
     step_fn = make_train_step(model.loss, lr=lr, microbatches=microbatches)
 
@@ -170,14 +194,18 @@ def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
     for batch in batches():
         if done >= steps:
             break
-        tb = train_batch(cfg, batch, state.params, done, seed, dev)
-        t0 = time.time()
-        state, metrics = step_fn(state, tb)
-        loss = float(metrics["loss"])
-        dt = time.time() - t0
+        with (use_rules(rules, mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            tb = train_batch(cfg, batch, state.params, done, seed, dev)
+            if mesh is not None:
+                tb = distribute(tb, mesh, batch_shardings(tb, mesh))
+            t0 = time.time()
+            state, metrics = step_fn(state, tb)
+            loss = float(_whole(metrics["loss"]))
+            dt = time.time() - t0
         timer.record(0, dt)
         res.losses.append(loss)
-        res.grad_norms.append(float(metrics["grad_norm"]))
+        res.grad_norms.append(float(_whole(metrics["grad_norm"])))
         res.step_seconds.append(dt)
         tokens += batch_size * seq_len
         done = int(metrics["step"])

@@ -14,6 +14,15 @@ layer's params. ``attn_apply`` and ``mla_apply`` handle both full-sequence
 ``rglru_apply`` full-sequence and single-token decode (``state``).
 Products whose operands differ in type go through ``common.einsum``, which
 promotes as the reference's ``jnp.einsum`` does.
+
+Every ``*_axes`` gives one layer's logical axes as the reference's init
+returns them. Under ``sharding.use_rules`` over a mesh (DTensors), the
+reference's ``constrain`` points redistribute, weight products take
+``sharding.sharded_einsum`` (through ``common.einsum``) or, for the head
+projections and the unembedding, ``project``, and every kernel call
+(flash, dispatch and combine, both scans) runs on each rank's shard
+through ``sharding.local_call``: ``attend``, ``_moe_shuffle``, ``_wkv``
+and the RG-LRU scan. Without a mesh each of these is the plain call.
 """
 from __future__ import annotations
 
@@ -28,6 +37,9 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
 from ..kernels.linear_scan.ops import diag_scan, gla_scan
 from ..kernels.shuffle_dispatch.ops import combine, compute_slots, dispatch
+from ..sharding import (constrain, constrain_seq, coordinate, is_sharded,
+                        local_call, local_placements, partial_on,
+                        sharded_axes)
 from .common import (_const, apply_mrope, apply_rope, dense_init, einsum,
                      gelu, gen_device, layer_norm, normal, param_dtype,
                      rms_norm, sigmoid, silu, softplus)
@@ -55,6 +67,10 @@ def _norm_init(cfg: ArchConfig, d: int, gen: torch.Generator,
     if cfg.norm == "nonparam_ln":
         return None
     return _ones(gen, (*lead, d), dtype)
+
+
+def _norm_axes(cfg: ArchConfig):
+    return None if cfg.norm == "nonparam_ln" else ("embed_vec",)
 
 
 def apply_norm(cfg: ArchConfig, w, x):
@@ -88,6 +104,71 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig,
     return p
 
 
+def attn_axes(cfg: ArchConfig) -> Dict:
+    """One layer's logical axes, leaf for leaf as the reference's
+    ``attn_init`` returns them."""
+    a = {"wq": ("embed", "heads", None), "wk": ("embed", "kv", None),
+         "wv": ("embed", "kv", None), "wo": ("heads", None, "embed"),
+         "norm": _norm_axes(cfg)}
+    if cfg.qk_norm:
+        a["q_norm"] = a["k_norm"] = (None,)
+    return a
+
+
+def project(h, w, eq: str, axis: str):
+    """``einsum(eq, h, w)`` of activations h [B, T, d] and a weight w [d,
+    n, ...] whose dim 1 has the logical axis ``axis`` (the heads of q, k
+    and v; the vocabulary of the unembedding). Under a mesh, a
+    column-parallel product through ``local_call``: h with its batch on
+    "batch" and d whole, w with d whole and dim 1 on ``axis`` where it
+    divides, the output's batch and dim 2 sharded alike. DTensor's own
+    choice for these products may shard the flattened heads over more
+    ranks than there are heads (glm4-9b's 2 kv heads over 4 "model"
+    ranks), which it then cannot split, or take the unembedding's
+    gradient over the whole vocabulary on every rank."""
+    if not is_sharded(h):
+        return einsum(eq, h, w)
+    B, T, _ = h.shape
+    hp = local_placements(("batch", None, None), h.shape)
+    wp = local_placements((None, axis) + (None,) * (w.dim() - 2), w.shape)
+    op = local_placements(("batch", None, axis) + (None,) * (w.dim() - 2),
+                          (B, T) + tuple(w.shape[1:]))
+    # each rank's dh covers its part of dim 1 only, its dw its batch rows
+    grads = (partial_on(hp, sharded_axes(wp, 1)),
+             partial_on(wp, sharded_axes(hp, 0)))
+    return local_call(lambda a, b: einsum(eq, a, b), (h, w), (hp, wp), op,
+                      grads)
+
+
+def embed(table, ids):
+    """``table[ids]``. Under a mesh, through ``local_call``: the ids on
+    their "batch" axes, the table's rows on "vocab" where it divides; each
+    rank looks up the ids in its own rows (zeros for the others') and the
+    ranks' rows sum, a partial sum over the vocabulary's axes. DTensor's
+    own strategy for the lookup's backward (``index_put``) fails in some
+    versions (2.11)."""
+    if not is_sharded(table):
+        return table[ids]
+    V, d = table.shape
+    tp = local_placements(("vocab", None), table.shape)
+    ip = local_placements(("batch", None), ids.shape)
+    vocab = sharded_axes(tp, 0)
+    out = partial_on(local_placements(("batch", None, None),
+                                      (*ids.shape, d)), vocab)
+
+    def run(t, i):
+        if not vocab:
+            return t[i]
+        (axis,) = vocab
+        n = t.shape[0]
+        j = i - coordinate(axis) * n
+        hit = (j >= 0) & (j < n)
+        return t[j.clamp(0, n - 1)] * hit[..., None].to(t.dtype)
+    # each rank's rows get the gradient of its batch shard only
+    return local_call(run, (table, ids), (tp, ip), out,
+                      (partial_on(tp, sharded_axes(ip, 0)), ip))
+
+
 def _rope(cfg: ArchConfig, x, positions):
     """RoPE (positions [..., T]) or M-RoPE (positions [B, 3, T]) of x [B, T,
     H, hd] as ``cfg.rope`` says; x as it is for "none"."""
@@ -115,18 +196,20 @@ def attn_apply(p, x, *, cfg: ArchConfig, positions, causal: bool = True,
     dict. ``kv_memory``: precomputed head-major (k, v) [B, KH, S, hd] for
     cross-attention (enc-dec): no k/v projection, no rope, no mask, and
     the plain ``attention_ref``, as the reference runs it."""
+    x = constrain_seq(x)  # seq-parallel residual stream (fsdp_tp_sp only)
     h = apply_norm(cfg, p.get("norm"), x)
-    q = torch.einsum("btd,dhk->bthk", h, p["wq"])
+    q = project(h, p["wq"], "btd,dhk->bthk", "heads")
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
     if kv_memory is not None:
         qh = q.transpose(1, 2)
         kh, vh = kv_memory
-        o = attention_ref(qh, kh.to(qh.dtype), vh.to(qh.dtype), causal=False)
-        y = torch.einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"])
+        o = attend(attention_ref, qh, kh.to(qh.dtype), vh.to(qh.dtype),
+                   causal=False)
+        y = einsum("bthk,hkd->btd", o.transpose(1, 2), p["wo"])
         return x + y, None
-    k = torch.einsum("btd,dhk->bthk", h, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", h, p["wv"])
+    k = project(h, p["wk"], "btd,dhk->bthk", "kv")
+    v = project(h, p["wv"], "btd,dhk->bthk", "kv")
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"])
     q, k = _rope_qk(cfg, q, k, positions)
@@ -144,17 +227,54 @@ def attn_apply(p, x, *, cfg: ArchConfig, positions, causal: bool = True,
             start = min(max(int(pos), 0), Tmax - T)  # dynamic_update_slice
             ck[:, :, start:start + T] = kh.to(ck.dtype)
             cv[:, :, start:start + T] = vh.to(cv.dtype)
-            o = attention_ref(qh, ck.to(qh.dtype), cv.to(qh.dtype),
-                              causal=True, window=cfg.window,
-                              q_offset=int(pos))
+            o = attend(attention_ref, qh, ck.to(qh.dtype), cv.to(qh.dtype),
+                       causal=True, window=cfg.window, q_offset=int(pos))
     else:
         # the kernel takes contiguous head-major tensors
-        o = flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
-                            causal=causal, window=cfg.window, impl=attn_impl,
-                            block_k=cfg.attn_block_k, p_bf16=cfg.attn_p_bf16)
+        o = attend(flash_attention, qh.contiguous(), kh.contiguous(),
+                   vh.contiguous(), causal=causal, window=cfg.window,
+                   impl=attn_impl, block_k=cfg.attn_block_k,
+                   p_bf16=cfg.attn_p_bf16)
     o = o.transpose(1, 2)                        # [B, T, H, hd]
-    y = torch.einsum("bthk,hkd->btd", o, p["wo"])
+    y = einsum("bthk,hkd->btd", o, p["wo"])
     return x + y, new_cache
+
+
+def attend(fn, qh, kh, vh, *, kv_axis: str = "kv", **kw):
+    """``fn`` (``flash_attention`` or ``attention_ref``) of head-major q
+    [B, H, Tq, D] and k/v [B, KH, Tk, *]. Under a mesh, through
+    ``local_call``: the batch on its "batch" axes and the heads on
+    "heads" (k/v on ``kv_axis``) where they divide, each rank's kernel on
+    its shard (a sequence-sharded k/v, a decode cache on "kv_seq", is
+    gathered first). Where q's heads are sharded and k/v's are not (GQA
+    with fewer kv heads than the "model" axis), each rank takes the kv
+    heads of its own q heads by their global index, and k/v's gradient is
+    summed over the axis."""
+    if not is_sharded(qh):
+        return fn(qh, kh, vh, **kw)
+
+    def run(q, k, v):
+        # the kernel takes contiguous tensors
+        return fn(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    qp = local_placements(("batch", "heads", None, None), qh.shape)
+    kvp = local_placements(("batch", kv_axis, None, None), kh.shape)
+    h_axes, kv_axes = sharded_axes(qp, 1), sharded_axes(kvp, 1)
+    if h_axes == kv_axes:
+        return local_call(run, (qh, kh, vh), (qp, kvp, kvp), qp)
+    # q's heads on one mesh axis, k/v's whole on every rank
+    (axis,) = h_axes
+    H, KH = qh.shape[1], kh.shape[1]
+    group, r = H // KH, coordinate(axis)
+
+    def run_group(q, k, v):
+        # the kv head of each local q head (there are fewer kv heads than
+        # ranks on the axis, so no rank holds a whole group of q heads)
+        hl = q.shape[1]
+        idx = torch.arange(r * hl, (r + 1) * hl, device=q.device) // group
+        return run(q, k.index_select(1, idx), v.index_select(1, idx))
+    kvg = partial_on(kvp, h_axes)
+    return local_call(run_group, (qh, kh, vh), (qp, kvp, kvp), qp,
+                      (qp, kvg, kvg))
 
 
 def _window_ring_decode(cfg: ArchConfig, qh, kh, vh, ck, cv, pos: int):
@@ -169,12 +289,12 @@ def _window_ring_decode(cfg: ArchConfig, qh, kh, vh, ck, cv, pos: int):
     B, H, Tq, D = qh.shape
     KH = ck.shape[1]
     qg = qh.reshape(B, KH, H // KH, Tq, D).float()
-    s = torch.einsum("bkgqd,bktd->bkgqt", qg, ck.float()) * D ** -0.5
+    s = einsum("bkgqd,bktd->bkgqt", qg, ck.float()) * D ** -0.5
     idx = torch.arange(W, device=qh.device)
     valid = pos - torch.remainder(pos - idx, W) >= 0
     s = s.masked_fill(~valid, -1e30)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    o = torch.einsum("bkgqt,bktd->bkgqd", p, cv.float())
+    o = einsum("bkgqt,bktd->bkgqd", p, cv.float())
     o = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
     return o.reshape(B, H, Tq, D).to(qh.dtype)
 
@@ -191,8 +311,8 @@ def attn_prefill_kv(p, x, *, cfg: ArchConfig, positions):
     """This layer's k/v for a prompt (to seed the decode cache), head-major
     [B, KH, T, hd]."""
     h = apply_norm(cfg, p.get("norm"), x)
-    k = torch.einsum("btd,dhk->bthk", h, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", h, p["wv"])
+    k = project(h, p["wk"], "btd,dhk->bthk", "kv")
+    v = project(h, p["wv"], "btd,dhk->bthk", "kv")
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"])
     k = _rope(cfg, k, positions)
@@ -250,6 +370,13 @@ def mla_init(gen: torch.Generator, cfg: ArchConfig,
     }
 
 
+def mla_axes(cfg: ArchConfig) -> Dict:
+    return {"wq": ("embed", "heads", None), "w_dkv": ("embed", "lora"),
+            "w_kr": ("embed", None), "w_uk": ("lora", "heads", None),
+            "w_uv": ("lora", "heads", None), "wo": ("heads", None, "embed"),
+            "norm": _norm_axes(cfg), "kv_norm": (None,)}
+
+
 def _mla_latent(p, h, cfg: ArchConfig, positions):
     """The latent c_kv = rms_norm(h w_dkv) [B, T, kv_lora] (rounded back to
     h's dtype) and the rope key shared by all heads [B, T, 1, rope]."""
@@ -285,6 +412,7 @@ def mla_apply(p, x, *, cfg: ArchConfig, positions,
     B, T, d = x.shape
     H = cfg.n_heads
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    x = constrain_seq(x)  # seq-parallel residual stream (fsdp_tp_sp only)
     h = apply_norm(cfg, p.get("norm"), x)
     q = einsum("btd,dhk->bthk", h, p["wq"])             # [B, T, H, nope+rope]
     q_nope, q_rope = q[..., :nope], q[..., nope:]
@@ -298,14 +426,14 @@ def mla_apply(p, x, *, cfg: ArchConfig, positions,
         cc[:, start:start + T] = c_kv.to(cc.dtype)
         ckr[:, start:start + T] = k_rope[:, :, 0].to(ckr.dtype)
         q_lat = einsum("bthn,lhn->bthl", q_nope, p["w_uk"])
-        s = (torch.einsum("bthl,bsl->bhts", q_lat.float(), cc.float())
-             + torch.einsum("bthr,bsr->bhts", q_rope.float(), ckr.float()))
+        s = (einsum("bthl,bsl->bhts", q_lat.float(), cc.float())
+             + einsum("bthr,bsr->bhts", q_rope.float(), ckr.float()))
         s = s * (nope + rope_d) ** -0.5
         live = torch.arange(Tmax, device=x.device)[None, None, None, :] <= (
             int(pos) + torch.arange(T, device=x.device)[None, None, :, None])
         s = torch.where(live, s, torch.full_like(s, -1e30))
-        o_lat = torch.einsum("bhts,bsl->bthl", _softmax(s), cc.float())
-        o = torch.einsum("bthl,lhv->bthv", o_lat, p["w_uv"].float())
+        o_lat = einsum("bhts,bsl->bthl", _softmax(s), cc.float())
+        o = einsum("bthl,lhv->bthv", o_lat, p["w_uv"].float())
         y = einsum("bthv,hvd->btd", o.to(x.dtype), p["wo"])
         return x + y, cache
 
@@ -320,13 +448,14 @@ def mla_apply(p, x, *, cfg: ArchConfig, positions,
         ck[:, :, start:start + T] = kh.to(ck.dtype)
         cv[:, :, start:start + T] = vh.to(cv.dtype)
         new_cache = cache
-        o = attention_ref(qh, ck.to(qh.dtype), cv.to(qh.dtype), causal=True,
-                          q_offset=int(pos))
+        o = attend(attention_ref, qh, ck.to(qh.dtype), cv.to(qh.dtype),
+                   kv_axis="heads", causal=True, q_offset=int(pos))
     else:
-        # the kernel takes contiguous head-major tensors; Dv != D
-        o = flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
-                            causal=True, impl=attn_impl,
-                            block_k=cfg.attn_block_k)
+        # contiguous head-major tensors; Dv != D; the expanded k/v have
+        # every head
+        o = attend(flash_attention, qh.contiguous(), kh.contiguous(),
+                   vh.contiguous(), kv_axis="heads", causal=True,
+                   impl=attn_impl, block_k=cfg.attn_block_k)
     o = o.transpose(1, 2)                                # [B, T, H, v]
     y = einsum("bthv,hvd->btd", o[..., :vd], p["wo"])
     return x + y, new_cache
@@ -388,12 +517,22 @@ def ffn_init(gen: torch.Generator, cfg: ArchConfig,
     }
 
 
+def ffn_axes(cfg: ArchConfig) -> Dict:
+    return {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"),
+            "w2": ("mlp", "embed"), "norm": _norm_axes(cfg)}
+
+
 def ffn_apply(p, x, *, cfg: ArchConfig, act: str = "silu"):
+    x = constrain_seq(x)  # seq-parallel residual stream (fsdp_tp_sp only)
     h = apply_norm(cfg, p.get("norm"), x)
+    # serve_2d: the activations gathered over "data" here, so that the 2-D
+    # sharded weights stay put; the identity under the other presets
+    h = constrain(h, ("ffn_batch", None, None))
     g = einsum("btd,df->btf", h, p["w1"])
     u = einsum("btd,df->btf", h, p["w3"])
     g = silu(g) if act == "silu" else gelu(g)
     y = einsum("btf,fd->btd", g * u, p["w2"])
+    y = constrain(y, ("batch", None, None))
     return x + y
 
 
@@ -420,6 +559,21 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig,
         shared.pop("norm")                   # the block norm is shared
         p["shared"] = shared
     return p
+
+
+def moe_axes(cfg: ArchConfig) -> Dict:
+    """expert_parallel: the experts dim on "model", each expert's FFN local;
+    otherwise (expert_tp) the experts replicated, each one's FFN on "mlp"."""
+    ep, fp = (("experts", None) if cfg.moe_strategy == "expert_parallel"
+              else (None, "mlp"))
+    a = {"w_router": ("embed", None), "w1": (ep, "embed", fp),
+         "w3": (ep, "embed", fp), "w2": (ep, fp, "embed"),
+         "norm": _norm_axes(cfg)}
+    if cfg.n_shared_experts:
+        sa = ffn_axes(cfg)
+        sa.pop("norm")
+        a["shared"] = sa
+    return a
 
 
 def _capacity(cfg: ArchConfig, T: int) -> int:
@@ -469,10 +623,12 @@ def _moe_einsum(p, h, eid, gates, E: int, C: int):
     keep = slot < C
     slot_oh = F.one_hot(torch.where(keep, slot, C), C + 1).to(dt)[..., :C]
     oh = onehot.to(dt)
-    mask = torch.einsum("btke,btkc->btec", oh, slot_oh)
+    mask = einsum("btke,btkc->btec", oh, slot_oh)
     gmask = torch.einsum("btke,btkc,btk->btec", oh, slot_oh, gates.to(dt))
     disp = einsum("btec,btd->becd", mask, h)
-    y = einsum("btec,becd->btd", gmask, _experts(p, disp))
+    disp = constrain(disp, ("ffn_batch", "experts", None, None))
+    eo = constrain(_experts(p, disp), ("ffn_batch", "experts", None, None))
+    y = einsum("btec,becd->btd", gmask, eo)
     return y, mask.sum(dim=(1, 3))
 
 
@@ -486,20 +642,60 @@ def _moe_shuffle(p, h, eid, gates, E: int, C: int):
     counts stay integer, outside autograd, as the reference's mask, and the
     gates reach combine in h's dtype, as its gated mask has them, so their
     gradient flows back through the cast to the fp32 router."""
+    gates = gates.to(h.dtype)
+    if not is_sharded(h):
+        disp, slot, kept = _rows_dispatch(h, eid, E, C)
+        return _rows_combine(_experts(p, disp), eid, slot, gates), kept
+    # under a mesh: each rank dispatches and combines the rows of its
+    # "ffn_batch" shard over all E experts; the experts' products run
+    # between on the "experts" sharding, so combine gathers eo over it
+    rows = local_placements(("ffn_batch", None, None), h.shape)
+    bufs = local_placements(("ffn_batch", None, None, None),
+                            (h.shape[0], E, C, h.shape[-1]))
+    kept_p = local_placements(("ffn_batch", None), (h.shape[0], E))
+    disp, slot, kept = local_call(
+        lambda hh, ee: _rows_dispatch(hh, ee, E, C), (h, eid), (rows, rows),
+        (bufs, rows, kept_p))
+    disp = constrain(disp, ("ffn_batch", "experts", None, None))
+    eo = constrain(_experts(p, disp), ("ffn_batch", "experts", None, None))
+    y = local_call(_rows_combine, (eo, eid, slot, gates),
+                   (bufs, rows, rows, rows), rows)
+    return y, kept
+
+
+def _rows_dispatch(h, eid, E: int, C: int):
+    """Slots counted per row, then the B rows flattened to N = B*T tokens
+    with row b's expert ids offset by b*E, so that B*E buffers hold each
+    row's experts. Returns (buffers [B, E, C, d], slots [B, T, K], the
+    kept pairs per (row, expert) in h's dtype)."""
     B, T, K = eid.shape
     d = h.shape[-1]
     N = B * T
-    slot = compute_slots(eid, E, C).reshape(N, K)
-    offset = E * torch.arange(B, device=eid.device)[:, None, None]
-    flat_eid = (eid + offset).reshape(N, K)
-    disp = dispatch(h.reshape(N, d), flat_eid, slot, B * E, C, impl="kernel")
-    eo = _experts(p, disp.reshape(B, E, C, d))
-    y = combine(eo.reshape(B * E, C, d), flat_eid, slot,
-                gates.reshape(N, K).to(h.dtype), N, impl="kernel")
-    kept = (slot < C).reshape(B, T * K).long()
+    slot = compute_slots(eid, E, C)
+    flat_slot = slot.reshape(N, K)
+    disp = dispatch(h.reshape(N, d), _flat_ids(eid, E), flat_slot, B * E, C,
+                    impl="kernel")
+    kept = (flat_slot < C).reshape(B, T * K).long()
     counts = torch.zeros((B, E), dtype=torch.long, device=eid.device)
     counts.scatter_add_(1, eid.reshape(B, T * K), kept)
-    return y.reshape(B, T, d), counts.to(h.dtype)
+    return disp.reshape(B, E, C, d), slot, counts.to(h.dtype)
+
+
+def _flat_ids(eid, E: int):
+    """[B, T, K] ids -> [B*T, K], row b's offset by b*E."""
+    B, T, K = eid.shape
+    offset = E * torch.arange(B, device=eid.device)[:, None, None]
+    return (eid + offset).reshape(B * T, K)
+
+
+def _rows_combine(eo, eid, slot, gates):
+    """``combine`` of the experts' rows [B, E, C, d] back to [B, T, d]."""
+    B, T, K = eid.shape
+    E, C, d = eo.shape[1:]
+    y = combine(eo.reshape(B * E, C, d), _flat_ids(eid, E),
+                slot.reshape(B * T, K), gates.reshape(B * T, K), B * T,
+                impl="kernel")
+    return y.reshape(B, T, d)
 
 
 def moe_apply(p, x, *, cfg: ArchConfig, impl: str = "xla"):
@@ -516,7 +712,9 @@ def moe_apply(p, x, *, cfg: ArchConfig, impl: str = "xla"):
     B, T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = _capacity(cfg, T)
+    x = constrain_seq(x)  # seq-parallel residual stream (fsdp_tp_sp only)
     h = apply_norm(cfg, p.get("norm"), x)
+    h = constrain(h, ("ffn_batch", None, None))  # serve_2d: gather over data
     probs, gates, eid = moe_route(p["w_router"], h, K)
     if impl == "kernel":
         y, kept = _moe_shuffle(p, h, eid, gates, E, C)
@@ -530,6 +728,7 @@ def moe_apply(p, x, *, cfg: ArchConfig, impl: str = "xla"):
     density = kept / _const(T, kept.dtype)                # [B, E] tokens frac
     router_prob = probs.mean(dim=1)                       # [B, E]
     aux = (density * router_prob).sum(-1).mean() * E
+    y = constrain(y, ("batch", None, None))
     return x + y, aux
 
 
@@ -567,6 +766,18 @@ def rwkv_init(gen: torch.Generator, cfg: ArchConfig,
     p["cw_r"] = dense_init(gen, d, d, lead=lead, dtype=wt)
     p["norm2"] = _norm_init(cfg, d, gen, lead, dtype)
     return p
+
+
+def rwkv_axes(cfg: ArchConfig) -> Dict:
+    a = {nm: (None,) for nm in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g",
+                                "w0", "u", "ln_x", "cmu_k", "cmu_r")}
+    a.update({"wA": ("embed", None), "wB": (None, "embed"),
+              "w_o": ("heads_embed", "embed"), "norm1": _norm_axes(cfg),
+              "cw_k": ("embed", "mlp"), "cw_v": ("mlp", "embed"),
+              "cw_r": ("embed", "embed_out"), "norm2": _norm_axes(cfg)})
+    for nm in ("w_r", "w_k", "w_v", "w_g"):
+        a[nm] = ("embed", "heads_embed")
+    return a
 
 
 def _token_shift(x, prev):
@@ -613,19 +824,57 @@ def rwkv_apply(p, x, *, cfg: ArchConfig, state: Optional[Dict] = None,
     xr, xk, xv, xw, xg = (mix(p[m]) for m in
                           ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"))
     w_log = -torch.exp(p["w0"] + torch.tanh(
-        torch.einsum("btd,dl->btl", xw, p["wA"])) @ p["wB"])   # [B,T,d] <= 0
-    r = torch.einsum("btd,de->bte", xr, p["w_r"])
-    k = torch.einsum("btd,de->bte", xk, p["w_k"])
-    v = torch.einsum("btd,de->bte", xv, p["w_v"])
-    g = torch.einsum("btd,de->bte", xg, p["w_g"])
+        einsum("btd,dl->btl", xw, p["wA"])) @ p["wB"])   # [B,T,d] <= 0
+    r = einsum("btd,de->bte", xr, p["w_r"])
+    k = einsum("btd,de->bte", xk, p["w_k"])
+    v = einsum("btd,de->bte", xv, p["w_v"])
+    g = einsum("btd,de->bte", xg, p["w_g"])
+
+    S0 = state["S"] if decode else None
+    if is_sharded(r):
+        o, new_S = _wkv_sharded(r, k, v, w_log, p["u"], S0, hd, scan_impl)
+    else:
+        o, new_S = _wkv(r, k, v, w_log, p["u"], S0, hd, scan_impl)
+    # per-head group norm: an rms norm (eps 1e-6) scaled by ln_x
+    og = o.reshape(B, T, H, hd)
+    og = rms_norm(og, None) * p["ln_x"].reshape(H, hd)
+    o = og.reshape(B, T, d).to(x.dtype)
+    o = o * silu(g)
+    x = x + einsum("btd,de->bte", o, p["w_o"])
+
+    # ---- channel mix ----
+    h2 = apply_norm(cfg, p.get("norm2"), x)
+    prev2 = state["cm_x"] if state is not None else None
+    hs2 = _token_shift(h2, prev2)
+    ck = h2 + (hs2 - h2) * p["cmu_k"]
+    cr = h2 + (hs2 - h2) * p["cmu_r"]
+    kk = einsum("btd,df->btf", ck, p["cw_k"])
+    kk = torch.clamp_min(kk, 0.0) ** 2
+    out = sigmoid(einsum("btd,de->bte", cr, p["cw_r"])) * \
+        einsum("btf,fd->btd", kk, p["cw_v"])
+    x = x + out
+
+    new_state = None
+    if state is not None:
+        new_state = {"tm_x": h[:, -1], "cm_x": h2[:, -1], "S": new_S}
+    return x, new_state
+
+
+def _wkv(r, k, v, w_log, u, S0, hd: int, scan_impl: str):
+    """The wkv of r, k, v and the log decays [B, T, d] over heads of ``hd``
+    channels, with the bonus ``u`` [d]: one decode step from the state
+    ``S0`` [B, H, hd, hd] where it is given, else the scan from a zero
+    state (``gla_scan``). Returns (o [B, T, d], the new state)."""
+    B, T, d = r.shape
+    H = d // hd
 
     def heads(t):  # [B, T, d] -> [B*H, T, hd]
         return (t.reshape(B, T, H, hd).transpose(1, 2)
                 .reshape(B * H, T, hd))
     rh, kh, vh, wh = heads(r), heads(k), heads(v), heads(w_log)
-    u = p["u"].reshape(H, hd)[None].expand(B, H, hd).reshape(B * H, hd)
-    if decode:
-        S = state["S"].reshape(B * H, hd, hd)
+    u = u.reshape(H, hd)[None].expand(B, H, hd).reshape(B * H, hd)
+    if S0 is not None:
+        S = S0.reshape(B * H, hd, hd)
         kv = kh[:, 0, :, None] * vh[:, 0, None, :]
         Su = S + u[:, :, None] * kv                    # fp32, as jax promotes
         o = torch.einsum("bk,bkv->bv", rh[:, 0].to(Su.dtype), Su)[:, None]
@@ -637,30 +886,27 @@ def rwkv_apply(p, x, *, cfg: ArchConfig, state: Optional[Dict] = None,
         o, Sf = gla_scan(rh, kh, vh, wh, u, impl=scan_impl,
                          chunk=TRAIN_GLA_CHUNK if train else GLA_CHUNK)
         new_S = Sf.reshape(B, H, hd, hd)
-    o = o.reshape(B, H, T, hd).transpose(1, 2).reshape(B, T, d)
-    # per-head group norm: an rms norm (eps 1e-6) scaled by ln_x
-    og = o.reshape(B, T, H, hd)
-    og = rms_norm(og, None) * p["ln_x"].reshape(H, hd)
-    o = og.reshape(B, T, d).to(x.dtype)
-    o = o * silu(g)
-    x = x + torch.einsum("btd,de->bte", o, p["w_o"])
+    return o.reshape(B, H, T, hd).transpose(1, 2).reshape(B, T, d), new_S
 
-    # ---- channel mix ----
-    h2 = apply_norm(cfg, p.get("norm2"), x)
-    prev2 = state["cm_x"] if state is not None else None
-    hs2 = _token_shift(h2, prev2)
-    ck = h2 + (hs2 - h2) * p["cmu_k"]
-    cr = h2 + (hs2 - h2) * p["cmu_r"]
-    kk = torch.einsum("btd,df->btf", ck, p["cw_k"])
-    kk = torch.clamp_min(kk, 0.0) ** 2
-    out = sigmoid(torch.einsum("btd,de->bte", cr, p["cw_r"])) * \
-        torch.einsum("btf,fd->btd", kk, p["cw_v"])
-    x = x + out
 
-    new_state = None
-    if state is not None:
-        new_state = {"tm_x": h[:, -1], "cm_x": h2[:, -1], "S": new_S}
-    return x, new_state
+def _wkv_sharded(r, k, v, w_log, u, S0, hd: int, scan_impl: str):
+    """``_wkv`` through ``local_call``: the batch on its "batch" axes and
+    the channels on "heads_embed" where whole heads divide it, each rank's
+    scan (the GLA kernel) on its heads. The bonus ``u`` is whole on the
+    batch axes, so its gradient is a partial sum over them: each rank's
+    covers its own rows."""
+    B, T, d = r.shape
+    H = d // hd
+    xp = local_placements(("batch", None, "heads_embed"), (B, T, H))
+    vec = local_placements(("heads_embed",), (H,))
+    sp = local_placements(("batch", "heads_embed", None, None), (B, H))
+    args = (r, k, v, w_log, u) + ((S0,) if S0 is not None else ())
+    in_p = (xp,) * 4 + (vec,) + ((sp,) if S0 is not None else ())
+    grad_p = in_p[:4] + (partial_on(vec, sharded_axes(xp, 0)),) + in_p[5:]
+
+    def run(*a):
+        return _wkv(*a[:5], a[5] if len(a) > 5 else None, hd, scan_impl)
+    return local_call(run, args, in_p, (xp, sp), grad_p)
 
 
 def rwkv_state_init(cfg: ArchConfig, batch: int, dtype,
@@ -702,6 +948,17 @@ def rglru_init(gen: torch.Generator, cfg: ArchConfig,
     }
 
 
+def rglru_axes(cfg: ArchConfig) -> Dict:
+    """FSDP on the input dims, TP on the outputs: the recurrence state h
+    stays sharded on "model" end to end."""
+    return {"w_gate": ("embed", "mlp"), "w_x": ("embed", "mlp"),
+            "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+            "w_a": ("embed", "mlp_out"), "b_a": ("mlp_out",),
+            "w_i": ("embed", "mlp_out"), "b_i": ("mlp_out",),
+            "lam": ("mlp_out",), "w_out": ("mlp_out", "embed"),
+            "norm": _norm_axes(cfg)}
+
+
 def rglru_apply(p, x, *, cfg: ArchConfig, state: Optional[Dict] = None,
                 scan_impl: str = "kernel"):
     """Returns (y, new_state); state: {"conv": [B, CONV_W-1, w], "h": [B, w]}.
@@ -732,8 +989,17 @@ def rglru_apply(p, x, *, cfg: ArchConfig, state: Optional[Dict] = None,
     bb = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
         * (i * conv)
     hprev = state["h"] if state is not None else None
-    hs, hT = diag_scan(aa, bb, hprev,
-                       impl="kernel" if scan_impl == "kernel" else "xla")
+    impl = "kernel" if scan_impl == "kernel" else "xla"
+    if is_sharded(aa):
+        # each rank scans its batch rows and "mlp_out" channels
+        xp = local_placements(("batch", None, "mlp_out"), aa.shape)
+        hp = local_placements(("batch", "mlp_out"), (B, aa.shape[-1]))
+        hs, hT = local_call(
+            lambda a_, b_, h_: diag_scan(a_, b_, h_, impl=impl),
+            (aa, bb, hprev), (xp, xp, hp if hprev is not None else None),
+            (xp, hp))
+    else:
+        hs, hT = diag_scan(aa, bb, hprev, impl=impl)
     y = einsum("btw,wd->btd", hs * gate, p["w_out"])
     new_state = None
     if state is not None:

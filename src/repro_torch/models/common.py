@@ -12,6 +12,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from ..sharding import is_sharded, replicated_like, sharded_einsum
+
 Params = Dict[str, Any]
 
 
@@ -129,8 +131,11 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` with ``jnp.einsum``'s promotion: operands of two
     float types meet in the wider one (bf16 x fp32 -> fp32, the bf16 side
-    widened exactly). ``torch.einsum`` raises on mixed types."""
+    widened exactly). ``torch.einsum`` raises on mixed types. Under a
+    mesh, on DTensors: ``sharding.sharded_einsum``."""
     dt = torch.promote_types(a.dtype, b.dtype)
+    if is_sharded(a) or is_sharded(b):
+        return sharded_einsum(eq, a.to(dt), b.to(dt))
     return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
@@ -145,6 +150,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: [..., T, H, D]; positions: broadcastable to [..., T]."""
     D = x.shape[-1]
     freqs = rope_freqs(D, theta, device=x.device)              # [D/2]
+    positions = replicated_like(positions, x)
     angles = positions[..., None].float() * freqs              # [..., T, D/2]
     cos = torch.cos(angles)[..., None, :]                      # [..., T, 1, D/2]
     sin = torch.sin(angles)[..., None, :]
@@ -165,9 +171,11 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
         d6 = D // 2 // 3
         sections = (D // 2 - 2 * d6, d6, d6)
     freqs = rope_freqs(D, theta, device=x.device)              # [D/2]
+    positions = replicated_like(positions, x)
     sec = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))               # [D/2]
+        torch.tensor(sections, device=x.device),
+        output_size=sum(sections))                             # [D/2]
     coords = positions.float().movedim(-2, 0)                  # [3, ..., T]
     per_freq = coords[sec].movedim(0, -1)                      # [..., T, D/2]
     angles = per_freq * freqs

@@ -24,6 +24,7 @@ cross-attention stays plain autograd through ``attention_ref``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Optional
 
@@ -32,10 +33,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
+from ..sharding import (carry_rules, constrain, gather_fsdp, get_mesh,
+                        layer_axes)
 from . import blocks
-from .common import (check_gen, cross_entropy_loss, einsum, normal,
-                     param_dtype)
-from .lm import _layer, _requires_grad, _unstack, compute_cast, torch_dtype
+from .common import check_gen, cross_entropy_loss, normal, param_dtype
+from .lm import (_layer, _requires_grad, _unstack, compute_cast, stack_axes,
+                 torch_dtype)
 
 Pytree = Any
 
@@ -92,6 +95,43 @@ class EncDecLM:
             "final_norm": blocks._norm_init(cfg, d, gen, dtype=dtype),
         }
 
+    def param_axes(self) -> Pytree:
+        """The logical axes of ``init``'s params, as the reference's."""
+        cfg = self.cfg
+        return {
+            "embed": ("vocab", None), "unembed": ("embed", "vocab"),
+            "enc": stack_axes({"attn": blocks.attn_axes(cfg),
+                               "ffn": blocks.ffn_axes(cfg)}),
+            "dec": stack_axes({"self": blocks.attn_axes(cfg),
+                               "cross": blocks.attn_axes(cfg),
+                               "ffn": blocks.ffn_axes(cfg)}),
+            "enc_norm": blocks._norm_axes(cfg),
+            "final_norm": blocks._norm_axes(cfg),
+        }
+
+    def init_with_axes(self, gen: Optional[torch.Generator],
+                       dtype: Optional[torch.dtype] = None):
+        return self.init(gen, dtype), self.param_axes()
+
+    def _fsdp(self, p, key: str):
+        """Under a mesh, the params of ``key`` ("enc" or "dec": one layer;
+        "top": the final norm and unembedding) with their FSDP dims
+        gathered (``sharding.gather_fsdp``); ``p`` itself otherwise."""
+        if get_mesh() is None:
+            return p
+        axes = self._axes
+        ax = (axes["layer"][key] if key in ("enc", "dec")
+              else {k: axes[k] for k in p})
+        return gather_fsdp(p, ax)
+
+    @functools.cached_property
+    def _axes(self) -> Pytree:
+        """``param_axes()`` and, under "layer", one layer's of "enc" and
+        "dec", reckoned once for ``_fsdp``."""
+        axes = self.param_axes()
+        return dict(axes, layer={k: layer_axes(axes[k])
+                                 for k in ("enc", "dec")})
+
     def _compute_cast(self, params):
         return compute_cast(params, self.cfg.compute_dtype)
 
@@ -109,17 +149,19 @@ class EncDecLM:
         x = torch.as_tensor(src_embeds, device=self.device).to(dt)
         S, d = x.shape[1], x.shape[2]
         x = x + sinusoidal(S, d, device=self.device).to(dt)
+        x = constrain(x, ("batch", "seq", None))
         positions = torch.arange(S, device=self.device)
         remat = self._remat(params)
         for lp in _unstack(params["enc"], cfg.n_encoder_layers):
             if remat:
-                x = checkpoint(self._enc_layer, lp, x, positions,
+                x = checkpoint(carry_rules(self._enc_layer), lp, x, positions,
                                use_reentrant=False)
             else:
                 x = self._enc_layer(lp, x, positions)
         return blocks.apply_norm(cfg, params.get("enc_norm"), x)
 
     def _enc_layer(self, lp, x, positions):
+        lp = self._fsdp(lp, "enc")
         x, _ = blocks.attn_apply(lp["attn"], x, cfg=self.cfg,
                                  positions=positions, causal=False,
                                  attn_impl=self.attn_impl)
@@ -128,8 +170,8 @@ class EncDecLM:
     def _cross_kv(self, lp, memory):
         """One decoder layer's cross-attention k/v from the encoder memory,
         head-major [B, KH, S, hd]."""
-        k = einsum("bsd,dhk->bshk", memory, lp["cross"]["wk"])
-        v = einsum("bsd,dhk->bshk", memory, lp["cross"]["wv"])
+        k = blocks.project(memory, lp["cross"]["wk"], "bsd,dhk->bshk", "kv")
+        v = blocks.project(memory, lp["cross"]["wv"], "bsd,dhk->bshk", "kv")
         return k.transpose(1, 2), v.transpose(1, 2)
 
     # ------------------------------------------------------------- decoder
@@ -143,19 +185,24 @@ class EncDecLM:
         dt = torch_dtype(cfg.compute_dtype)
         tokens = torch.as_tensor(tokens, device=self.device).long()
         T = tokens.shape[1]
-        x = params["embed"][tokens].to(dt)
+        x = blocks.embed(params["embed"], tokens).to(dt)
         x = x + sinusoidal(T, cfg.d_model, offset=pos,
                            device=self.device).to(dt)
+        x = constrain(x, ("batch", "seq", None))
         positions = torch.arange(T, device=self.device) + pos
         remat = cache is None and self._remat(params)
         for i, lp in enumerate(_unstack(params["dec"], cfg.n_layers)):
             if remat:
-                x = checkpoint(self._dec_layer, lp, x, positions, memory,
+                x = checkpoint(carry_rules(self._dec_layer), lp, x, positions,
+                               memory,
                                use_reentrant=False)
             else:
                 x = self._dec_layer(lp, x, positions, memory, cache, i, pos)
-        x = blocks.apply_norm(cfg, params.get("final_norm"), x)
-        return einsum("btd,dv->btv", x, params["unembed"]), cache
+        top = self._fsdp({k: params.get(k) for k in
+                          ("final_norm", "unembed")}, "top")
+        x = blocks.apply_norm(cfg, top["final_norm"], x)
+        logits = blocks.project(x, top["unembed"], "btd,dv->btv", "vocab")
+        return constrain(logits, ("batch", "seq", "vocab")), cache
 
     def _dec_layer(self, lp, x, positions, memory, cache=None, i: int = 0,
                    pos: int = 0):
@@ -163,6 +210,7 @@ class EncDecLM:
         (its cross K/V computed here, as in the reference's scanned body),
         or with ``cache`` at pos."""
         cfg = self.cfg
+        lp = self._fsdp(lp, "dec")
         if cache is None:
             x, _ = blocks.attn_apply(lp["self"], x, cfg=cfg,
                                      positions=positions, causal=True,
@@ -192,6 +240,9 @@ class EncDecLM:
         """Mean next-token CE over ``batch["labels"] != -100``, as the
         reference's (no aux term)."""
         logits, _ = self.forward(params, batch)
+        # under a mesh the vocab is gathered first: the labels' gather
+        # along a sharded dim has no DTensor strategy
+        logits = constrain(logits, ("batch", "seq", None))
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         return cross_entropy_loss(logits, labels)
 

@@ -27,9 +27,19 @@ superblock (``torch.utils.checkpoint``, non-reentrant), as the reference's
 the reference applies outside its scan, are not rematerialised. With no
 grad, ``unbind`` gives the same views as slicing, so serving computes what
 it did.
+
+Sharding (``sharding.use_rules`` over a mesh, params and batch DTensors
+with ``launch/mesh``'s placements): ``param_axes`` gives the reference's
+logical axes leaf for leaf; each layer gathers its FSDP ("embed") dims
+first (``_fsdp``), the reference's ``constrain`` points redistribute the
+activations, and every kernel runs on each rank's shard through
+``local_map``; a rematerialised layer carries the rules into its
+recompute (``sharding.carry_rules``), which runs on autograd's device
+thread. Outside ``use_rules`` none of this runs.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -38,10 +48,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
+from ..sharding import (carry_rules, constrain, gather_fsdp, get_mesh,
+                        layer_axes)
 from . import blocks
-from .common import (check_gen, cross_entropy_loss, einsum, normal,
-                     param_dtype)
-from .moe_shardmap import moe_shardmap_apply, moe_shardmap_init
+from .common import check_gen, cross_entropy_loss, normal, param_dtype
+from .moe_shardmap import (moe_shardmap_apply, moe_shardmap_axes,
+                           moe_shardmap_init)
 
 Pytree = Any
 
@@ -77,6 +89,14 @@ def compute_cast(params, compute_dtype: str):
             return w.to(dt)
         return w
     return tree_map(cast, params)
+
+
+def stack_axes(axes):
+    """A layer's logical axes -> the stacked leaves' (a leading "layers"
+    dim on every leaf; a None leaf stays None)."""
+    if isinstance(axes, dict):
+        return {k: stack_axes(v) for k, v in axes.items()}
+    return None if axes is None else ("layers", *axes)
 
 
 def _layer(tree, i: int):
@@ -189,6 +209,67 @@ class LM:
                                                           dtype=dtype)
         return params
 
+    def param_axes(self) -> Pytree:
+        """The logical axes of ``init``'s params, leaf for leaf as the
+        reference's ``param_axes``: a tuple of names per leaf (None for an
+        absent norm), the stacked leaves led by "layers"."""
+        cfg = self.cfg
+        axes = {"embed": ("vocab", None), "unembed": ("embed", "vocab"),
+                "final_norm": blocks._norm_axes(cfg)}
+        if cfg.family == "hybrid":
+            _, n_rem = self._hybrid_split()
+            layers = {}
+            for i, kind in enumerate(cfg.block_pattern):
+                layers[f"t{i}"] = (blocks.rglru_axes(cfg) if kind == "rec"
+                                   else blocks.attn_axes(cfg))
+                layers[f"mlp{i}"] = blocks.ffn_axes(cfg)
+            axes["layers"] = stack_axes(layers)
+            axes["rem"] = [{"t": blocks.rglru_axes(cfg),
+                            "mlp": blocks.ffn_axes(cfg)}
+                           for _ in range(n_rem)]
+        elif cfg.family == "ssm":
+            axes["layers"] = stack_axes({"rwkv": blocks.rwkv_axes(cfg)})
+        else:
+            layer = {"attn": (blocks.mla_axes(cfg) if cfg.kv_lora
+                              else blocks.attn_axes(cfg))}
+            if cfg.n_experts:
+                layer["moe"] = (moe_shardmap_axes(cfg) if self._shardmap()
+                                else blocks.moe_axes(cfg))
+            else:
+                layer["ffn"] = blocks.ffn_axes(cfg)
+            axes["layers"] = stack_axes(layer)
+        return axes
+
+    def init_with_axes(self, gen: Optional[torch.Generator],
+                       dtype: Optional[torch.dtype] = None
+                       ) -> Tuple[Pytree, Pytree]:
+        return self.init(gen, dtype), self.param_axes()
+
+    def _fsdp(self, p, key: str, i: Optional[int] = None):
+        """Under a mesh, the params ``p`` of ``key`` ("layers": one layer or
+        superblock; "rem": leftover layer ``i``; "top": the final norm and
+        unembedding) with their FSDP dims gathered
+        (``sharding.gather_fsdp``); ``p`` itself otherwise."""
+        if get_mesh() is None:
+            return p
+        axes = self._axes
+        if key == "layers":
+            ax = self._layer_axes
+        elif key == "rem":
+            ax = axes["rem"][i]
+        else:
+            ax = {k: axes[k] for k in p}
+        return gather_fsdp(p, ax)
+
+    @functools.cached_property
+    def _axes(self) -> Pytree:
+        """``param_axes()``, reckoned once for ``_fsdp``."""
+        return self.param_axes()
+
+    @functools.cached_property
+    def _layer_axes(self) -> Pytree:
+        return layer_axes(self._axes["layers"])
+
     def _shardmap(self) -> bool:
         return self.cfg.moe_strategy == "expert_parallel_shardmap"
 
@@ -212,8 +293,10 @@ class LM:
         the embedding of ``batch["tokens"]``; in ``compute_dtype``."""
         dt = torch_dtype(self.cfg.compute_dtype)
         if self.cfg.embed_inputs and "embeds" in batch:
-            return torch.as_tensor(batch["embeds"], device=self.device).to(dt)
-        return params["embed"][self._tokens(batch)].to(dt)
+            x = torch.as_tensor(batch["embeds"], device=self.device).to(dt)
+        else:
+            x = blocks.embed(params["embed"], self._tokens(batch)).to(dt)
+        return constrain(x, ("batch", "seq", None))
 
     def _positions(self, batch, T: int, offset: int = 0) -> torch.Tensor:
         """[T] positions from ``offset``; with M-RoPE [B, 3, T]: the batch's
@@ -234,6 +317,7 @@ class LM:
         reference, ``prefill`` takes ``blocks.moe_apply`` even under
         ``expert_parallel_shardmap``, which ``forward`` and decode honour."""
         cfg = self.cfg
+        p = self._fsdp(p, "layers")
         if cfg.family == "ssm":
             x, st = blocks.rwkv_apply(p["rwkv"], x, cfg=cfg, state=cache,
                                       scan_impl=self.scan_impl)
@@ -256,7 +340,7 @@ class LM:
                                       impl=self.moe_impl)
         return x, c, aux
 
-    def _rwkv_layers(self, params, x, states):
+    def _rwkv_layers(self, params, x, states, seq: Optional[str] = "seq"):
         """RWKV6 layers over ``x``, layer i from ``states[i]``. Returns
         (logits, the new per-layer states stacked on a leading layer dim)."""
         new = []
@@ -264,7 +348,7 @@ class LM:
             x, st, _ = self._layer_apply(_layer(params["layers"], i), x,
                                          None, cache=st)
             new.append(st)
-        return self._logits(params, x), _stack(new)
+        return self._logits(params, x, seq), _stack(new)
 
     def _superblock_apply(self, p, x, positions, cache=None, pos=None,
                           max_len: Optional[int] = None):
@@ -276,6 +360,7 @@ class LM:
         sized by ``max_len``, come back."""
         cfg = self.cfg
         dt = torch_dtype(cfg.kv_cache_dtype)
+        p = self._fsdp(p, "layers")
         new_cache = {}
         for i, kind in enumerate(cfg.block_pattern):
             c = cache[f"t{i}"] if cache is not None else None
@@ -303,16 +388,22 @@ class LM:
         """The RG-LRU layers left over after the superblocks, layer i from
         ``states[i]`` (None: no state). Returns (x, the new states)."""
         new = []
-        for rp, st in zip(params["rem"], states):
+        for i, (rp, st) in enumerate(zip(params["rem"], states)):
+            rp = self._fsdp(rp, "rem", i)
             x, st = blocks.rglru_apply(rp["t"], x, cfg=self.cfg, state=st,
                                        scan_impl=self.scan_impl)
             x = blocks.ffn_apply(rp["mlp"], x, cfg=self.cfg, act="gelu")
             new.append(st)
         return x, new
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, seq: Optional[str] = "seq"):
+        """The final norm and the unembedding: logits constrained to
+        ("batch", ``seq``, "vocab") (decode: ``seq=None``)."""
+        params = self._fsdp({k: params.get(k) for k in
+                             ("final_norm", "unembed")}, "top")
         x = blocks.apply_norm(self.cfg, params.get("final_norm"), x)
-        return einsum("btd,dv->btv", x, params["unembed"])
+        logits = blocks.project(x, params["unembed"], "btd,dv->btv", "vocab")
+        return constrain(logits, ("batch", seq, "vocab"))
 
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (logits, aux_loss)."""
@@ -326,7 +417,8 @@ class LM:
             n_super, _ = self._hybrid_split()
             for lp in _unstack(params["layers"], n_super):
                 if remat:
-                    x, _ = checkpoint(self._superblock_apply, lp, x,
+                    x, _ = checkpoint(carry_rules(self._superblock_apply),
+                                      lp, x,
                                       positions, use_reentrant=False)
                 else:
                     x, _ = self._superblock_apply(lp, x, positions)
@@ -334,7 +426,8 @@ class LM:
         else:
             for lp in _unstack(params["layers"], self.cfg.n_layers):
                 if remat:
-                    x, _, a = checkpoint(self._layer_apply, lp, x, positions,
+                    x, _, a = checkpoint(carry_rules(self._layer_apply), lp,
+                                         x, positions,
                                          use_reentrant=False)
                 else:
                     x, _, a = self._layer_apply(lp, x, positions)
@@ -345,6 +438,9 @@ class LM:
         """Mean next-token CE over ``batch["labels"] != -100`` plus
         ``AUX_COEF`` times the forward's aux loss, as the reference's."""
         logits, aux = self.forward(params, batch)
+        # under a mesh the vocab is gathered first: the labels' gather
+        # along a sharded dim has no DTensor strategy
+        logits = constrain(logits, ("batch", "seq", None))
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         return cross_entropy_loss(logits, labels) + AUX_COEF * aux
 
@@ -404,15 +500,16 @@ class LM:
             sup = {f"t{i}": (_stack([c[f"t{i}"] for c in new])
                              if kind == "rec" else cache["super"][f"t{i}"])
                    for i, kind in enumerate(self.cfg.block_pattern)}
-            return self._logits(params, x), {"super": sup, "rem": rem}
+            return self._logits(params, x, None), {"super": sup, "rem": rem}
         if self.cfg.family == "ssm":
             return self._rwkv_layers(
-                params, x, [_layer(cache, i) for i in range(self.cfg.n_layers)])
+                params, x, [_layer(cache, i) for i in range(self.cfg.n_layers)],
+                seq=None)
         for i in range(self.cfg.n_layers):
             x, _, _ = self._layer_apply(_layer(params["layers"], i), x,
                                         positions, cache=_layer(cache, i),
                                         pos=pos)
-        return self._logits(params, x), cache
+        return self._logits(params, x, None), cache
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
         """Prompt processing; returns (logits, decode-ready cache).
@@ -450,7 +547,7 @@ class LM:
         dt = torch_dtype(cfg.kv_cache_dtype)
         caches = []
         for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+            lp = self._fsdp(_layer(params["layers"], i), "layers")
             if cfg.kv_lora:
                 x_in = x
                 x, _, _ = self._layer_apply(lp, x, positions, prefill=True)

@@ -43,7 +43,8 @@ def _unflatten_like(tree, leaves):
 def adamw_init(params: Pytree, dtype: str = "float32") -> AdamWState:
     dt = torch_dtype(dtype)
     first = _leaves(params)[0]
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    # zeros_like: a DTensor param gets moments of its own placements
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=first.device),
                       m=tree_map(zeros, params), v=tree_map(zeros, params))

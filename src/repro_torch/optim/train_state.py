@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .adamw import AdamWState, _leaves, _unflatten_like, adamw_apply, \
     adamw_init
@@ -32,10 +33,12 @@ def leaf_grads(loss: torch.Tensor, leaves: list) -> list:
     VLM's ``embed`` when the batch brings ``embeds``) gets an fp32 zero
     gradient of its shape, as ``jax.grad`` gives it zeros: AdamW then still
     decays it. The zeros are one scalar broadcast, so that a 1.25 B-element
-    leaf costs no memory for them."""
+    leaf costs no memory for them (a DTensor leaf's are its own shards)."""
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return [torch.zeros((), dtype=torch.float32, device=p.device).expand(
-        p.shape) if g is None else g for g, p in zip(grads, leaves)]
+    return [g if g is not None else torch.zeros_like(p, dtype=torch.float32)
+            if isinstance(p, DTensor) else torch.zeros(
+                (), dtype=torch.float32, device=p.device).expand(p.shape)
+            for g, p in zip(grads, leaves)]
 
 
 def make_train_step(loss_fn: Callable[[Pytree, Any], torch.Tensor], *,

@@ -11,6 +11,7 @@ the reference run op by op (``jax.disable_jit``), as the model tests do.
 Also: mirrors of tests/test_moe_shardmap.py against the port's
 ``moe_shardmap`` at world size 1.
 """
+import types
 from contextlib import nullcontext
 
 import jax
@@ -177,5 +178,7 @@ def test_shardmap_matches_jax(cf):
         ye, _ = blocks.moe_apply(tp, tx, cfg=tcfg, impl="kernel")
         np.testing.assert_allclose(y.numpy(), ye.numpy(), rtol=1e-5,
                                    atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        moe_shardmap_apply(tp, tx, cfg=tcfg, mesh=object())
+    # a mesh without a "model" axis takes the single-device branch too
+    no_model = types.SimpleNamespace(mesh_dim_names=("data",), shape=(1,))
+    y1, aux1 = moe_shardmap_apply(tp, tx, cfg=tcfg, mesh=no_model)
+    assert torch.equal(y1, y) and torch.equal(aux1, aux)
