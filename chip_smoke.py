@@ -155,7 +155,11 @@ non-zero exit):
     four-node proc cluster forked after CUDA is up, a SIGKILL mid-decode,
     failover, verify and attend, failing unless ``close()`` leaves no child
     and no shared-memory segment and no rpc value was refused; one attend
-    launch timed beside its bound;
+    launch timed beside its bound (the tier's tables and lengths over a copy
+    of the pool filled with seeded random K/V); then the inproc part again
+    at a bf16 pool, the configs' ``kv_cache_dtype`` (7.34 MB a slab, the
+    host budget in slabs of that size), held at 2e-2, every paged launch on
+    the bf16 route, and its launch timed and checked the same way;
 14. durable tier: phase 4's qwen3-0.6b params (28 layers, bf16, on the
     card) checkpointed in pool mode (``CheckpointManager(cluster=...)``,
     layouts row and col, 4 shards) over a four-node inproc cluster with a
@@ -308,9 +312,11 @@ Launch counts are zeroed just before phase 4 and read just after phase 5
 before phase 9 and read just after it (the diagonal scan and flash: the
 recurrentgemma-9b path), and again just before phase 11 and read just after
 it (dispatch, combine and flash: the grok-1-314b path), and again just
-before phase 13 and read just after it (paged attention: the
+before phase 13 and read just after its fp32 part, and again just before
+and after its bf16 part (paged attention: the
 ``ServingTier`` path, exactly one launch a shard of each ``attend`` call,
-counted from the tier's sessions at the call), and again just before
+counted from the tier's sessions at the call, all on the pool dtype's
+route), and again just before
 phase 14 and read just after it (flash attention: the durable path's one
 prefill, exactly one launch a layer, all on the wgmma route), and again
 just before phase 15's training run and read just after it (flash
@@ -391,6 +397,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import BufferPool, PagedKVCache  # noqa: E402
+from repro_torch.core.kvcache import host_array, host_to_tensor  # noqa: E402
 from repro_torch.core.pagelog import fsck  # noqa: E402
 from repro_torch.core.services import (  # noqa: E402
     canonical_join_sort, join_output_dtype)
@@ -734,7 +741,7 @@ def paged_build_facts():
         if "bf16" in fn and not f.get("hmma"):
             _fail(f"no HMMA in the bf16 paged kernel {fn}: {facts}")
     facts["dynamic_smem"] = {
-        f"{name} {'fp32' if dtype == torch.float32 else 'bf16'}":
+        f"{name} {paged_kernel.ROUTES[dtype]}":
             paged_kernel.smem_bytes(dtype, G, D)
         for name, G, D in (("qwen3 G=2 D=128", 2, 128),
                            ("grok G=6 D=128", 6, 128),
@@ -1388,7 +1395,7 @@ def paged_shape(q, kv, bt, ln):
     lengths = [int(n) for n in ln]
     bt_d, ln_d = torch.as_tensor(bt, device=DEV), torch.as_tensor(ln, device=DEV)
     entry = dict(shape=f"B={B} H={H} KH={KH} D={D} page={page} "
-                       f"{'fp32' if dtype == torch.float32 else 'bf16'} "
+                       f"{paged_kernel.ROUTES[dtype]} "
                        f"pool of {P} pages, lengths "
                        + (str(lengths) if B <= 4 else
                           f"{min(lengths)}-{max(lengths)} (sum "
@@ -2423,11 +2430,14 @@ def kv_pool(loop, cfg, prompts, rng):
 
 
 # -- phase 13: the serving tier at qwen3-0.6b's KV geometry -------------------------
-TIER_POOL_PAGES = 32       # a node's device pool: 32 fp32 slabs of 14.68 MB
+TIER_POOL_PAGES = 32       # a node's device pool: 32 slabs (fp32: 14.68 MB)
 TIER_SESSIONS = 16
 TIER_PROMPTS = (448, 960)  # prompt tokens: 7 to 15 pages of 64
 TIER_HOST_SLABS = 8        # a shard's host budget, in slabs: level 3 fires
 TIER_DECODE, TIER_FAILOVER_DECODE = 16, 4
+# attend against its plain version and dense fp64: the reference's pool
+# tolerance over an fp32 pool, its bf16 tolerance over a bf16 one
+TIER_TOL = {torch.float32: POOL_TOL, torch.bfloat16: 2e-2}
 
 
 def tier_batches(tier):
@@ -2454,14 +2464,15 @@ def tier_batches(tier):
 
 def tier_dense(tier, s):
     """fp64 softmax attention of session s's q over its K/V as the oracle
-    (``expected_slabs``, not the pool) has them: [L, KH, D]."""
+    (``expected_slabs``, not the pool) has them, each value as the tier's
+    dtype rounds it: [L, KH, D]."""
     n = tier.sessions[s].length
-    kv = torch.from_numpy(np.concatenate(tier.expected_slabs(s), axis=1)
-                          [:, :n]).to(DEV, torch.float64)   # [L, n, 2, KH, D]
-    k, v = kv[:, :, 0], kv[:, :, 1]
-    q = torch.full((tier.kv_heads, tier.head_dim),
-                   float(np.float32(token_value(s, n))), dtype=torch.float64,
-                   device=DEV)
+    kv = host_to_tensor(np.concatenate(tier.expected_slabs(s), axis=1)
+                        [:, :n], tier.dtype).to(DEV, torch.float64)
+    k, v = kv[:, :, 0], kv[:, :, 1]                   # [L, n, KH, D]
+    q = torch.full((tier.kv_heads, tier.head_dim), float(host_to_tensor(
+        host_array(token_value(s, n), tier.dtype), tier.dtype)),
+        dtype=torch.float64, device=DEV)
     p = torch.softmax(torch.einsum("hd,lthd->lht", q, k)
                       * tier.head_dim ** -0.5, dim=-1)
     return torch.einsum("lht,lthd->lhd", p, v).cpu()
@@ -2470,13 +2481,14 @@ def tier_dense(tier, s):
 def tier_attend(tier, want):
     """``attend(impl="kernel")`` at every layer over every per-shard batch,
     held to ``attend(impl="xla")`` and, where the batch's pages fit the
-    pool, to dense fp64 attention over the oracle's K/V, at POOL_TOL (a
+    pool, to dense fp64 attention over the oracle's K/V, at TIER_TOL (a
     session longer than the pool has its own pages evict one another while
     its table is built, so kernel and plain version read the same stale
     slots). ``want["paged"]`` gains the launches each call must make: one
     a shard, counted from ``tier.sessions``. Returns the largest error and
     the sessions held to the dense answer."""
     worst, dense_checked = 0.0, []
+    tol = TIER_TOL[tier.dtype]
     for batch in tier_batches(tier):
         fits = sum(tier._pages_for(tier.sessions[s].length)
                    for s in batch) <= tier.hbm_pages_per_node
@@ -2487,13 +2499,13 @@ def tier_attend(tier, want):
             ker = tier.attend(batch, layer, impl="kernel")
             plain = tier.attend(batch, layer, impl="xla")
             for s in batch:
-                got = torch.from_numpy(ker[s])
+                got = host_to_tensor(ker[s], tier.dtype)
                 worst = max(worst, close_or_fail(
-                    got, torch.from_numpy(plain[s]), POOL_TOL,
+                    got, host_to_tensor(plain[s], tier.dtype), tol,
                     f"tier layer {layer} seq {s} vs plain"))
                 if s in dense:
                     worst = max(worst, close_or_fail(
-                        got, dense[s][layer], POOL_TOL,
+                        got, dense[s][layer], tol,
                         f"tier layer {layer} seq {s} vs dense"))
     return worst, dense_checked
 
@@ -2534,23 +2546,30 @@ def tier_verify(tier, what):
             _fail(f"tier {what}: session {s} differs from the oracle")
 
 
-def tier_inproc(cfg, want):
-    """qwen3-0.6b's KV in the tier's own fp32 on a four-node inproc cluster:
-    admit TIER_SESSIONS prompts, decode, attend and verify, kill one
-    session's primary, decode (failover), attend and verify again. Returns
-    the report, the live tier and its cluster (for the timed launch)."""
+def tier_inproc(cfg, want, dtype=torch.float32):
+    """qwen3-0.6b's KV in a pool of ``dtype`` (fp32, the tier's own, or
+    bf16, the configs' ``kv_cache_dtype``) on a four-node inproc cluster: admit TIER_SESSIONS
+    prompts, decode, attend and verify, kill one session's primary, decode
+    (failover), attend and verify again. The host budget is TIER_HOST_SLABS
+    slabs of the dtype's size. Returns the report, the live tier and its
+    cluster (for the timed launch)."""
     rng = np.random.default_rng(1300)
     prompts = {s: int(n) for s, n in enumerate(
         rng.integers(TIER_PROMPTS[0], TIER_PROMPTS[1] + 1, TIER_SESSIONS))}
     geometry = dict(num_layers=cfg.n_layers, page_tokens=cfg.page_size,
                     kv_heads=cfg.kv_heads, head_dim=cfg.resolved_head_dim)
-    slab_nbytes = int(np.prod(list(geometry.values()))) * 2 * 4
+    slab_nbytes = int(np.prod(list(geometry.values()))) * 2 * \
+        torch.empty((), dtype=dtype).element_size()
     cluster = Cluster(4, node_capacity=3 << 30, page_size=1 << 20,
                       replication_factor=1, admission=True)
     tier = ServingTier(cluster, hbm_pages_per_node=TIER_POOL_PAGES,
                        host_budget_bytes=TIER_HOST_SLABS * slab_nbytes,
-                       dtype=np.float32, device="cuda", **geometry)
-    report = dict(sessions=TIER_SESSIONS, prompts=prompts,
+                       dtype=dtype, device="cuda", **geometry)
+    if tier.slab_nbytes != slab_nbytes or tier.dtype != dtype:
+        _fail(f"tier: {tier.dtype} slabs of {tier.slab_nbytes} bytes, not "
+              f"{dtype} of {slab_nbytes}")
+    report = dict(dtype=paged_kernel.ROUTES[dtype], tolerance=TIER_TOL[dtype],
+                  sessions=TIER_SESSIONS, prompts=prompts,
                   slab_mb=tier.slab_nbytes / 1e6,
                   pool_gb=4 * TIER_POOL_PAGES * tier.slab_nbytes / 1e9,
                   host_budget_mb=tier.host_budget_bytes / 1e6)
@@ -2629,17 +2648,23 @@ def tier_proc(want):
 
 def tier_timed(tier):
     """One attend launch at layer 0 over the largest per-shard batch, timed
-    as phase 3 times its shapes (``paged_shape``)."""
+    and checked as phase 3 times its shapes (``paged_shape``): the tier's
+    block tables and lengths over a copy of the layer's pool filled with
+    seeded random K/V, and a random q. (The oracle's K/V, one value a token
+    the same in every head and column, cannot tell a dropped chunk, a head
+    mix-up or a column mix-up in bf16.)"""
     batch = max(tier_batches(tier), key=lambda b: sum(
         tier.sessions[s].length for s in b))
     shard = tier._shard(tier.sessions[batch[0]].node)
     max_pages = max(shard.cache.num_pages(s) for s in batch)
     bt = np.stack([shard.cache.block_table(s, max_pages) for s in batch])
     ln = np.array([tier.sessions[s].length for s in batch], np.int32)
-    q = torch.from_numpy(np.stack([np.full(
-        (tier.kv_heads, tier.head_dim), token_value(s, int(n)), np.float32)
-        for s, n in zip(batch, ln)])).to(DEV)
-    return paged_shape(q, shard.cache.kv[0], bt, ln)
+    pool = shard.cache.kv[0]
+    gen = torch.Generator(device=DEV).manual_seed(1301)
+    kv = torch.randn(pool.shape, generator=gen, device=DEV).to(pool.dtype)
+    q = torch.randn((len(batch), tier.kv_heads, tier.head_dim),
+                    generator=gen, device=DEV).to(pool.dtype)
+    return paged_shape(q, kv, bt, ln)
 
 
 # the port's own kernels: every __global__ function of csrc/*.cu
@@ -3846,7 +3871,8 @@ def main():
         gla_scan.bwd_calls = 0
         for fn in (dispatch, combine):
             fn.bwd_launches = fn.bwd_calls = 0
-        for fn in (flash_attention, gla_scan, diag_scan, dispatch):
+        for fn in (flash_attention, gla_scan, diag_scan, dispatch,
+                   paged_attention):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
     def free():
@@ -3956,12 +3982,23 @@ def main():
     free()
     lap("grok-1-314b")
 
+    def check_tier_route(path, dtype, n):
+        """Every paged launch of the path on the pool dtype's route."""
+        route = paged_kernel.ROUTES[dtype]
+        if paged_attention.launches_by_route[route] != n:
+            _fail(f"paged_attention launches by route "
+                  f"{paged_attention.launches_by_route} on the {path} path: "
+                  f"not all {n} on {route}")
+        paged_routes[path] = dict(paged_attention.launches_by_route)
+
+    paged_routes = {}
     zero_counts()
     want = {"paged": 0}
     tier_report, tier, tier_cluster = tier_inproc(cfg, want)
     tier_report["proc"] = tier_proc(want)
     path = f"{cfg.name}/ServingTier"
     check_path(path, {paged_attention: want["paged"]})
+    check_tier_route(path, torch.float32, want["paged"])
     launches["paged_attention"][path] = paged_attention.launches
     tier_shape = tier_timed(tier)
     tier.close()
@@ -3970,6 +4007,22 @@ def main():
     free()
     lap("serving tier")
     tier_report["seconds"] = phase_s["serving tier"]
+    # the inproc part again at the configs' kv_cache_dtype, bf16
+    zero_counts()
+    want = {"paged": 0}
+    report, tier, tier_cluster = tier_inproc(cfg, want, torch.bfloat16)
+    path = f"{cfg.name}/ServingTier/bf16"
+    check_path(path, {paged_attention: want["paged"]})
+    check_tier_route(path, torch.bfloat16, want["paged"])
+    launches["paged_attention"][path] = paged_attention.launches
+    tier_shape_bf16 = tier_timed(tier)
+    tier.close()
+    tier_cluster.shutdown()
+    del tier
+    free()
+    lap("serving tier bf16")
+    report["seconds"] = phase_s["serving tier bf16"]
+    tier_report["bf16"] = report
     log("serving_tier", json.dumps(tier_report))
 
     zero_counts()
@@ -4306,7 +4359,8 @@ def main():
     next(k for k in kernels if k["name"] == "combine").update(
         build={f: v for f, v in shuffle_build.items() if "combine" in f})
     next(k for k in kernels if k["name"] == "paged_attention").update(
-        build=paged_build, serving_tier=tier_shape)
+        build=paged_build, serving_tier=tier_shape,
+        serving_tier_bf16=tier_shape_bf16, launches_by_route=paged_routes)
     for k in kernels:
         k["launches_by_path"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]].values())

@@ -8,6 +8,7 @@ knows, and the port runs all of them.
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from .base import (ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, TRAIN_4K,
                    ArchConfig, ShapeConfig, shapes_for)
@@ -42,6 +43,10 @@ def get_config(arch_id: str) -> ArchConfig:
     return mod.CONFIG
 
 
+def all_configs() -> Dict[str, ArchConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
 def smoke_config(arch_id: str) -> ArchConfig:
     """Reduced same-family config for CPU smoke tests (small layers/width,
     tiny vocab), as the JAX package reduces it."""
@@ -73,4 +78,4 @@ def smoke_config(arch_id: str) -> ArchConfig:
 
 __all__ = ["ALL_SHAPES", "ARCH_IDS", "ArchConfig", "DECODE_32K", "LONG_500K",
            "PORTED_ARCH_IDS", "PREFILL_32K", "ShapeConfig", "TRAIN_4K",
-           "get_config", "shapes_for", "smoke_config"]
+           "all_configs", "get_config", "shapes_for", "smoke_config"]

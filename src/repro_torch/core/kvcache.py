@@ -14,8 +14,10 @@ the host buffer pool:
   demand, in place.
 
 The host side stays numpy (``HostSlabStore``), so a tiered store can slot in
-without the cache knowing. numpy has no bfloat16 of its own, so a bf16 pool
-moves its slabs as the same bytes viewed as ``np.uint16``.
+without the cache knowing. The pool is fp32 or bf16 (the configs'
+``kv_cache_dtype``). An fp32 pool moves its slabs as ``np.float32``; numpy
+has no bfloat16 of its own, so a bf16 pool moves its slabs as the same bytes
+viewed as ``np.uint16`` (``host_array`` rounds values into those bits).
 
 The device half (attention over the page pool) is ``kernels/paged_attention``.
 """
@@ -36,6 +38,7 @@ from .paging import PagingSystem
 # torch pool dtype -> numpy dtype of the host slab (same bytes)
 _HOST_DTYPE = {torch.float32: np.dtype(np.float32),
                torch.bfloat16: np.dtype(np.uint16)}
+# a dtype's name (numpy's, ml_dtypes' bfloat16 or a string) -> pool dtype
 _TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -49,17 +52,52 @@ def kv_attrs() -> AttributeSet:
 
 def pool_dtype(dtype) -> torch.dtype:
     """A torch dtype for the pool from a torch dtype, a numpy dtype or a
-    name (``np.float32``, ``"bfloat16"``, ``torch.bfloat16`` ...)."""
+    name (``np.float32``, ``"bfloat16"``, ``torch.bfloat16``, ml_dtypes'
+    bfloat16 by its name ...); raises ``TypeError`` on any but the two."""
     if isinstance(dtype, torch.dtype):
         out = dtype
     else:
-        name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
-        if name not in _TORCH_DTYPE:
-            raise TypeError(f"unsupported KV pool dtype {dtype!r}")
-        out = _TORCH_DTYPE[name]
+        try:
+            name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+        except TypeError:
+            name = None
+        out = _TORCH_DTYPE.get(name)
     if out not in _HOST_DTYPE:
-        raise TypeError(f"unsupported KV pool dtype {dtype!r}")
+        raise TypeError(f"unsupported KV pool dtype {dtype!r}: the pool is "
+                        f"float32 or bfloat16")
     return out
+
+
+def host_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a pool's host slabs (``np.uint16`` bits for
+    bf16)."""
+    return _HOST_DTYPE[pool_dtype(dtype)]
+
+
+def host_array(values: np.ndarray, dtype) -> np.ndarray:
+    """``values`` (float) as fp32, rounded by torch's cast (the pool's own)
+    into the pool dtype's host form: ``np.float32``, or for bf16 the bits as
+    ``np.uint16``."""
+    v = torch.from_numpy(np.array(values, np.float32))        # a copy
+    return tensor_to_host(v.to(pool_dtype(dtype)))
+
+
+def host_to_tensor(a: np.ndarray, dtype) -> torch.Tensor:
+    """A CPU tensor of the pool dtype over the host array's memory (a bf16
+    pool's ``np.uint16`` bits viewed as bfloat16; no copy when ``a`` is
+    C-contiguous and writable)."""
+    a = np.require(a, requirements=["C", "W"])     # copies if needed
+    if pool_dtype(dtype) == torch.bfloat16 and a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def tensor_to_host(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of a tensor of a pool dtype, in its host form."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 class HBMExhaustedError(MemoryError):
@@ -161,10 +199,7 @@ class PagedKVCache:
                         ) -> torch.Tensor:
         if isinstance(slab, torch.Tensor):
             return slab
-        slab = np.require(slab, requirements=["C", "W"])   # copies if needed
-        if self.dtype == torch.bfloat16 and slab.dtype == np.uint16:
-            return torch.from_numpy(slab.view(np.int16)).view(torch.bfloat16)
-        return torch.from_numpy(slab)
+        return host_to_tensor(slab, self.dtype)
 
     # -- sequence lifecycle -----------------------------------------------------
     def start_sequence(self, seq_id: int) -> SeqState:

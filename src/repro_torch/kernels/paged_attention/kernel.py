@@ -19,6 +19,8 @@ import torch
 from .. import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's route for each pool dtype: fp32 FMAs, or mma.sync in bf16
+ROUTES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "paged_attention_fwd": ([_I] + [_P] * 5 + [_I] * 8 + [_F, _P], _I),

@@ -20,8 +20,10 @@ FMAs with a lane a key. The ``.cu`` header has the details.
 ``impl="kernel"`` takes the plain version (``ref.paged_attention_ref``) only
 when the tensors lie on the CPU. On CUDA tensors it launches the kernel or
 raises; it never falls back. ``paged_attention.launches`` counts kernel
-launches. The contract holds for lengths >= 1: at length 0 the kernel gives
-0 and the plain version a mean over page 0, as in the JAX package.
+launches, and ``paged_attention.launches_by_route`` splits them by the
+pool's dtype (``kernel.ROUTES``: fp32, bf16). The contract holds for
+lengths >= 1: at length 0 the kernel gives 0 and the plain version a mean
+over page 0, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from .kernel import paged_attention_kernel
+from .kernel import ROUTES, paged_attention_kernel
 from .ref import paged_attention_ref
 
 
@@ -54,6 +56,7 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor, block_tables,
         out = paged_attention_kernel(q, kv_pages, block_tables, lengths,
                                      scale=scale)
         paged_attention.launches += 1
+        paged_attention.launches_by_route[ROUTES[q.dtype]] += 1
         return out
     if impl == "xla":
         return paged_attention_ref(q, kv_pages, block_tables, lengths,
@@ -62,3 +65,4 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor, block_tables,
 
 
 paged_attention.launches = 0
+paged_attention.launches_by_route = dict.fromkeys(ROUTES.values(), 0)

@@ -37,7 +37,9 @@ Copy of the JAX package's ``runtime/serving.py``. What changes: every
 ``KVShard``'s pool is the port's ``PagedKVCache`` on the tier's ``device``
 (``"cuda"`` unless the caller passes ``"cpu"``), and ``attend`` calls the
 port's paged attention on that pool in place. Host slabs stay numpy. The
-pool is fp32, the reference's default; a bf16 tier is not ported yet.
+pool is fp32 (the reference's default) or bf16 (the configs'
+``kv_cache_dtype``); a bf16 tier's slabs, blobs, oracle and ``attend``
+results are the bf16 bytes as ``np.uint16``, the pager's rule.
 Device tensors live in the driver process only: node processes of the
 ``proc`` backend never touch torch. Two quirks of the reference's
 ``TieredSlabStore`` are fixed here (ROADMAP, queue 3, items 7 and 8): a
@@ -55,7 +57,9 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..core.kvcache import HostSlabStore, PagedKVCache
+from ..core.kvcache import (HostSlabStore, PagedKVCache, host_array,
+                             host_dtype, host_to_tensor, pool_dtype,
+                             tensor_to_host)
 from ..kernels.paged_attention.ops import paged_attention
 from ..core.sanitizer import tracked_rlock
 from .cluster import DeadNodeError
@@ -72,11 +76,14 @@ def expected_page_slab(seq_id: int, page_index: int, length: int, *,
                        num_layers: int, page_tokens: int, kv_heads: int,
                        head_dim: int, dtype=np.float32) -> np.ndarray:
     """Reference slab ``[L, page, 2, KH, D]`` for one logical page of a
-    sequence at ``length`` committed tokens (zeros past the length)."""
+    sequence at ``length`` committed tokens (zeros past the length), in the
+    host form of the pool ``dtype`` (fp32, or bf16 bits as ``np.uint16``;
+    ``kvcache.host_array``)."""
     t = page_index * page_tokens + np.arange(page_tokens)
     vals = (((seq_id * 7919 + t * 104729) % 997) / 997.0)
-    vals = np.where(t < length, vals, 0.0).astype(dtype)
-    slab = np.zeros((num_layers, page_tokens, 2, kv_heads, head_dim), dtype)
+    vals = host_array(np.where(t < length, vals, 0.0), dtype)
+    slab = np.zeros((num_layers, page_tokens, 2, kv_heads, head_dim),
+                    vals.dtype)
     slab[:] = vals[None, :, None, None, None]
     return slab
 
@@ -166,7 +173,7 @@ class TieredSlabStore(HostSlabStore):
                 self._remote.pop(page_id, None)
             self.tier.cluster.drop_bytes(holder, self._blob(page_id))
             self.stats["remote_fetches"] += 1
-            return np.frombuffer(data, self.tier.dtype).reshape(
+            return np.frombuffer(data, self.tier.host_dtype).reshape(
                 self.tier.slab_shape).copy()
         return None
 
@@ -179,7 +186,7 @@ class TieredSlabStore(HostSlabStore):
             return entry[0]
         if holder is not None:
             data = self.tier.cluster.load_bytes(holder, self._blob(page_id))
-            return np.frombuffer(data, self.tier.dtype).reshape(
+            return np.frombuffer(data, self.tier.host_dtype).reshape(
                 self.tier.slab_shape).copy()
         return None
 
@@ -348,9 +355,8 @@ class ServingTier:
                  dtype=np.float32, replicate: bool = True,
                  prefill_deadline_s: Optional[float] = None,
                  device: DeviceLike = "cuda"):
-        if np.dtype(dtype) != np.float32:
-            raise TypeError(f"the serving tier's pool is fp32, not {dtype!r}; "
-                            f"a bf16 tier is not ported yet")
+        self.dtype = pool_dtype(dtype)            # float32 or bfloat16
+        self.host_dtype = host_dtype(self.dtype)  # slabs and blobs on the host
         self.device = resolve_device(device)
         self.cluster = cluster
         self.scheduler = ClusterScheduler(cluster)
@@ -360,7 +366,6 @@ class ServingTier:
         self.head_dim = head_dim
         self.hbm_pages_per_node = hbm_pages_per_node
         self.host_budget_bytes = host_budget_bytes
-        self.dtype = np.dtype(dtype)
         self.replicate = replicate
         self.prefill_deadline_s = (cluster.admission_deadline_s
                                    if prefill_deadline_s is None
@@ -379,7 +384,7 @@ class ServingTier:
 
     @property
     def slab_nbytes(self) -> int:
-        return int(np.prod(self.slab_shape)) * self.dtype.itemsize
+        return int(np.prod(self.slab_shape)) * self.host_dtype.itemsize
 
     def _pages_for(self, tokens: int) -> int:
         return -(-tokens // self.page_tokens)
@@ -669,7 +674,7 @@ class ServingTier:
         try:
             slabs = [np.frombuffer(
                 self.cluster.load_bytes(rep, self._rep_name(seq_id, k)),
-                self.dtype).reshape(self.slab_shape).copy()
+                self.host_dtype).reshape(self.slab_shape).copy()
                 for k in range(npages)]
         except KeyError as e:
             raise DeadNodeError(
@@ -727,8 +732,10 @@ class ServingTier:
         """Run paged decode attention for a batch (grouped by shard — each
         shard is one device pool, read in place).  The q vectors are
         deterministic too, so outputs are comparable across backends.
-        ``impl="kernel"`` launches the CUDA paged kernel once a shard (its
-        plain version on a CPU pool), ``"xla"`` is the plain version."""
+        ``impl="kernel"`` launches the CUDA paged kernel once a shard, at
+        the tier's dtype (its plain version on a CPU pool); ``"xla"`` is the
+        plain version. Results are ``[KH, D]`` arrays in the host form of
+        the tier's dtype (bf16 as ``np.uint16`` bits)."""
         by_shard: Dict[int, List[int]] = {}
         for s in seq_ids:
             by_shard.setdefault(self._live_session(s).node, []).append(s)
@@ -740,13 +747,14 @@ class ServingTier:
                                for s in seqs])
             lengths = np.array([self.sessions[s].length for s in seqs],
                                np.int32)
-            q = np.stack([np.full((self.kv_heads, self.head_dim),
-                                  token_value(s, self.sessions[s].length),
-                                  self.dtype) for s in seqs])
+            q = np.stack([np.full(
+                (self.kv_heads, self.head_dim),
+                host_array(token_value(s, self.sessions[s].length),
+                           self.dtype)) for s in seqs])
             pool = shard.cache.kv[layer]
-            r = paged_attention(torch.from_numpy(q).to(pool.device),
+            r = paged_attention(host_to_tensor(q, self.dtype).to(pool.device),
                                 pool, tables, lengths, impl=impl)
-            r = r.cpu().numpy()
+            r = tensor_to_host(r)
             for i, s in enumerate(seqs):
                 out[s] = r[i]
         return out

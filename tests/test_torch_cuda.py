@@ -7,7 +7,8 @@ on a machine that has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the same inputs at
-the JAX package's tolerances (3e-5 fp32, 2e-2 bf16, 2e-5 over the pool, 2e-4
+the JAX package's tolerances (3e-5 fp32, 2e-2 bf16, 2e-5 over an fp32
+pool and 2e-2 over a bf16 one, 2e-4
 for the GLA scan in fp32, 1e-5 for the MoE shuffle kernels in fp32).
 """
 import numpy as np
@@ -378,10 +379,61 @@ def test_paged_kernel_matches_plain(case, dtype, cuda_device):
         bt[b, :n] = rng.choice(P, size=n, replace=False)
         lens[b] = rng.integers((n - 1) * page + 1, n * page + 1)
     before = paged_attention.launches
+    routes = dict(paged_attention.launches_by_route)
     out = paged_attention(q, kv, bt, lens, impl="kernel")
     torch.cuda.synchronize()
     assert paged_attention.launches == before + 1
+    route = paged_kernel.ROUTES[DTYPES[dtype]]
+    assert paged_attention.launches_by_route[route] == routes[route] + 1
+    assert out.dtype == DTYPES[dtype]
     _close(out, paged_attention(q, kv, bt, lens, impl="xla"), **_tol(dtype))
+
+
+def _paged_dense_fp64(q, kv, bt, lens):
+    """fp64 softmax attention of each sequence's q over its live keys, read
+    from the pool through its table: [B, H, D]."""
+    B, H, D = q.shape
+    page, KH = kv.shape[1], kv.shape[3]
+    out = torch.empty(B, H, D, dtype=torch.float64)
+    for b in range(B):
+        n = int(lens[b])
+        rows = kv[torch.as_tensor(bt[b, :-(-n // page)]).long().to(kv.device)]
+        rows = rows.double().cpu().reshape(-1, 2, KH, D)[:n]
+        k = rows[:, 0].repeat_interleave(H // KH, dim=1)      # [n, H, D]
+        v = rows[:, 1].repeat_interleave(H // KH, dim=1)
+        p = torch.softmax(torch.einsum("hd,thd->ht", q[b].double().cpu(), k)
+                          * D ** -0.5, dim=-1)
+        out[b] = torch.einsum("ht,thd->hd", p, v)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # H, KH, D, P, page, lengths, table width
+    (16, 8, 128, 40, 64, [552, 471, 300, 65], 9),       # qwen3, page 64
+    (32, 2, 128, 40, 64, [552, 300, 65], 9),            # glm4's group
+    (16, 1, 256, 40, 64, [470, 129], 8),                # recurrentgemma's
+    (4, 2, 8, 40, 4, [9, 4, 17], 6),                    # D = 8, page 4
+], ids=["qwen3", "glm4", "recurrentgemma", "D8-page4"])
+def test_paged_bf16_route_against_fp64_dense(case, cuda_device):
+    """The bf16 route (mma.sync) within 2e-2 of fp64 dense attention over
+    the same rounded inputs, one launch on its route."""
+    dtype = "bfloat16"
+    H, KH, D, P, page, lengths, width = case
+    rng = np.random.default_rng(28)
+    B = len(lengths)
+    q = torch.from_numpy(rng.normal(size=(B, H, D))).to(cuda_device,
+                                                        DTYPES[dtype])
+    kv = torch.from_numpy(rng.normal(size=(P, page, 2, KH, D))).to(
+        cuda_device, DTYPES[dtype])
+    bt = _paged_tables(rng, P, page, lengths, width)
+    lens = np.asarray(lengths, np.int32)
+    route = paged_kernel.ROUTES[DTYPES[dtype]]
+    before = paged_attention.launches_by_route[route]
+    out = paged_attention(q, kv, bt, lens, impl="kernel")
+    torch.cuda.synchronize()
+    assert paged_attention.launches_by_route[route] == before + 1
+    _close(out, _paged_dense_fp64(q, kv, bt, lens), **_tol(dtype))
 
 
 def _paged_tables(rng, P, page, lengths, width, shared=False):
@@ -1272,15 +1324,23 @@ def test_recurrent_lm_grads_on_the_card(arch, cuda_device):
 
 
 # -- the serving tier on the card ---------------------------------------------
+def _host_floats(a, dtype):
+    """A tier's host-form array (bf16 as ``np.uint16`` bits) as float64."""
+    from repro_torch.core.kvcache import host_to_tensor
+    return host_to_tensor(np.asarray(a), dtype).double().numpy()
+
+
 def _tier_dense(tier, seq_id, layer):
     """fp64 softmax attention of the session's q over its K/V as the oracle
     (``expected_slabs``) has them, not as the pool holds them."""
+    from repro_torch.core.kvcache import host_array
     from repro_torch.runtime.serving import token_value
     n = tier.sessions[seq_id].length
-    kv = np.concatenate(tier.expected_slabs(seq_id), axis=1)[layer, :n]
-    k, v = kv[:, 0].astype(np.float64), kv[:, 1].astype(np.float64)
-    q = np.full((tier.kv_heads, tier.head_dim), token_value(seq_id, n),
-                np.float32).astype(np.float64)
+    kv = _host_floats(np.concatenate(tier.expected_slabs(seq_id), axis=1)
+                      [layer, :n], tier.dtype)
+    k, v = kv[:, 0], kv[:, 1]
+    q = np.full((tier.kv_heads, tier.head_dim), _host_floats(
+        host_array(token_value(seq_id, n), tier.dtype), tier.dtype))
     s = np.einsum("hd,thd->ht", q, k) / np.sqrt(tier.head_dim)
     p = np.exp(s - s.max(axis=1, keepdims=True))
     return np.einsum("ht,thd->hd", p / p.sum(axis=1, keepdims=True), v)
@@ -1311,12 +1371,30 @@ def _tier_batches(tier):
     dict(num_layers=2, page_tokens=64, kv_heads=8, head_dim=128),
 ], ids=["default", "D128-page64"])
 def test_serving_tier_attend_on_the_card(geometry, cuda_device):
+    _tier_attend_on_the_card(geometry, np.float32, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [
+    dict(head_dim=8),                   # 16-byte rows, page 4: cp.async
+    dict(num_layers=2, page_tokens=64, kv_heads=8, head_dim=128),
+], ids=["D8", "D128-page64"])
+def test_serving_tier_attend_at_bf16_on_the_card(geometry, cuda_device):
+    """The tier at a bf16 pool: one launch a shard on the bf16 route, within
+    2e-2 (the JAX package's bf16 tolerance) of the plain version and of fp64
+    dense attention; every session verifies."""
+    _tier_attend_on_the_card(geometry, torch.bfloat16, 2e-2)
+
+
+def _tier_attend_on_the_card(geometry, dtype, tol):
+    from repro_torch.kernels.paged_attention.kernel import ROUTES
     from repro_torch.runtime.cluster import Cluster
     from repro_torch.runtime.serving import ServingTier
     cluster = Cluster(4, node_capacity=256 << 20, page_size=1 << 16,
                       replication_factor=1, admission=True)
     tier = ServingTier(cluster, hbm_pages_per_node=8, host_budget_bytes=0,
-                       device="cuda", **geometry)
+                       dtype=dtype, device="cuda", **geometry)
+    route = ROUTES[tier.dtype]
     try:
         pt = tier.page_tokens
         prompts = {s: (2 + s % 5) * pt - s % 3 for s in range(10)}
@@ -1334,15 +1412,20 @@ def test_serving_tier_attend_on_the_card(geometry, cuda_device):
             for layer in range(tier.num_layers):
                 shards = len({tier.sessions[s].node for s in batch})
                 before = paged_attention.launches
+                on_route = paged_attention.launches_by_route[route]
                 ker = tier.attend(batch, layer, impl="kernel")
                 assert paged_attention.launches - before == shards == 1
+                assert paged_attention.launches_by_route[route] - on_route \
+                    == 1
                 plain = tier.attend(batch, layer, impl="xla")
                 for s in batch:
-                    np.testing.assert_allclose(ker[s], plain[s], rtol=2e-5,
-                                               atol=2e-5)
+                    assert ker[s].dtype == tier.host_dtype
+                    got = _host_floats(ker[s], tier.dtype)
                     np.testing.assert_allclose(
-                        ker[s], _tier_dense(tier, s, layer), rtol=2e-5,
-                        atol=2e-5)
+                        got, _host_floats(plain[s], tier.dtype), rtol=tol,
+                        atol=tol)
+                    np.testing.assert_allclose(
+                        got, _tier_dense(tier, s, layer), rtol=tol, atol=tol)
         # one call over every session: one launch a shard
         seqs = sorted(tier.sessions)
         shards = len({tier.sessions[s].node for s in seqs})

@@ -293,7 +293,7 @@ def test_paged_length_zero_documented_disagreement():
 
 @pytest.mark.parametrize("bad", ["device", "dtype_mix", "index_dtype",
                                  "group_width", "group_17", "head_dim",
-                                 "bf16_row"])
+                                 "bf16_row", "float64", "float16"])
 def test_paged_kernel_raises_on_what_it_does_not_take(bad):
     q = torch.zeros(2, 4, 16)
     kv = torch.zeros(4, 8, 2, 2, 16)
@@ -312,14 +312,18 @@ def test_paged_kernel_raises_on_what_it_does_not_take(bad):
     elif bad == "bf16_row":                     # 8-byte bf16 rows
         q, kv = torch.zeros(2, 2, 4).bfloat16(), \
             torch.zeros(4, 4, 2, 2, 4).bfloat16()
+    elif bad in ("float64", "float16"):
+        q, kv = q.to(getattr(torch, bad)), kv.to(getattr(torch, bad))
     if bad == "device":
         with pytest.raises(ValueError, match="not a CUDA device"):
             paged_kernel.paged_attention_kernel(q, kv, bt, ln)
         return
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-        with pytest.raises((ValueError, TypeError)):
+        with pytest.raises((ValueError, TypeError)) as err:
             paged_kernel.check_kernel_inputs(q, kv, bt, ln)
+    if bad in ("float64", "float16"):
+        assert "(float32, bfloat16)" in str(err.value)
 
 
 @pytest.mark.parametrize("B,KH,max_pages", [(4, 8, 9), (1, 1, 200), (64, 8, 3),

@@ -148,6 +148,34 @@ def test_op_sequence_matches_jax_bf16_pool(name):
     assert port.stats["offloads"] > 0
 
 
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_op_sequence_matches_jax_bf16_pool_by_name(name):
+    """Every scenario at a bf16 pool given as the JAX package gives it
+    (ml_dtypes' bfloat16, taken by its name): the same tables and stats,
+    and slabs as ``np.uint16`` bits of the JAX slab."""
+    hbm, ops = SCENARIOS[name]
+    ops = [o for o in ops if o[0] != "attend"]
+    port = _compare(JaxPagedKVCache(hbm_pages=hbm, dtype=jnp.bfloat16, **GEOM),
+                    PagedKVCache(hbm_pages=hbm, dtype=jnp.bfloat16,
+                                 device="cpu", **GEOM), ops)
+    assert port.kv.dtype == torch.bfloat16
+    assert port.host_dtype == np.uint16
+    assert port.slab_nbytes == 2 * 4 * 2 * 2 * 4 * 2
+    for s in port.active_sequences():
+        for slab in port.sequence_slabs(s):
+            assert slab.dtype == port.host_dtype
+    if name in ("offload_and_restore", "noncontiguous_pages_after_evict_restore"):
+        assert port.stats["offloads"] > 0 and port.stats["fetches"] > 0
+
+
+@pytest.mark.parametrize("bad", [np.float64, np.int8, np.float16,
+                                 torch.float64, torch.float16, torch.int32,
+                                 "float8"])
+def test_pool_refuses_dtypes_it_does_not_hold(bad):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        PagedKVCache(hbm_pages=2, dtype=bad, device="cpu", **GEOM)
+
+
 def test_restored_pages_keep_their_bytes():
     kv = PagedKVCache(hbm_pages=6, device="cpu", **GEOM)
     rng = np.random.default_rng(2)

@@ -117,3 +117,17 @@ def test_meta_stays_inside_the_specs():
             torch.Generator().manual_seed(0))
         assert count_params(small) == sum(
             int(np.prod(t.shape)) for t in _flat(params).values())
+
+
+def test_all_configs_equal_the_reference():
+    """``all_configs`` gives the ten configs, each ``get_config``'s, field
+    for field the JAX package's (``kv_cache_dtype`` included)."""
+    import dataclasses
+
+    from repro.configs import all_configs as jax_all_configs
+    from repro_torch.configs import all_configs
+    got, want = all_configs(), jax_all_configs()
+    assert list(got) == list(want) == ARCH_IDS
+    for arch, cfg in got.items():
+        assert cfg == get_config(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(want[arch]), arch

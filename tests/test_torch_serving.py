@@ -7,8 +7,12 @@ The cross-package tests run one admit/decode/kill/finish script on the JAX
 tier and on the port's tier over inproc clusters and hold them together:
 equal stats, equal block tables, byte-identical slabs at every step, and
 ``attend`` within 2e-5 for every pair of ``impl`` (the JAX kernel runs as
-interpreted Pallas on the CPU, the port's as its plain version).
+interpreted Pallas on the CPU, the port's as its plain version). The same
+script runs at a bf16 pool, where ``attend`` is held within 2e-2 (the JAX
+package's bf16 tolerance) of the JAX tier's and of fp64 dense attention over
+the oracle's K/V.
 """
+import functools
 import os
 import threading
 
@@ -19,6 +23,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro_torch.core import PagedKVCache
+from repro_torch.core.kvcache import host_array, host_to_tensor
 from repro_torch.core import sanitizer as port_sanitizer
 from repro_torch.runtime import rpc as port_rpc
 from repro_torch.runtime.cluster import Cluster, DeadNodeError
@@ -28,6 +33,7 @@ torch.set_num_threads(2)
 
 BACKENDS = ("inproc", "proc")
 ATOL = RTOL = 2e-5
+TOL16 = 2e-2                  # the JAX package's bf16 tolerance
 
 
 @pytest.fixture(autouse=True)
@@ -291,14 +297,24 @@ def _dense_attend(tier, seq_id, layer=0):
     (``expected_slabs``) has them, not as the pool holds them."""
     from repro_torch.runtime.serving import token_value
     length = tier.sessions[seq_id].length
-    kv = np.concatenate(tier.expected_slabs(seq_id), axis=1)[layer, :length]
-    k, v = kv[:, 0].astype(np.float64), kv[:, 1].astype(np.float64)
+    kv = _floats(np.concatenate(tier.expected_slabs(seq_id), axis=1)
+                 [layer, :length])
+    k, v = kv[:, 0], kv[:, 1]
     q = np.full((tier.kv_heads, tier.head_dim),
-                token_value(seq_id, length), np.float32).astype(np.float64)
+                _floats(host_array(token_value(seq_id, length), tier.dtype)))
     s = np.einsum("hd,thd->ht", q, k) / np.sqrt(tier.head_dim)
     p = np.exp(s - s.max(axis=1, keepdims=True))
     p /= p.sum(axis=1, keepdims=True)
     return np.einsum("ht,thd->hd", p, v)
+
+
+def _floats(a):
+    """A tier's host-form values as float64: bf16 bits (``np.uint16``), the
+    JAX tier's ml_dtypes bfloat16 or fp32."""
+    a = np.asarray(a)
+    if a.dtype == np.uint16:
+        a = (a.astype(np.uint32) << np.uint32(16)).view(np.float32)
+    return a.astype(np.float64)
 
 
 # -- property: random op interleavings vs unlimited-HBM reference -------------
@@ -427,13 +443,24 @@ def test_rpc_handler_reply_that_is_not_json_is_an_error_reply():
 
 
 def test_tier_refuses_cuda_without_a_card_and_a_pool_not_fp32():
+    """No card: the default device raises. A pool of any dtype but fp32 and
+    bf16 raises a TypeError that names the two."""
     cluster = Cluster(2, node_capacity=1 << 20, page_size=1 << 14)
     try:
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 ServingTier(cluster)
-        with pytest.raises(TypeError, match="fp32"):
-            ServingTier(cluster, dtype=np.float16, device="cpu")
+        for bad in (np.float16, torch.float16, np.float64, np.int8,
+                    torch.float64, "int32"):
+            with pytest.raises(TypeError, match="float32 or bfloat16"):
+                ServingTier(cluster, dtype=bad, device="cpu")
+        for good, host in ((np.float32, np.float32), ("float32", np.float32),
+                           (torch.bfloat16, np.uint16),
+                           ("bfloat16", np.uint16)):
+            tier = ServingTier(cluster, dtype=good, device="cpu")
+            assert tier.host_dtype == host
+            assert tier.slab_nbytes == 2 * 4 * 2 * 2 * 4 * np.dtype(
+                host).itemsize
     finally:
         cluster.shutdown()
 
@@ -490,47 +517,212 @@ def _assert_same_attend(jt, pt, seqs, what, layers=(0,)):
                     err_msg=f"{what}: seq {s} layer {layer} {name}")
 
 
+# one admit / decode / kill / finish script, run on both tiers side by side
+SCRIPT = [
+    ("admit", {1: 6, 2: 9, 3: 3}),
+    ("decode", [1, 2, 3], 5),
+    ("attend",),
+    ("decode", [2], 7),
+    ("kill", 2),
+    ("decode", [1, 2, 3], 3),
+    ("attend",),
+    ("finish", 3),
+    ("admit", {4: 11}),
+    ("decode", [1, 2, 4], 4),
+    ("attend",),
+]
+
+
+def _run_script(jax_pair, port_pair, assert_state, assert_attend):
+    """``SCRIPT`` on both tiers, each step then held by ``assert_state``
+    and, after an attend step, by ``assert_attend`` at every layer."""
+    (jc, jt), (pc, pt) = jax_pair, port_pair
+    layers = range(jt.num_layers)
+    for step, op in enumerate(SCRIPT):
+        what = f"step {step} {op[0]}"
+        for tier, cluster in ((jt, jc), (pt, pc)):
+            if op[0] == "admit":
+                plan = tier.admit(op[1])
+                assert plan.diversions == {}
+            elif op[0] == "decode":
+                tier.decode(op[1], steps=op[2])
+            elif op[0] == "kill":
+                cluster.kill_node(tier.sessions[op[1]].node)
+            elif op[0] == "finish":
+                tier.finish(op[1])
+        live = sorted(pt.sessions)
+        assert sorted(jt.sessions) == live, what
+        if op[0] == "attend":
+            assert_attend(jt, pt, live, what, layers)
+        assert_state(jt, pt, live, what)
+    assert pt.stats["failovers"] >= 1
+
+
 @pytest.mark.parametrize("geom", sorted(GEOMS))
 def test_port_tier_matches_the_jax_tier_step_by_step(geom):
     (jc, jt), (pc, pt) = _pair(geom)
-    layers = range(jt.num_layers)
     try:
-        script = [
-            ("admit", {1: 6, 2: 9, 3: 3}),
-            ("decode", [1, 2, 3], 5),
-            ("attend",),
-            ("decode", [2], 7),
-            ("kill", 2),
-            ("decode", [1, 2, 3], 3),
-            ("attend",),
-            ("finish", 3),
-            ("admit", {4: 11}),
-            ("decode", [1, 2, 4], 4),
-            ("attend",),
-        ]
-        for step, op in enumerate(script):
-            what = f"step {step} {op[0]}"
-            for tier, cluster in ((jt, jc), (pt, pc)):
-                if op[0] == "admit":
-                    plan = tier.admit(op[1])
-                    assert plan.diversions == {}
-                elif op[0] == "decode":
-                    tier.decode(op[1], steps=op[2])
-                elif op[0] == "kill":
-                    cluster.kill_node(tier.sessions[op[1]].node)
-                elif op[0] == "finish":
-                    tier.finish(op[1])
-            live = sorted(pt.sessions)
-            assert sorted(jt.sessions) == live, what
-            if op[0] == "attend":
-                _assert_same_attend(jt, pt, live, what, layers)
-            _assert_same_state(jt, pt, live, what)
-        assert pt.stats["failovers"] >= 1
+        _run_script((jc, jt), (pc, pt), _assert_same_state,
+                    _assert_same_attend)
     finally:
         jt.close()
         pt.close()
         jc.shutdown()
         pc.shutdown()
+
+
+# -- the bf16 tier (the configs' kv_cache_dtype) -------------------------------
+def _geom16(geom):
+    """``GEOMS[geom]`` with the host budget in the same number of slabs at
+    bf16's 2-byte elements, so that every level spills as it does in fp32."""
+    kw = dict(GEOMS[geom])
+    kw["host_budget_bytes"] //= 2
+    return kw
+
+
+def _pair16(geom, backend="inproc"):
+    import jax.numpy as jnp
+    from repro.runtime.cluster import Cluster as JaxCluster
+    from repro.runtime.serving import ServingTier as JaxTier
+    ckw = dict(node_capacity=8 << 20, page_size=1 << 14,
+               replication_factor=1, admission=True)
+    if backend == "proc":
+        ckw["backend"] = "proc"
+    jc, pc = JaxCluster(4, **ckw), Cluster(4, **ckw)
+    # the same dtype object to both: the port takes ml_dtypes' bfloat16 by
+    # its name
+    tkw = dict(_geom16(geom), dtype=jnp.bfloat16)
+    return (jc, JaxTier(jc, **tkw)), (pc, ServingTier(pc, device="cpu",
+                                                      **tkw))
+
+
+def _shard_stats(tier):
+    """Each shard's pager counters and its level-2 puts: driven by Eq. 1
+    alone, so the two packages give the same. (Level-3 counts depend on
+    when a transfer worker finishes, in either package.)"""
+    return {node: (dict(sh.cache.stats), sh.store.stats["host_puts"])
+            for node, sh in sorted(tier._shards.items())}
+
+
+def _assert_same_state16(jt, pt, seqs, what):
+    _assert_same_state(jt, pt, seqs, what)
+    assert _shard_stats(jt) == _shard_stats(pt), what
+    for s in seqs:
+        assert jt.verify(s), (what, s)
+        for a in pt.sequence_slabs(s):
+            assert a.dtype == pt.host_dtype, (what, s)
+
+
+def _assert_same_attend16(jt, pt, seqs, what, layers=(0,), held=None):
+    """Each session's ``attend`` at every layer, both impls, both packages:
+    within 2e-2 of the JAX tier's plain version, and of fp64 dense attention
+    where the session's pages fit the pool (a longer one has its own pages
+    evict one another while its table is built, in both packages alike).
+    ``held`` gains the sessions held to the dense answer."""
+    fits = [s for s in seqs
+            if pt._pages_for(pt.sessions[s].length) <= pt.hbm_pages_per_node]
+    if held is not None:
+        held += fits
+    for layer in layers:
+        for s in seqs:
+            outs = {f"jax-{impl}": jt.attend([s], layer, impl=impl)[s]
+                    for impl in ("kernel", "xla")}
+            outs.update({f"port-{impl}": pt.attend([s], layer, impl=impl)[s]
+                         for impl in ("kernel", "xla")})
+            for impl in ("kernel", "xla"):
+                assert outs[f"port-{impl}"].dtype == pt.host_dtype
+                assert outs[f"port-{impl}"].shape == (pt.kv_heads,
+                                                      pt.head_dim)
+            ref = _floats(outs["jax-xla"])
+            for name, out in outs.items():
+                msg = f"{what}: seq {s} layer {layer} {name}"
+                np.testing.assert_allclose(_floats(out), ref, rtol=TOL16,
+                                           atol=TOL16, err_msg=msg)
+                if s in fits:
+                    np.testing.assert_allclose(
+                        _floats(out), _dense_attend(pt, s, layer),
+                        rtol=TOL16, atol=TOL16, err_msg=msg)
+
+
+def _settled_spills(pair):
+    """Level-3 spills of every shard once no copy is in flight."""
+    cluster, tier = pair
+    for shard in tier._shards.values():
+        _settle(cluster, shard.store)
+    return sum(sh.store.stats["remote_spills"]
+               for sh in tier._shards.values())
+
+
+@pytest.mark.parametrize("geom", sorted(GEOMS))
+def test_port_tier_matches_the_jax_tier_at_bf16(geom):
+    """The shared script at a bf16 pool: byte-identical slabs (the JAX
+    slab's bits), the oracle's bytes, equal tier and pager stats, every
+    level spilled in both, ``attend`` within 2e-2 of the JAX tier's and of
+    fp64 dense attention."""
+    jax_pair, port_pair = _pair16(geom)
+    (jc, jt), (pc, pt) = jax_pair, port_pair
+    held = []
+    try:
+        assert pt.slab_nbytes == jt.slab_nbytes
+        _run_script(jax_pair, port_pair, _assert_same_state16,
+                    functools.partial(_assert_same_attend16, held=held))
+        assert len(set(held)) >= 2
+        assert _settled_spills(jax_pair) > 0
+        assert _settled_spills(port_pair) > 0
+        assert sum(sh.cache.stats["fetches"]
+                   for sh in pt._shards.values()) > 0
+    finally:
+        jt.close()
+        pt.close()
+        jc.shutdown()
+        pc.shutdown()
+
+
+def test_port_tier_matches_the_jax_tier_at_bf16_on_proc():
+    """The shared script at a bf16 pool over proc clusters: replica blobs
+    and level-3 slabs cross node processes as bytes and come back the same."""
+    jax_pair, port_pair = _pair16("default", backend="proc")
+    (jc, jt), (pc, pt) = jax_pair, port_pair
+    try:
+        _run_script(jax_pair, port_pair, _assert_same_state16,
+                    _assert_same_attend16)
+        assert _settled_spills(port_pair) > 0
+        jt.close()
+        pt.close()
+    finally:
+        jreport, preport = jc.close(), pc.close()
+    assert jreport.ok, jreport
+    assert preport.ok, preport
+    assert port_rpc.pickle_fallbacks() == 0
+
+
+def test_oracle_bits_match_the_jax_package_on_all_997_values():
+    """The oracle's values are k / 997: each rounds to the JAX package's
+    bytes (ml_dtypes' bfloat16), as arrays and as the scalars ``attend``
+    builds its q from."""
+    import jax.numpy as jnp
+    from repro.runtime import serving as jax_serving
+    dtype, jd = "bfloat16", jnp.bfloat16
+    vals = np.arange(997) / 997.0
+    want = vals.astype(jd).view(np.uint16)
+    assert host_array(vals, dtype).view(np.uint16).tobytes() == \
+        want.tobytes()
+    for k in range(997):
+        got = np.full((2,), host_array(float(vals[k]), dtype))
+        assert got.view(np.uint16)[0] == np.full((2,), vals[k], jd).view(
+            np.uint16)[0], k
+    kw = dict(num_layers=2, page_tokens=8, kv_heads=2, head_dim=4)
+    for seq, page, length in ((3, 1, 6), (0, 0, 1), (91, 4, 100),
+                              (996, 200, 1700)):
+        a = expected_page_slab(seq, page, length, dtype=dtype, **kw)
+        b = jax_serving.expected_page_slab(seq, page, length, dtype=jd, **kw)
+        assert a.dtype == np.uint16
+        assert a.tobytes() == b.tobytes()
+    # the pool holds the same bits as the host form: no second rounding
+    t = host_to_tensor(host_array(vals, dtype), dtype)
+    assert str(t.dtype) == f"torch.{dtype}"
+    np.testing.assert_array_equal(t.double().numpy(),
+                                  vals.astype(jd).astype(np.float64))
 
 
 def test_port_tier_matches_the_jax_tier_over_a_batch_attend():
@@ -670,6 +862,35 @@ def _shuffle_parts(cluster, backend, recs, columnar):
     for r in range(8):
         sh.release_reducer(r)
     return parts
+
+
+@pytest.mark.parametrize("case", ["random", "empty", "one_partition", "wide"])
+def test_dispatch_plan_and_partition_crc_match_the_jax_package(case):
+    """``dispatch_plan`` and ``fused_partition_crc`` give the JAX package's
+    answers on the same inputs."""
+    from repro.core.columnar import fused_partition_crc as jax_crc
+    from repro.runtime import cluster as jax_cluster
+    from repro_torch.core.columnar import fused_partition_crc as crc
+    from repro_torch.runtime.cluster import dispatch_plan as plan
+    rng = np.random.default_rng(11)
+    n, parts = {"random": (5000, 8), "empty": (0, 4),
+                "one_partition": (300, 1), "wide": (4000, 300)}[case]
+    ids = rng.integers(0, parts, n)
+    for a, b in zip(plan(ids, parts), jax_cluster.dispatch_plan(ids, parts)):
+        np.testing.assert_array_equal(a, b)
+    keys = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64)
+    cols = {"key": keys, "val": rng.standard_normal(n)}
+    dtype = np.dtype([("key", np.int64), ("val", np.float64)])
+    got, want = crc(keys, cols, dtype, parts), jax_crc(keys, cols, dtype,
+                                                       parts)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for f in a:
+                np.testing.assert_array_equal(a[f], b[f])
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 @pytest.mark.parametrize("columnar", [False, True], ids=["rows", "columnar"])
