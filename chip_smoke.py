@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs its serving path, its
 storage tier, its trainer (every family: dense, recurrent, MoE with MLA,
-the encoder-decoder and the VLM with M-RoPE) and its sharding layer (at
-world size 1; the dry-run of a production cell) on a GPU.
+the encoder-decoder and the VLM with M-RoPE), its sharding layer (at
+world size 1; the dry-run of a production cell) and the repo's examples
+(k-means over the buffer pool among them) on a GPU.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (Hopper,
 ``nvcc`` under ``/usr/local/cuda``): ``python3 chip_smoke.py``.
@@ -305,6 +306,30 @@ non-zero exit):
     and ``param_axes`` (``reckoned_train_args``); a ``dryrun`` line.
     Each phase's process group is taken down before the next; the cluster
     phases' node processes were forked before any group was up.
+29. the repo's entry points on the port (run after phase 25 and before
+    26, so that its proc-backend nodes too are forked before any process
+    group is up): each ``examples/torch_*.py`` loaded by path and its
+    ``main`` called in this process on the card, its printed lines logged
+    after it. k-means over the buffer pool at 10 M points of 10 dims (400
+    MB, norms 40 MB) through a 256 MB pool, 5 iterations: every point
+    assigned; each iteration's seconds split into the pool scan with the
+    host-to-device copy and ``assign_update``'s device ms; the last
+    step's centroids within 1e-5 of an fp64 recomputation from its own
+    assignments, and no assignment more than rounding from the fp64
+    nearest; ``assign_update`` timed against its byte bound beside the
+    host-to-device copy of the same bytes. The cluster quickstart's
+    counts and bytes equal to ``CLUSTER_FIGURES``. The serving
+    quickstart's ``attend`` on the paged kernel, exactly one launch a
+    shard on the fp32 route, within 2e-5 of ``"xla"``. serve_paged (smoke
+    glm4-9b, 12 requests): flash in each prefill, exactly a layer a batch
+    on wgmma, no paged launch. The quickstart: 10 training steps of smoke
+    qwen3-0.6b (a flash launch a layer a step, with lse), the checkpoint
+    restored, 5 greedy tokens (one prefill launch a layer). train_100m
+    at 40 steps with ``--simulate-failure``: the crash at step 20, the
+    restart from its checkpoint, exactly one flash launch a layer a step
+    (560), all on the fp32 scalar route with lse. No other kernel on any
+    of these paths; an ``example`` line for each and an ``examples`` line
+    with every path's launches by route.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5
 (flash and paged attention: the qwen3 path), zeroed again just before phase
@@ -343,6 +368,11 @@ dispatch's backward; one plain dgates; no other kernel), and again just
 before phase 24's and phase 25's training runs and read just after each
 (flash: 2 launches a self-attention layer a step, all wgmma with lse, the
 encoder's 2 x 24 a step non-causal; 1152 and 48; no other kernel), and
+again just before each example of phase 29 and read just after it
+(k-means and the cluster quickstart: no kernel; the serving quickstart:
+paged, one a shard of its ``attend("kernel")``, fp32; serve_paged: flash 8,
+wgmma; the quickstart: flash 22, wgmma, 20 with lse; train_100m: flash
+560, scalar, all with lse), and
 again just before phase 26's run and read just after it (flash: exactly 2
 a layer a step, 168, all wgmma with lse; no other kernel), and again just
 before phase 27's sharded loss and read just after it (a layer: one flash
@@ -365,7 +395,10 @@ paged shapes (``paged_cases``, ``paged_shape``), with another checkout's
 ``repro_torch`` or with the ring filled by ``cp.async`` only.
 """
 import atexit
+import contextlib
 import gc
+import importlib.util
+import io
 import json
 import os
 import re
@@ -395,7 +428,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.core import BufferPool, PagedKVCache  # noqa: E402
 from repro_torch.core.kvcache import host_array, host_to_tensor  # noqa: E402
 from repro_torch.core.pagelog import fsck  # noqa: E402
@@ -878,6 +911,9 @@ FAMILY_TRAIN_SHAPES = {
     "seamless-m4t-large-v2 encoder": (8, 16, 16, 512, 64, False),
     "qwen2-vl-72b": (4, 64, 8, 512, 128, True),
 }
+# examples/torch_train_100m.py's attention (batch 8 of 128 tokens, 8 heads
+# of 64, causal), computed in fp32: the scalar route with lse under grad
+TRAIN_100M_SHAPE = (8, 8, 8, 128, 128, 64)
 LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}      # relative
 GRAD_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
 
@@ -900,6 +936,63 @@ def naive_fp64(q, k, v, causal, window, q_offset):
     return torch.einsum("bhqk,bhkd->bhqd", p, vr)
 
 
+def flash_lse_case(rng, case, dtype, out_tol=None):
+    """One case of the lse check: each row's lse against the plain version
+    (relative to max(|lse|, 1), within LSE_TOL, +inf on the same rows) and
+    the output bit for bit that of a launch without lse; with ``out_tol``,
+    the output against the plain version's too. Returns (route, the lse's
+    relative error, the output's max abs error or None)."""
+    B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale = \
+        tuple(case) + (0, 1.0)[len(case) - 8:]
+    q = rand(rng, (B, H, Tq, D), dtype) * q_scale
+    k, v = rand(rng, (B, KH, Tk, D), dtype), rand(rng, (B, KH, Tk, D), dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
+    bare = flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    what = f"flash lse {case} {dtype}"
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(out.view(bits), bare.view(bits)):
+        _fail(f"{what}: out with lse differs from out without it")
+    ref_out, ref = attention_ref(q, k, v, return_lse=True, **kw)
+    out_err = None if out_tol is None else close_or_fail(out, ref_out,
+                                                         out_tol, what)
+    if not torch.equal(torch.isinf(lse), torch.isinf(ref)):
+        _fail(f"{what}: +inf rows differ")
+    fin = torch.isfinite(ref)
+    rel = float(((lse[fin] - ref[fin]).abs()
+                 / ref[fin].abs().clamp_min(1.0)).max()) \
+        if fin.any() else 0.0
+    if rel > LSE_TOL[dtype]:
+        _fail(f"{what}: relative error {rel} over {LSE_TOL[dtype]}")
+    return kernel_route(dtype, D), rel, out_err
+
+
+def flash_grad_case(rng, case, dtype):
+    """One case of the gradient check: ``_FlashAttention`` through the
+    kernel forward (one launch with lse), its dq, dk, dv against autograd of
+    fp64 attention within GRAD_TOL. Returns the worst max abs error."""
+    B, H, KH, Tq, Tk, D, causal, window, q_offset, bk = case
+    q = rand(rng, (B, H, Tq, D), dtype)
+    k, v = rand(rng, (B, KH, Tk, D), dtype), rand(rng, (B, KH, Tk, D), dtype)
+    w = rand(rng, (B, H, Tq, D), torch.float32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention.lse_launches
+    out = flash_attention(*leaves, impl="kernel", block_k=bk, **kw)
+    (out.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    if flash_attention.lse_launches != before + 1:
+        _fail(f"flash grads {case} {dtype}: the forward wrote no lse")
+    ref = [t.double().requires_grad_(True) for t in (q, k, v)]
+    (naive_fp64(*ref, **kw) * w.double()).sum().backward()
+    worst = 0.0
+    for t, r, name in zip(leaves, ref, "qkv"):
+        worst = max(worst, close_or_fail(t.grad, r.grad, GRAD_TOL[dtype],
+                                         f"flash d{name} {case} {dtype}"))
+    return worst
+
+
 def check_flash_train(rng):
     """The training path's flash kernel: the rows' lse on both routes
     against the plain version (relative 1e-5 in fp32, 1e-3 in bf16, +inf on
@@ -915,64 +1008,19 @@ def check_flash_train(rng):
         for case in FLASH_CASES + FLASH_EDGE_CASES + [
                 TRAIN_SHAPE + (True, None), (1, 2, 1, 8, 8, 8, True, None, -3,
                                              1.0)]:
-            B, H, KH, Tq, Tk, D, causal, window, q_offset, q_scale = \
-                tuple(case) + (0, 1.0)[len(case) - 8:]
-            q = rand(rng, (B, H, Tq, D), dtype) * q_scale
-            k, v = rand(rng, (B, KH, Tk, D), dtype), rand(rng, (B, KH, Tk, D),
-                                                          dtype)
-            kw = dict(causal=causal, window=window, q_offset=q_offset)
-            out, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
-            bare = flash_attention_kernel(q, k, v, **kw)
-            torch.cuda.synchronize()
-            what = f"flash lse {case} {dtype}"
-            if not torch.equal(out.view(torch.int16 if dtype ==
-                                        torch.bfloat16 else torch.int32),
-                               bare.view(torch.int16 if dtype ==
-                                         torch.bfloat16 else torch.int32)):
-                _fail(f"{what}: out with lse differs from out without it")
-            ref_out, ref = attention_ref(q, k, v, return_lse=True, **kw)
-            if not torch.equal(torch.isinf(lse), torch.isinf(ref)):
-                _fail(f"{what}: +inf rows differ")
-            # relative to max(|lse|, 1)
-            fin = torch.isfinite(ref)
-            rel = float(((lse[fin] - ref[fin]).abs()
-                         / ref[fin].abs().clamp_min(1.0)).max()) \
-                if fin.any() else 0.0
-            if rel > LSE_TOL[dtype]:
-                _fail(f"{what}: relative error {rel} over {LSE_TOL[dtype]}")
-            route = kernel_route(dtype, D)
+            route, rel, _ = flash_lse_case(rng, case, dtype)
             lse_err[f"{route} {dtype}"] = max(
                 lse_err.get(f"{route} {dtype}", 0.0), rel)
     grad_err = {}
     for dtype in (torch.float32, torch.bfloat16):
         for case in FLASH_GRAD_CASES + [TRAIN_SHAPE + (True, None, 0, 128)]:
-            B, H, KH, Tq, Tk, D, causal, window, q_offset, bk = case
-            q = rand(rng, (B, H, Tq, D), dtype)
-            k, v = rand(rng, (B, KH, Tk, D), dtype), rand(rng, (B, KH, Tk, D),
-                                                          dtype)
-            w = rand(rng, (B, H, Tq, D), torch.float32)
-            kw = dict(causal=causal, window=window, q_offset=q_offset)
-            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            before = flash_attention.lse_launches
-            out = flash_attention(*leaves, impl="kernel", block_k=bk, **kw)
-            (out.float() * w).sum().backward()
-            torch.cuda.synchronize()
-            if flash_attention.lse_launches != before + 1:
-                _fail(f"flash grads {case} {dtype}: the forward wrote no lse")
-            ref = [t.double().requires_grad_(True) for t in (q, k, v)]
-            (naive_fp64(*ref, **kw) * w.double()).sum().backward()
-            worst = 0.0
-            for t, r, name in zip(leaves, ref, "qkv"):
-                worst = max(worst, close_or_fail(
-                    t.grad, r.grad, GRAD_TOL[dtype],
-                    f"flash d{name} {case} {dtype}"))
+            worst = flash_grad_case(rng, case, dtype)
             key = {TRAIN_SHAPE: "train shape", **{
                 (b, h, kh, t, t, d): f"{name} train shape"
                 for name, (b, h, kh, t, d, _) in FAMILY_TRAIN_SHAPES.items()
             }}.get(case[:6], "cases")
             grad_err[f"{key} {dtype}"] = max(
                 grad_err.get(f"{key} {dtype}", 0.0), worst)
-            del leaves, ref, out
     names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
     B, H, KH, T, _, D = TRAIN_SHAPE
     times = flash_train_times(rng, B, H, KH, T, D, True)
@@ -983,6 +1031,25 @@ def check_flash_train(rng):
                 **times,
                 families={name: flash_train_times(rng, *shape)
                           for name, shape in FAMILY_TRAIN_SHAPES.items()})
+
+
+def check_flash_train_100m(rng):
+    """train_100m's attention at its own shape and dtype (fp32, the scalar
+    route): the output against the plain version within TOL and each row's
+    lse within LSE_TOL, then ``_FlashAttention``'s dq, dk, dv through the
+    kernel forward against autograd of fp64 attention within GRAD_TOL."""
+    dtype = torch.float32
+    route, rel, out_err = flash_lse_case(rng, TRAIN_100M_SHAPE + (True, None),
+                                         dtype, out_tol=TOL[dtype])
+    if route != "scalar":
+        _fail(f"flash train_100m shape: route {route}, not scalar")
+    grads = flash_grad_case(rng, TRAIN_100M_SHAPE + (True, None, 0, 128),
+                            dtype)
+    return dict(shape="B={} H={} KH={} T={} D={} causal fp32".format(
+                    *TRAIN_100M_SHAPE[:4], TRAIN_100M_SHAPE[5]),
+                route=route, out_max_abs_err=out_err, out_tolerance=TOL[dtype],
+                lse_max_rel_err=rel, lse_tolerance=LSE_TOL[dtype],
+                grads_max_abs_err=grads, grads_tolerance=GRAD_TOL[dtype])
 
 
 def flash_train_times(rng, B, H, KH, T, D, causal):
@@ -1335,7 +1402,12 @@ def paged_cases(slice_inputs):
     one) and a bf16 one, a long bf16 batch at qwen3's geometry (B=32,
     lengths 2048-4096), glm4-9b's group (32 query heads over 2 kv heads)
     and recurrentgemma-9b's (16 over 1 of 256, the ring filled by
-    ``cp.async``) at the same lengths."""
+    ``cp.async``) at the same lengths; and the serving quickstart's geometry
+    (examples/torch_serving_quickstart.py: H = KH = 2, D = 4, pages of 4
+    rows, fp32, where the ring is filled by ``cp.async`` since a TMA box
+    needs 8 rows) on random K/V and q, at the example's lengths and at
+    longer ragged ones, from its own generator."""
+    grng = np.random.default_rng(32)
     return {
         "slice fp32": slice_inputs[torch.float32],
         "slice bf16": slice_inputs[torch.bfloat16],
@@ -1344,6 +1416,10 @@ def paged_cases(slice_inputs):
                                              torch.bfloat16, 42),
         "recurrentgemma group bf16": paged_long_inputs(32, 16, 1, 256, 64,
                                                        torch.bfloat16, 42),
+        "serving quickstart fp32": paged_inputs(grng, 3, 2, 2, 4, 16, 4,
+                                                [22, 18, 20], torch.float32),
+        "serving quickstart long fp32": paged_inputs(
+            grng, 3, 2, 2, 4, 64, 4, [45, 18, 130], torch.float32),
     }
 
 
@@ -1385,7 +1461,8 @@ def paged_shape(q, kv, bt, ln):
     """The paged kernel at one shape: its error against the plain version,
     within TOL and, per sequence, within PAGED_REL_TOL, which the plain
     version with one chunk of keys dropped (the longest sequence's last 32,
-    the smaller chunk of the two routes) must fail; kernel_ms, call_ms,
+    the smaller chunk of the two routes, or all its keys but one if it is
+    shorter) must fail; kernel_ms, call_ms,
     plain_ms, the bound and, as a yardstick that the port never calls,
     dense SDPA on the same K/V already gathered into [B, KH, T, D] with a
     key mask (not the same function: the gather is not timed)."""
@@ -1416,7 +1493,7 @@ def paged_shape(q, kv, bt, ln):
         _fail(f"paged {entry['shape']}: a sequence's relative error "
               f"{entry['rel_err']} over {PAGED_REL_TOL[dtype]}")
     short = ln.copy()             # 32 keys: the fp32 route's chunk, half bf16's
-    short[int(np.argmax(ln))] -= 32
+    short[int(np.argmax(ln))] -= min(32, int(ln.max()) - 1)
     entry["dropped_chunk_rel_err"] = seq_rel_err(paged_attention(
         q, kv, bt_d, torch.as_tensor(short, device=DEV), impl="xla"), ref)
     if entry["dropped_chunk_rel_err"] <= PAGED_REL_TOL[dtype]:
@@ -3751,6 +3828,239 @@ def dryrun_cell(cfg):
                          if l.startswith("OK")], subprocess_s=seconds)
 
 
+
+# -- phase 29: the repo's entry points on the port ---------------------------------
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+# k-means at a data size its users would call real: 10 M points of 10 fp32
+# dims (400 MB) and their norms (40 MB) through a 256 MB pool, so that every
+# iteration's scan reads spilled pages back; the paper's k-means data is
+# larger (§9.2.1), cut here for the script's time limit
+KMEANS_ARGS = ["--points", "10000000", "--pool-mb", "256"]
+KMEANS_TOL = 1e-5
+# the cluster quickstart's counts and bytes, as the port's example gives
+# them on the CPU (tests/test_torch_examples_cluster.py holds its printed
+# lines equal to the JAX example's)
+CLUSTER_FIGURES = dict(
+    shard_records={"0": 49999, "1": 50108, "2": 50220, "3": 49673},
+    groups=5000, shuffle_net_bytes=6400000, joined_rows=60000,
+    join_net_bytes=0, join_reserved_hwm_bytes=361032, columnar_groups=5000,
+    shards_recovered=2, replicas_rebuilt=2, recovery_bytes=3210496,
+    proc_drained_records=200000, orphan_processes=0, leaked_segments=0)
+SERVE_PAGED_BATCHES = 4          # 12 requests in 3 slots
+QUICKSTART_STEPS = 10
+TRAIN_100M_STEPS = 40
+
+
+def load_example(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_main(mod, argv):
+    """``mod.main(argv)`` on the card, in this process so that its launches
+    are counted; the lines it printed are logged after it, prefixed with
+    its name (its JSON line only if it failed). Returns (its dict, its
+    seconds)."""
+    name = os.path.basename(mod.__file__)
+    buf = io.StringIO()
+    done = False
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = mod.main([*argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        done = True
+    finally:
+        lines = buf.getvalue().splitlines()
+        for line in (lines[:-1] if done else lines):
+            log(f"example {name} |", line)
+    return res, time.perf_counter() - t0
+
+
+def check_example_path(path, counted, want, flash_route=None, lse=None):
+    """Exactly ``want`` ({wrapper name: launches}) on the path and no other
+    kernel; every flash launch on ``flash_route``, ``lse`` of them with
+    the rows' lse. Returns the path's launches by route."""
+    got = {fn.__name__: fn.launches for fn in counted if fn.launches}
+    if got != want:
+        _fail(f"{path}: launches {got}, not {want}")
+    routes = {}
+    if flash_attention.launches:
+        routes["flash_attention"] = dict(flash_attention.launches_by_route,
+                                         with_lse=flash_attention.lse_launches)
+        if (flash_attention.launches_by_route[flash_route]
+                != flash_attention.launches
+                or flash_attention.lse_launches != lse):
+            _fail(f"{path}: flash launches {routes['flash_attention']}, not "
+                  f"all on {flash_route} with {lse} writing lse")
+    if paged_attention.launches:
+        routes["paged_attention"] = dict(paged_attention.launches_by_route)
+    return routes
+
+
+def kmeans_example(counted, zero_counts):
+    """k-means over the pool (``examples/torch_kmeans_pangea.py``) at
+    ``KMEANS_ARGS``: no kernel of the port (its products are plain torch,
+    as the reference's are XLA), every point assigned, each iteration
+    split into the pool scan with the host-to-device copy and
+    ``assign_update``'s device ms; the last step's centroids against an
+    fp64 recomputation from its own assignments (``KMEANS_TOL``), its
+    assignments against fp64 distances, and ``assign_update`` timed against
+    its bound."""
+    mod = load_example("torch_kmeans_pangea")
+    update, last = mod.assign_update, {}
+
+    def recording(points, norms, centroids):
+        out = update(points, norms, centroids)
+        last.update(points=points, norms=norms, centroids=centroids, out=out)
+        return out
+
+    mod.assign_update = recording
+    zero_counts()
+    res, seconds = example_main(mod, KMEANS_ARGS)
+    routes = check_example_path("examples/kmeans", counted, {})
+    n = res["points"]
+    if sum(res["cluster_sizes"]) != n or len(res["iters"]) != 5:
+        _fail(f"k-means: sizes {res['cluster_sizes']}, {len(res['iters'])} "
+              f"iterations")
+    pts, norms, c_in = last["points"], last["norms"], last["centroids"]
+    cents, assign = last["out"]
+    if not torch.isfinite(cents).all():
+        _fail("k-means: non-finite centroids")
+    k = cents.shape[0]
+    sums = torch.zeros((k, pts.shape[1]), dtype=torch.float64,
+                       device=DEV).index_add_(0, assign, pts.double())
+    counts = torch.bincount(assign, minlength=k).double()
+    c64 = sums / counts.clamp(min=1)[:, None]
+    err = float((cents.double() - c64).abs().max())
+    if err > KMEANS_TOL:
+        _fail(f"k-means: centroids {err} from fp64 over {KMEANS_TOL}")
+    # the assignments against fp64 distances to the same centroids: a
+    # point may flip only where two centroids are within rounding of it
+    c_in64 = c_in.double()
+    d64 = (norms.double()[:, None] - 2 * pts.double() @ c_in64.T
+           + (c_in64 ** 2).sum(-1)[None, :])
+    best = d64.argmin(dim=1)
+    flips = assign != best
+    n_flips = int(flips.sum())
+    gap = float((d64.gather(1, assign[:, None])
+                 - d64.gather(1, best[:, None]))[flips].max()) \
+        if n_flips else 0.0
+    if gap > 1e-3:
+        _fail(f"k-means: an assignment {gap} farther than the nearest")
+    del d64, best, flips, sums
+    ms = time_ms(lambda: update(pts, norms, c_in))
+    nbytes = (pts.nbytes + norms.nbytes + c_in.nbytes + cents.nbytes
+              + assign.nbytes)
+    flops = 4 * n * k * pts.shape[1] + 4 * n * k
+    b_ms, b_by = bound(nbytes, flops, torch.float32)
+    pinned = torch.empty(pts.numel() + norms.numel(), dtype=torch.float32,
+                         pin_memory=True)
+    h2d_ms = time_ms(lambda: pinned.to(DEV), reps=5)
+    del pinned, last
+    its = res["iters"]
+    return dict(
+        res, routes=routes, seconds=seconds,
+        iter_s_median=float(np.median([i["seconds"] for i in its])),
+        scan_s_median=float(np.median([i["scan_s"] for i in its])),
+        assign_ms_median=float(np.median([i["assign_ms"] for i in its])),
+        assign_ms_timed=ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+        h2d_ms=h2d_ms, centroids_fp64_err=err, tolerance=KMEANS_TOL,
+        assign_flips_fp64=n_flips, assign_flip_max_gap=gap)
+
+
+def examples_phase(counted, zero_counts):
+    """Phase 29: each ``examples/torch_*.py`` through its ``main`` on the
+    card, launch counts zeroed just before each and read just after. One
+    ``example`` line each and an ``examples`` line with the launches by
+    route of every path."""
+    out = {}
+    out["kmeans"] = kmeans_example(counted, zero_counts)
+    free_cache()
+
+    mod = load_example("torch_cluster_quickstart")
+    zero_counts()
+    res, seconds = example_main(mod, [])
+    routes = check_example_path("examples/cluster_quickstart", counted, {})
+    for key, want in CLUSTER_FIGURES.items():
+        if res[key] != want:
+            _fail(f"cluster quickstart: {key} {res[key]}, not {want}")
+    out["cluster_quickstart"] = dict(res, routes=routes, seconds=seconds)
+
+    mod = load_example("torch_serving_quickstart")
+    zero_counts()
+    res, seconds = example_main(mod, [])
+    shards = len(res["attend_shards"])     # one launch a shard
+    routes = check_example_path("examples/serving_quickstart", counted,
+                                {"paged_attention": shards})
+    if paged_attention.launches_by_route["fp32"] != shards:
+        _fail(f"serving quickstart: paged launches "
+              f"{paged_attention.launches_by_route}, not {shards} on fp32")
+    if res["attend_max_abs_err"] > mod.PAGED_TOL or res["failovers"] < 1:
+        _fail(f"serving quickstart: attend {res['attend_max_abs_err']}, "
+              f"{res['failovers']} failovers")
+    out["serving_quickstart"] = dict(res, routes=routes, seconds=seconds)
+    free_cache()
+
+    mod = load_example("torch_serve_paged")
+    cfg = smoke_config("glm4-9b")
+    zero_counts()
+    res, seconds = example_main(mod, [])
+    want = cfg.n_layers * SERVE_PAGED_BATCHES      # prefill only
+    routes = check_example_path("examples/serve_paged", counted,
+                                {"flash_attention": want}, "wgmma", 0)
+    toks = [t for g in res["generated"].values() for t in g]
+    if (res["requests"] != 12 or len(toks) != 96 or res["offloads"] <= 0
+            or not all(0 <= t < cfg.vocab for t in toks)):
+        _fail(f"serve_paged: {res}")
+    out["serve_paged"] = dict(res, routes=routes, seconds=seconds)
+    free_cache()
+
+    mod = load_example("torch_quickstart")
+    cfg = smoke_config("qwen3-0.6b")
+    zero_counts()
+    res, seconds = example_main(mod, [])
+    # a layer a training step (no remat in the smoke config), then the
+    # prefill's one a layer; the decode is plain
+    lse = cfg.n_layers * QUICKSTART_STEPS
+    routes = check_example_path("examples/quickstart", counted,
+                                {"flash_attention": lse + cfg.n_layers},
+                                "wgmma", lse)
+    if (res["restored_step"] != QUICKSTART_STEPS
+            or not np.isfinite(res["losses"]).all()
+            or not all(0 <= t < cfg.vocab for t in res["generated"])):
+        _fail(f"quickstart: {res}")
+    out["quickstart"] = dict(res, routes=routes, seconds=seconds)
+    free_cache()
+
+    mod = load_example("torch_train_100m")
+    cfg = mod.config_100m()
+    zero_counts()
+    res, seconds = example_main(mod, ["--steps", str(TRAIN_100M_STEPS),
+                                      "--simulate-failure"])
+    # fp32 compute, no remat: one flash launch a layer a step, on the
+    # scalar route with lse, over the 20 steps before the crash and the 20
+    # after the restart
+    want = cfg.n_layers * TRAIN_100M_STEPS
+    routes = check_example_path("examples/train_100m", counted,
+                                {"flash_attention": want}, "scalar", want)
+    half = TRAIN_100M_STEPS // 2
+    if (res["crashed_at"] != half or res["restored_from"] != half
+            or res["steps"] != TRAIN_100M_STEPS
+            or len(res["losses"]) != half
+            or not np.isfinite(res["losses"]).all()):
+        _fail(f"train_100m: {res}")
+    out["train_100m"] = dict(res, routes=routes, seconds=seconds)
+    free_cache()
+    for name, rec in out.items():
+        log("example", name, json.dumps(rec))
+    return {name: dict(seconds=rec["seconds"], launches_by_route=rec["routes"])
+            for name, rec in out.items()}
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -3780,6 +4090,9 @@ def main():
     # the training path's checks draw from their own generator, so that the
     # later phases' inputs stay those of the earlier slices
     kernels[0]["train"] = check_flash_train(np.random.default_rng(16))
+    # train_100m's fp32 shape (phase 29's path), from its own generator
+    kernels[0]["train"]["train_100m shape"] = check_flash_train_100m(
+        np.random.default_rng(31))
     log("flash_train", json.dumps(kernels[0]["train"]))
     # MLA's heads (Dv != D) and deepseek-v2-lite-16b's MoE routing, each
     # from its own generator for the same reason
@@ -4314,6 +4627,14 @@ def main():
                  cut=f"{tcfg.n_layers} of {get_config(tcfg.name).n_layers} "
                  f"layers, batch {VLM_TRAIN_BATCH}")
     log("train_vlm", json.dumps(train))
+
+    # phase 29, before the sharding phases: the cluster quickstart forks its
+    # proc-backend nodes before any process group is up
+    examples = examples_phase(counted, zero_counts)
+    free()
+    lap("examples")
+    examples = dict(paths=examples, seconds=phase_s["examples"], card=smi)
+    log("examples", json.dumps(examples))
 
     # the sharding layer: NCCL groups of world size 1, each taken down
     # before the next phase (the cluster phases above forked their nodes

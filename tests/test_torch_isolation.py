@@ -1,6 +1,9 @@
-"""The port stands alone: nothing under src/repro_torch, and not
-chip_smoke.py, imports jax or anything of the JAX package ``repro``."""
+"""The port stands alone: nothing under src/repro_torch, not chip_smoke.py
+and not the port's examples (``examples/torch_*.py``) imports jax or
+anything of the JAX package ``repro``."""
 import ast
+import importlib.util
+import json
 import os
 import shutil
 import subprocess
@@ -16,8 +19,15 @@ PORT = ROOT / "src" / "repro_torch"
 torch.set_num_threads(2)
 
 
+EXAMPLES = ["torch_kmeans_pangea", "torch_cluster_quickstart",
+            "torch_serving_quickstart", "torch_serve_paged",
+            "torch_quickstart", "torch_train_100m"]
+
+
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [p.stem for p in examples] == sorted(EXAMPLES)
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 20
     return files
 
@@ -131,3 +141,44 @@ def test_chip_smoke_alone_fails(tmp_path):
     out = _smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+EXAMPLE_BLOCKED = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
+"""
+
+
+@pytest.mark.parametrize("name,args", [
+    ("torch_kmeans_pangea", ["--points", "20000", "--iters", "2"]),
+    ("torch_serving_quickstart", []),
+    ("torch_serve_paged", ["--requests", "3"]),
+])
+def test_example_runs_with_jax_and_repro_blocked(name, args):
+    """A port example run as a script on the CPU, with any import of jax
+    or of the JAX package raising: rc 0 and a JSON last line."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", EXAMPLE_BLOCKED,
+         str(ROOT / "examples" / f"{name}.py"), *args, "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.splitlines()[-1])["device"] == "cpu"
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_refuses_cuda_it_does_not_have(name):
+    """Without ``--device cpu`` an example asks for CUDA, and raises on a
+    machine without it before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the example would run")
+    spec = importlib.util.spec_from_file_location(
+        f"_isolation_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        mod.main([])
