@@ -13,7 +13,8 @@ re-dispatch of a slow host's pending pages (runtime/ drives it).
 Copy of the JAX package's ``data/pipeline.py`` over the port's own ``core``
 and ``runtime`` (numpy and the standard library; no line of the logic
 changes), so that the port's trainer stages its tokens through the port's
-buffer pool.
+buffer pool. ``BatchLoader``'s wait for each batch is the program span
+``pangea.data.fetch`` (``repro_torch.trace``).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..core.attributes import (AttributeSet, DurabilityType, ReadingPattern,
                                WritingPattern)
 from ..core.buffer_pool import BufferPool
@@ -136,7 +138,9 @@ class BatchLoader:
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         while True:
-            item = q.get()
+            # the consumer's wait for the pool's next batch
+            with trace.span("pangea.data.fetch"):
+                item = q.get()
             if item is stop:
                 break
             yield item

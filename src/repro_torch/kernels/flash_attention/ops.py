@@ -38,7 +38,8 @@ Tk and kv_len themselves, so ``block_q`` / ``block_k`` only shape the
 ``flash_attention.lse_launches`` counts those that also wrote the rows'
 log-sum-exp (the training path's forwards) and
 ``flash_attention.noncausal_launches`` those without the causal mask (the
-enc-dec's encoder).
+enc-dec's encoder). Each call is the program span ``pangea.flash``
+(``repro_torch.trace``).
 
 ``"kernel"`` and ``"xla"`` differ on a row with no live key inside a block
 that is not skipped (a causal row before the first key, ``q_offset < 0``):
@@ -70,6 +71,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ... import trace
 from .. import local_only
 from .kernel import ROUTES, flash_attention_kernel, kernel_route
 from .ref import attention_ref
@@ -101,22 +103,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 for the PV product ("xla" only, as in the reference; the "wgmma"
     kernel route always does).
     """
-    if impl == "naive":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale, q_offset=q_offset)
-    if impl not in ("kernel", "xla"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, impl, causal, window, scale,
-                                     q_offset, block_k, p_bf16)
-    if impl == "kernel":
-        return _kernel_fwd(q, k, v, causal, window, scale, q_offset, False)
-    out, _, _ = _attn_fwd_core(q, k, v, causal, window, scale, q_offset,
-                               block_k, p_bf16)
-    return out
+    with trace.span("pangea.flash"):
+        if impl == "naive":
+            return attention_ref(q, k, v, causal=causal, window=window,
+                                 scale=scale, q_offset=q_offset)
+        if impl not in ("kernel", "xla"):
+            raise ValueError(f"unknown impl {impl!r}")
+        if scale is None:
+            scale = q.shape[-1] ** -0.5
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, impl, causal, window,
+                                         scale, q_offset, block_k, p_bf16)
+        if impl == "kernel":
+            return _kernel_fwd(q, k, v, causal, window, scale, q_offset,
+                               False)
+        out, _, _ = _attn_fwd_core(q, k, v, causal, window, scale, q_offset,
+                                   block_k, p_bf16)
+        return out
 
 
 flash_attention.launches = 0

@@ -34,7 +34,9 @@ those rows' loads together and sums gate * row in fp32 in k order.
 ``impl="kernel"`` takes the plain version only when the tensors lie on the
 CPU. On CUDA tensors it launches the kernel or raises; it never falls back.
 ``dispatch.launches`` and ``combine.launches`` count kernel launches, and
-``dispatch.launches_by_route`` splits dispatch's by route.
+``dispatch.launches_by_route`` splits dispatch's by route. Each call of
+``dispatch`` and ``combine`` is the program span ``pangea.dispatch`` or
+``pangea.combine`` (``repro_torch.trace``).
 
 Training. Under grad (an input that requires it) ``impl="kernel"`` goes
 through ``_Dispatch`` and ``_Combine``, whose backwards are launches of each
@@ -59,6 +61,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ... import trace
 from .. import local_only
 from .kernel import (DISPATCH_ROUTES, combine_kernel, dispatch_kernel,
                      dispatch_route)
@@ -115,13 +118,15 @@ def dispatch(x: torch.Tensor, expert_id: torch.Tensor, slot: torch.Tensor,
 
     impl: "kernel" (CUDA kernel; the oracle on CPU tensors; under grad
     through ``_Dispatch``) or "xla" (the dense one-hot oracle)."""
-    if impl == "kernel":
-        if _needs_grad(x):
-            return _Dispatch.apply(x, expert_id, slot, num_experts, capacity)
-        return _dispatch_fwd(x, expert_id, slot, num_experts, capacity)
-    if impl == "xla":
-        return dispatch_ref(x, expert_id, slot, num_experts, capacity)
-    raise ValueError(f"unknown impl {impl!r}")
+    with trace.span("pangea.dispatch"):
+        if impl == "kernel":
+            if _needs_grad(x):
+                return _Dispatch.apply(x, expert_id, slot, num_experts,
+                                       capacity)
+            return _dispatch_fwd(x, expert_id, slot, num_experts, capacity)
+        if impl == "xla":
+            return dispatch_ref(x, expert_id, slot, num_experts, capacity)
+        raise ValueError(f"unknown impl {impl!r}")
 
 
 dispatch.launches = 0
@@ -156,13 +161,14 @@ def combine(y: torch.Tensor, expert_id: torch.Tensor, slot: torch.Tensor,
     if num_tokens != expert_id.shape[0]:
         raise ValueError(f"combine: num_tokens {num_tokens} but expert_id "
                          f"has {expert_id.shape[0]} rows")
-    if impl == "kernel":
-        if _needs_grad(y, gates):
-            return _Combine.apply(y, expert_id, slot, gates)
-        return _combine_fwd(y, expert_id, slot, gates)
-    if impl == "xla":
-        return combine_ref(y, expert_id, slot, gates)
-    raise ValueError(f"unknown impl {impl!r}")
+    with trace.span("pangea.combine"):
+        if impl == "kernel":
+            if _needs_grad(y, gates):
+                return _Combine.apply(y, expert_id, slot, gates)
+            return _combine_fwd(y, expert_id, slot, gates)
+        if impl == "xla":
+            return combine_ref(y, expert_id, slot, gates)
+        raise ValueError(f"unknown impl {impl!r}")
 
 
 combine.launches = 0

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import trace
 from .._device import DeviceLike, resolve_device
 from ..checkpoint import CheckpointManager
 from ..configs import get_config, smoke_config
@@ -102,26 +103,43 @@ def train_batch(cfg: ArchConfig, batch: Dict[str, np.ndarray], params,
     embeddings of the tokens, gathered from the fp32 master ``params``
     before the step (a new tensor, detached: the step updates the params in
     place), in place of the tokens; for the enc-dec [B, T, d_model] fp32
-    standard-normal frames from ``frames_generator(seed, step)``."""
-    tb = {k: torch.tensor(v, device=device) for k, v in batch.items()}
-    B, T = tb["tokens"].shape
-    if cfg.rope == "mrope":
-        tb["positions"] = torch.arange(
-            T, dtype=torch.int32, device=device).expand(B, 3, T)
-    if cfg.embed_inputs and cfg.family != "encdec":
-        with torch.no_grad():
-            tb["embeds"] = embed(params["embed"], tb.pop("tokens").long())
-    if cfg.family == "encdec":
-        tb["src_embeds"] = torch.randn(
-            (B, T, cfg.d_model), generator=frames_generator(seed, step,
-                                                            device),
-            dtype=torch.float32, device=device)
-    return tb
+    standard-normal frames from ``frames_generator(seed, step)``. The
+    program span ``pangea.data.to_device``."""
+    with trace.span("pangea.data.to_device"):
+        tb = {k: torch.tensor(v, device=device) for k, v in batch.items()}
+        B, T = tb["tokens"].shape
+        if cfg.rope == "mrope":
+            tb["positions"] = torch.arange(
+                T, dtype=torch.int32, device=device).expand(B, 3, T)
+        if cfg.embed_inputs and cfg.family != "encdec":
+            with torch.no_grad():
+                tb["embeds"] = embed(params["embed"],
+                                     tb.pop("tokens").long())
+        if cfg.family == "encdec":
+            tb["src_embeds"] = torch.randn(
+                (B, T, cfg.d_model), generator=frames_generator(seed, step,
+                                                                device),
+                dtype=torch.float32, device=device)
+        return tb
 
 
 def _whole(t: torch.Tensor) -> torch.Tensor:
     """A metric as one tensor (a DTensor's value gathered)."""
     return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _tokens_per_s(step_tokens: int, starts: List[float], ends: List[float],
+                  step_seconds: List[float]) -> float:
+    """Tokens of the steps after the first over the time from the second
+    step's start (its batch's fetch) to the last step's end (its loss on
+    the host): the first step's warm-up and the final checkpoint save are
+    left out, the saves between steps are not. One step: its tokens over
+    its ``step_seconds``; none: 0."""
+    if len(ends) > 1:
+        return step_tokens * (len(ends) - 1) / (ends[-1] - starts[1])
+    if ends:
+        return step_tokens / max(step_seconds[0], 1e-9)
+    return 0.0
 
 
 def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
@@ -183,17 +201,19 @@ def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
     res = TrainLoopResult(losses=[], steps=0, restored_from=restored_from,
                           tokens_per_s=0.0)
     done = int(state.opt.step)
-    t_start = time.time()
-    tokens = 0
+    # each step's start (its batch's fetch) and end (its loss on the host)
+    starts: List[float] = []
+    ends: List[float] = []
 
     def batches() -> Iterable[Dict[str, np.ndarray]]:
         while True:
             for b in BatchLoader(ds, batch_size=batch_size):
                 yield b
 
-    for batch in batches():
-        if done >= steps:
-            break
+    feed = batches()
+    while done < steps:
+        starts.append(time.perf_counter())
+        batch = next(feed)
         with (use_rules(rules, mesh) if mesh is not None
               else contextlib.nullcontext()):
             tb = train_batch(cfg, batch, state.params, done, seed, dev)
@@ -203,11 +223,11 @@ def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
             state, metrics = step_fn(state, tb)
             loss = float(_whole(metrics["loss"]))
             dt = time.time() - t0
+            ends.append(time.perf_counter())
         timer.record(0, dt)
         res.losses.append(loss)
         res.grad_norms.append(float(_whole(metrics["grad_norm"])))
         res.step_seconds.append(dt)
-        tokens += batch_size * seq_len
         done = int(metrics["step"])
         if done % log_every == 0 or done == steps:
             print(f"step {done:5d} loss {loss:.4f} "
@@ -221,7 +241,8 @@ def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
     if mgr:
         mgr.save(done, state, async_=False)
     res.steps = done
-    res.tokens_per_s = tokens / max(time.time() - t_start, 1e-9)
+    res.tokens_per_s = _tokens_per_s(batch_size * seq_len, starts, ends,
+                                     res.step_seconds)
     res.state = state
     return res
 

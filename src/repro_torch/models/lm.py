@@ -46,6 +46,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import trace
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from ..sharding import (carry_rules, constrain, gather_fsdp, get_mesh,
@@ -311,34 +312,36 @@ class LM:
         return pos.expand(B, 3, T)
 
     def _layer_apply(self, p, x, positions, cache=None, pos=None,
-                     prefill: bool = False):
-        """One layer. Returns (x, cache or RWKV6 state, aux): aux is the MoE
+                     prefill: bool = False, layer: Optional[int] = None):
+        """One layer (``layer``: its index, the ``pangea.layer`` span's
+        attr). Returns (x, cache or RWKV6 state, aux): aux is the MoE
         block's load-balance loss, 0.0 for the other families. As in the
         reference, ``prefill`` takes ``blocks.moe_apply`` even under
         ``expert_parallel_shardmap``, which ``forward`` and decode honour."""
-        cfg = self.cfg
-        p = self._fsdp(p, "layers")
-        if cfg.family == "ssm":
-            x, st = blocks.rwkv_apply(p["rwkv"], x, cfg=cfg, state=cache,
-                                      scan_impl=self.scan_impl)
-            return x, st, 0.0
-        if cfg.kv_lora:
-            x, c = blocks.mla_apply(p["attn"], x, cfg=cfg,
-                                    positions=positions, cache=cache,
-                                    pos=pos, attn_impl=self.attn_impl,
-                                    absorbed=self.mla_absorbed)
-        else:
-            x, c = blocks.attn_apply(p["attn"], x, cfg=cfg,
-                                     positions=positions, cache=cache,
-                                     pos=pos, attn_impl=self.attn_impl)
-        if not cfg.n_experts:
-            return blocks.ffn_apply(p["ffn"], x, cfg=cfg), c, 0.0
-        if self._shardmap() and not prefill:
-            x, aux = moe_shardmap_apply(p["moe"], x, cfg=cfg)
-        else:
-            x, aux = blocks.moe_apply(p["moe"], x, cfg=cfg,
-                                      impl=self.moe_impl)
-        return x, c, aux
+        with trace.span("pangea.layer", layer=layer):
+            cfg = self.cfg
+            p = self._fsdp(p, "layers")
+            if cfg.family == "ssm":
+                x, st = blocks.rwkv_apply(p["rwkv"], x, cfg=cfg, state=cache,
+                                          scan_impl=self.scan_impl)
+                return x, st, 0.0
+            if cfg.kv_lora:
+                x, c = blocks.mla_apply(p["attn"], x, cfg=cfg,
+                                        positions=positions, cache=cache,
+                                        pos=pos, attn_impl=self.attn_impl,
+                                        absorbed=self.mla_absorbed)
+            else:
+                x, c = blocks.attn_apply(p["attn"], x, cfg=cfg,
+                                         positions=positions, cache=cache,
+                                         pos=pos, attn_impl=self.attn_impl)
+            if not cfg.n_experts:
+                return blocks.ffn_apply(p["ffn"], x, cfg=cfg), c, 0.0
+            if self._shardmap() and not prefill:
+                x, aux = moe_shardmap_apply(p["moe"], x, cfg=cfg)
+            else:
+                x, aux = blocks.moe_apply(p["moe"], x, cfg=cfg,
+                                          impl=self.moe_impl)
+            return x, c, aux
 
     def _rwkv_layers(self, params, x, states, seq: Optional[str] = "seq"):
         """RWKV6 layers over ``x``, layer i from ``states[i]``. Returns
@@ -346,43 +349,46 @@ class LM:
         new = []
         for i, st in enumerate(states):
             x, st, _ = self._layer_apply(_layer(params["layers"], i), x,
-                                         None, cache=st)
+                                         None, cache=st, layer=i)
             new.append(st)
         return self._logits(params, x, seq), _stack(new)
 
     def _superblock_apply(self, p, x, positions, cache=None, pos=None,
-                          max_len: Optional[int] = None):
-        """One hybrid superblock: each temporal block of ``block_pattern``
+                          max_len: Optional[int] = None,
+                          layer: Optional[int] = None):
+        """One hybrid superblock (``layer``: its index, the
+        ``pangea.layer`` span's attr): each temporal block of ``block_pattern``
         (RG-LRU or local attention), each followed by a GeGLU FFN. With
         ``cache`` (decode), attention caches are updated in place and the
         RG-LRU states come back new. With ``max_len`` (prefill), the RG-LRU
         blocks start from the zero state and the decode caches, attention's
         sized by ``max_len``, come back."""
-        cfg = self.cfg
-        dt = torch_dtype(cfg.kv_cache_dtype)
-        p = self._fsdp(p, "layers")
-        new_cache = {}
-        for i, kind in enumerate(cfg.block_pattern):
-            c = cache[f"t{i}"] if cache is not None else None
-            if kind == "rec":
-                if max_len is not None:
-                    c = blocks.rglru_state_init(cfg, x.shape[0], dt,
-                                                self.device)
-                x, c = blocks.rglru_apply(p[f"t{i}"], x, cfg=cfg, state=c,
-                                          scan_impl=self.scan_impl)
-            else:
-                if max_len is not None:
-                    kv = blocks.attn_prefill_kv(p[f"t{i}"], x, cfg=cfg,
-                                                positions=positions)
-                x, c = blocks.attn_apply(p[f"t{i}"], x, cfg=cfg,
-                                         positions=positions, cache=c,
-                                         pos=pos, attn_impl=self.attn_impl)
-                if max_len is not None:
-                    c = blocks.pack_prefill_cache(cfg, kv, max_len, dt)
-            new_cache[f"t{i}"] = c
-            x = blocks.ffn_apply(p[f"mlp{i}"], x, cfg=cfg, act="gelu")
-        keep = cache is not None or max_len is not None
-        return x, (new_cache if keep else None)
+        with trace.span("pangea.layer", layer=layer):
+            cfg = self.cfg
+            dt = torch_dtype(cfg.kv_cache_dtype)
+            p = self._fsdp(p, "layers")
+            new_cache = {}
+            for i, kind in enumerate(cfg.block_pattern):
+                c = cache[f"t{i}"] if cache is not None else None
+                if kind == "rec":
+                    if max_len is not None:
+                        c = blocks.rglru_state_init(cfg, x.shape[0], dt,
+                                                    self.device)
+                    x, c = blocks.rglru_apply(p[f"t{i}"], x, cfg=cfg, state=c,
+                                              scan_impl=self.scan_impl)
+                else:
+                    if max_len is not None:
+                        kv = blocks.attn_prefill_kv(p[f"t{i}"], x, cfg=cfg,
+                                                    positions=positions)
+                    x, c = blocks.attn_apply(p[f"t{i}"], x, cfg=cfg,
+                                             positions=positions, cache=c,
+                                             pos=pos, attn_impl=self.attn_impl)
+                    if max_len is not None:
+                        c = blocks.pack_prefill_cache(cfg, kv, max_len, dt)
+                new_cache[f"t{i}"] = c
+                x = blocks.ffn_apply(p[f"mlp{i}"], x, cfg=cfg, act="gelu")
+            keep = cache is not None or max_len is not None
+            return x, (new_cache if keep else None)
 
     def _rem_apply(self, params, x, states):
         """The RG-LRU layers left over after the superblocks, layer i from
@@ -415,22 +421,23 @@ class LM:
         remat = train and self.cfg.remat == "layer"
         if self.cfg.family == "hybrid":
             n_super, _ = self._hybrid_split()
-            for lp in _unstack(params["layers"], n_super):
+            for i, lp in enumerate(_unstack(params["layers"], n_super)):
                 if remat:
                     x, _ = checkpoint(carry_rules(self._superblock_apply),
-                                      lp, x,
-                                      positions, use_reentrant=False)
+                                      lp, x, positions, layer=i,
+                                      use_reentrant=False)
                 else:
-                    x, _ = self._superblock_apply(lp, x, positions)
+                    x, _ = self._superblock_apply(lp, x, positions, layer=i)
             x, _ = self._rem_apply(params, x, [None] * len(params["rem"]))
         else:
-            for lp in _unstack(params["layers"], self.cfg.n_layers):
+            for i, lp in enumerate(_unstack(params["layers"],
+                                            self.cfg.n_layers)):
                 if remat:
                     x, _, a = checkpoint(carry_rules(self._layer_apply), lp,
-                                         x, positions,
+                                         x, positions, layer=i,
                                          use_reentrant=False)
                 else:
-                    x, _, a = self._layer_apply(lp, x, positions)
+                    x, _, a = self._layer_apply(lp, x, positions, layer=i)
                 aux = aux + a
         return self._logits(params, x), aux
 
@@ -493,7 +500,7 @@ class LM:
             for j in range(n_super):
                 x, c = self._superblock_apply(
                     _layer(params["layers"], j), x, positions,
-                    cache=_layer(cache["super"], j), pos=pos)
+                    cache=_layer(cache["super"], j), pos=pos, layer=j)
                 new.append(c)
             x, rem = self._rem_apply(params, x, cache["rem"])
             # attention caches were written in place; RG-LRU states restack
@@ -508,7 +515,7 @@ class LM:
         for i in range(self.cfg.n_layers):
             x, _, _ = self._layer_apply(_layer(params["layers"], i), x,
                                         positions, cache=_layer(cache, i),
-                                        pos=pos)
+                                        pos=pos, layer=i)
         return self._logits(params, x, None), cache
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
@@ -530,7 +537,8 @@ class LM:
             caches = []
             for j in range(n_super):
                 x, c = self._superblock_apply(_layer(params["layers"], j), x,
-                                              positions, max_len=max_len or T)
+                                              positions, max_len=max_len or T,
+                                              layer=j)
                 caches.append(c)
             st0 = blocks.rglru_state_init(cfg, x.shape[0],
                                           torch_dtype(cfg.kv_cache_dtype),
@@ -550,7 +558,8 @@ class LM:
             lp = self._fsdp(_layer(params["layers"], i), "layers")
             if cfg.kv_lora:
                 x_in = x
-                x, _, _ = self._layer_apply(lp, x, positions, prefill=True)
+                x, _, _ = self._layer_apply(lp, x, positions, prefill=True,
+                                            layer=i)
                 caches.append(blocks.mla_prefill_cache(
                     lp["attn"], x_in, cfg=cfg, positions=positions,
                     max_len=max_len, dtype=dt, absorbed=self.mla_absorbed))
@@ -558,5 +567,6 @@ class LM:
             kv = blocks.attn_prefill_kv(lp["attn"], x, cfg=cfg,
                                         positions=positions)
             caches.append(blocks.pack_prefill_cache(cfg, kv, max_len, dt))
-            x, _, _ = self._layer_apply(lp, x, positions, prefill=True)
+            x, _, _ = self._layer_apply(lp, x, positions, prefill=True,
+                                        layer=i)
         return self._logits(params, x), _stack(caches)

@@ -8,11 +8,12 @@ and a checkpoint of either restores in the other.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import trace
 from .adamw import AdamWState, _leaves, _unflatten_like, adamw_apply, \
     adamw_init
 
@@ -34,11 +35,19 @@ def leaf_grads(loss: torch.Tensor, leaves: list) -> list:
     gradient of its shape, as ``jax.grad`` gives it zeros: AdamW then still
     decays it. The zeros are one scalar broadcast, so that a 1.25 B-element
     leaf costs no memory for them (a DTensor leaf's are its own shards)."""
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with trace.span("pangea.step.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return [g if g is not None else torch.zeros_like(p, dtype=torch.float32)
             if isinstance(p, DTensor) else torch.zeros(
                 (), dtype=torch.float32, device=p.device).expand(p.shape)
             for g, p in zip(grads, leaves)]
+
+
+def _label_count(batch) -> Optional[int]:
+    """The batch's token count for ``pangea.step``: its labels' (None
+    where it has none)."""
+    labels = batch.get("labels") if isinstance(batch, dict) else None
+    return None if labels is None else labels.numel()
 
 
 def make_train_step(loss_fn: Callable[[Pytree, Any], torch.Tensor], *,
@@ -53,37 +62,46 @@ def make_train_step(loss_fn: Callable[[Pytree, Any], torch.Tensor], *,
     and ``step``, as 0-d tensors. The state passed in is donated, as the
     reference's ``run_training`` jits the step with ``donate_argnums=(0,)``:
     its params and moments are updated in place (``adamw_apply``) and it
-    may not be read as the old state afterwards.
+    may not be read as the old state afterwards. Each call is the program
+    span ``pangea.step`` around ``pangea.step.forward``, ``.backward``,
+    ``.grad_norm`` and ``.update`` (``repro_torch.trace``).
     """
 
     def grads_of(params, batch):
         leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
-        loss = loss_fn(_unflatten_like(params, leaves), batch)
+        with trace.span("pangea.step.forward"):
+            loss = loss_fn(_unflatten_like(params, leaves), batch)
         return loss.detach(), leaf_grads(loss, leaves)
 
     def train_step(state: TrainState, batch) -> tuple:
-        params = state.params
-        if microbatches == 1:
-            loss, grads = grads_of(params, batch)
-        else:
-            n = next(iter(batch.values())).shape[0] // microbatches
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                    for p in _leaves(params)]
-            loss = torch.zeros((), dtype=torch.float32, device=gsum[0].device)
-            for i in range(microbatches):
-                mb = {k: x[i * n:(i + 1) * n] for k, x in batch.items()}
-                l_i, g = grads_of(params, mb)
-                gsum = [a + b.float() for a, b in zip(gsum, g)]
-                loss = loss + l_i.float()
-            grads = [g / microbatches for g in gsum]
-            loss = loss / microbatches
-        grads = list(grads)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in grads))
-        # the update empties the list as it goes (``adamw_apply``)
-        new_params, new_opt = adamw_apply(params, grads, state.opt, lr=lr,
-                                          weight_decay=weight_decay)
-        metrics = {"loss": loss, "grad_norm": gnorm, "step": new_opt.step}
-        return TrainState(new_params, new_opt), metrics
+        with trace.span("pangea.step", tokens=_label_count(batch)):
+            params = state.params
+            if microbatches == 1:
+                loss, grads = grads_of(params, batch)
+            else:
+                n = next(iter(batch.values())).shape[0] // microbatches
+                gsum = [torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                        for p in _leaves(params)]
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=gsum[0].device)
+                for i in range(microbatches):
+                    mb = {k: x[i * n:(i + 1) * n] for k, x in batch.items()}
+                    l_i, g = grads_of(params, mb)
+                    gsum = [a + b.float() for a, b in zip(gsum, g)]
+                    loss = loss + l_i.float()
+                grads = [g / microbatches for g in gsum]
+                loss = loss / microbatches
+            grads = list(grads)
+            with trace.span("pangea.step.grad_norm"):
+                gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                       for g in grads))
+            # the update empties the list as it goes (``adamw_apply``)
+            with trace.span("pangea.step.update"):
+                new_params, new_opt = adamw_apply(
+                    params, grads, state.opt, lr=lr,
+                    weight_decay=weight_decay)
+            metrics = {"loss": loss, "grad_norm": gnorm, "step": new_opt.step}
+            return TrainState(new_params, new_opt), metrics
 
     return train_step

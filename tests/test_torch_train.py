@@ -12,8 +12,10 @@
   rematerialisation the gradients are the same.
 - ``run_training``: the mirrors of ``tests/test_system.py``'s loss-decreases
   and crash-restart tests, and checkpoints that either package's
-  ``run_training`` writes and the other's restores with equal leaves.
+  ``run_training`` writes and the other's restores with equal leaves; its
+  ``tokens_per_s`` over the steps after the first, the final save left out.
 """
+import time
 from contextlib import nullcontext
 
 import jax
@@ -32,7 +34,8 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels.flash_attention.ops import (_attn_bwd_core,
                                                      flash_attention)
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.launch.train import SimulatedFailure, run_training
+from repro_torch.launch.train import (SimulatedFailure, _tokens_per_s,
+                                      run_training)
 from repro_torch.models.lm import tree_map
 from repro_torch.models.model import build_model
 
@@ -202,6 +205,31 @@ def test_train_loss_decreases():
     assert res.steps == 15
     assert all(np.isfinite(l) for l in res.losses)
     assert np.mean(res.losses[-5:]) < np.mean(res.losses[:5])
+
+
+@pytest.mark.parametrize("starts,ends,seconds,want", [
+    ([0.0, 1.0, 2.5], [0.9, 2.0, 3.5], [0.8, 0.9, 0.9], 2 * 64 / 2.5),
+    ([0.0], [0.9], [0.8], 64 / 0.8),
+    ([], [], [], 0.0)], ids=["steps", "one_step", "no_step"])
+def test_tokens_per_s_reads_the_steps_after_the_first(starts, ends, seconds,
+                                                      want):
+    assert _tokens_per_s(64, starts, ends, seconds) == pytest.approx(want)
+
+
+def test_tokens_per_s_leaves_out_the_final_checkpoint(tmp_path,
+                                                      monkeypatch):
+    save = CheckpointManager.save
+
+    def slow_final(self, step, state, async_=False):
+        if not async_:
+            time.sleep(1.0)
+        return save(self, step, state, async_=async_)
+    monkeypatch.setattr(CheckpointManager, "save", slow_final)
+    res = run_training(smoke_config("qwen3-0.6b"), steps=3, batch_size=2,
+                       seq_len=8, ckpt_dir=str(tmp_path), ckpt_every=100,
+                       log_every=100, device="cpu")
+    window = 2 * 2 * 8 / res.tokens_per_s
+    assert sum(res.step_seconds[1:]) <= window < 1.0
 
 
 def test_train_checkpoint_restart(tmp_path):
