@@ -12,7 +12,7 @@ Phases, each raising on failure (nothing is caught, so a failed phase is a
 non-zero exit):
 
 1. the card's name and power limit from ``nvidia-smi``;
-2. build the five CUDA sources from ``src/repro_torch/csrc`` with ``nvcc``,
+2. build the six CUDA sources from ``src/repro_torch/csrc`` with ``nvcc``,
    one process per source, all started together; ``ptxas``' registers and
    spills and, from ``cuobjdump -sass``, the tensor-core instruction counts
    (``HGMMA``, ``HMMA``), the highest register and the local stores of each
@@ -116,7 +116,13 @@ non-zero exit):
    dispatch's forward, of combine as dispatch's backward, of dispatch as
    combine's backward and of the plain dgates, each beside its byte bound,
    its plain version and ``index_add_`` or the gated-mask einsum (a
-   ``moe_train`` line);
+   ``moe_train`` line); then AdamW's kernel at the training cells' largest
+   leaf (deepseek-v2-lite-16b's stacked experts, [4, 64, 2048, 1408] fp32),
+   with fp32 and with bf16 moments: one step bit for bit the plain
+   version's, on the vector route, and the device ms of a launch beside its
+   byte bound, the plain version and the plain in-place update it replaced
+   (an ``adamw`` line); every training path below checks exactly one AdamW
+   launch a leaf a step, all on the vector route;
 4. serve: full-width qwen3-0.6b ``ServeLoop`` answers 8 requests of 512
    prompt tokens and 32 new tokens with a page pool too small to hold them,
    prefill through the flash kernel;
@@ -435,6 +441,8 @@ from repro_torch.core.pagelog import fsck  # noqa: E402
 from repro_torch.core.services import (  # noqa: E402
     canonical_join_sort, join_output_dtype)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.adamw.ops import adamw, bias_corrections  # noqa: E402
+from repro_torch.kernels.adamw.ref import adamw_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_kernel, kernel_route, wgmma_tiles)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -1872,6 +1880,108 @@ def check_diag_bwd(rng):
                                        "plain_ms", "bound_ms", "bound_by")})
 
 
+# the largest leaf of deepseek-v2-lite-16b's 4-layer training state (the
+# benchmark's training cells): the routed experts' stacked w1, [4 layers, 64
+# experts, 2048, 1408], 738 M params
+ADAMW_LEAF = (4, 64, 2048, 1408)
+ADAMW_HYPER = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def check_adamw():
+    """AdamW's kernel (no TPU kernel's counterpart: the JAX package's update
+    is jnp that XLA fuses) at ``ADAMW_LEAF`` in fp32, with fp32 moments and
+    with bf16 ones (qwen2-vl-72b's): one step from the same p, g, m and v
+    against its plain version (``adamw_ref``), bit for bit, on the vector
+    route; then the device ms of a launch, of the plain version and of the
+    plain in-place update the train step ran before the kernel
+    (``adamw_ref`` and three ``copy_``), beside the bound: p, m and v read
+    and written, g read once (28 bytes a parameter with fp32 moments). The
+    rate one ``copy_`` of the fp32 leaf reaches (bytes read and written) is
+    the yardstick of what a read-write stream gets on the card."""
+    gen = torch.Generator(DEV).manual_seed(34)
+    n = int(np.prod(ADAMW_LEAF))
+    h = ADAMW_HYPER
+    args = (h["lr"], h["b1"], h["b2"], h["eps"], h["weight_decay"])
+    served = {}
+    for moments in (torch.float32, torch.bfloat16):
+        p = torch.randn(ADAMW_LEAF, generator=gen, device=DEV)
+        g = torch.randn(ADAMW_LEAF, generator=gen, device=DEV)
+        m = torch.randn(ADAMW_LEAF, generator=gen, device=DEV).mul_(
+            1e-2).to(moments)
+        v = torch.rand(ADAMW_LEAF, generator=gen, device=DEV).mul_(
+            1e-4).to(moments)
+        t = torch.ones((), device=DEV)
+        bias = bias_corrections(t, h["b1"], h["b2"])
+        want = adamw_ref(p, g, m, v, t, *args)
+        on_route = adamw.launches_by_route["vector"]
+        adamw(p, g, m, v, t, bias, **h)
+        torch.cuda.synchronize()
+        if adamw.launches_by_route["vector"] != on_route + 1:
+            _fail(f"adamw at {ADAMW_LEAF}: not one launch on the vector "
+                  f"route ({adamw.launches_by_route})")
+        for name, got, ref in zip("pmv", (p, m, v), want):
+            if not same_bits(got, ref):
+                _fail(f"adamw at {ADAMW_LEAF}, {moments} moments: {name} is "
+                      f"not the plain version's bits ("
+                      f"{int((got.float() != ref.float()).sum())} differ)")
+        del want
+        free_cache()
+
+        def plain_apply():
+            for old, new in zip((p, m, v), adamw_ref(p, g, m, v, t, *args)):
+                old.copy_(new)
+
+        nbytes = n * (2 * p.element_size() + g.element_size()
+                      + 2 * (m.element_size() + v.element_size()))
+        flops = 16 * n
+        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+        ms = time_ms(lambda: adamw(p, g, m, v, t, bias, **h))
+        served[str(moments).replace("torch.", "")] = dict(
+            bits_equal_plain=True, ms=ms,
+            call_ms=time_ms(lambda: adamw(p, g, m, v, t, bias, **h),
+                            spin=False),
+            plain_ms=time_ms(lambda: adamw_ref(p, g, m, v, t, *args),
+                             reps=5),
+            plain_apply_ms=time_ms(plain_apply, reps=5),
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+            bytes_per_s=nbytes / (ms * 1e-3),
+            copy_bytes_per_s=2 * p.numel() * p.element_size() / (time_ms(
+                lambda: g.copy_(p)) * 1e-3),
+            peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del p, g, m, v, t, bias
+        free_cache()
+    top = served["float32"]
+    return dict(name="adamw", route="cuda",
+                source="src/repro_torch/csrc/adamw.cu", replaces=None,
+                replaces_note="no Pallas kernel: the JAX package's "
+                "optim/adamw.py update, jnp that XLA fuses into one pass a "
+                "leaf",
+                shape=f"{list(ADAMW_LEAF)} fp32, fp32 moments (the "
+                f"deepseek-v2-lite-16b training cells' largest leaf)",
+                tolerance="bits", kernel_ms=top["ms"], library_ms=None,
+                served=served,
+                **{k: top[k] for k in ("ms", "call_ms", "plain_ms",
+                                       "plain_apply_ms", "bound_ms",
+                                       "bound_by")})
+
+
+def adamw_leaves(cfg):
+    """The number of param leaves of ``cfg``'s model (none allocated)."""
+    return len(leaves_of(_on_meta(cfg).init(None)))
+
+
+def check_adamw_path(path, n_leaves, steps):
+    """Exactly one AdamW launch a leaf a step on the path (``steps`` steps of
+    ``n_leaves`` leaves since the counts were zeroed), all on the vector
+    route. Returns the launches by route."""
+    want = n_leaves * steps
+    if adamw.launches != want or adamw.launches_by_route["vector"] != want:
+        _fail(f"{path}: adamw launches {adamw.launches} "
+              f"({adamw.launches_by_route}), not {want} ({n_leaves} leaves x "
+              f"{steps} steps) on the vector route")
+    return dict(adamw.launches_by_route)
+
+
 def check_scan_train(rng):
     """The recurrent families' training path through the scans' autograd
     Functions at their training shapes. ``_GLAScan`` at rwkv6-3b's, chunk
@@ -3243,7 +3353,11 @@ def train_profile(cfg, state, batch, plain_bwd=None, kernel_names=None):
                     and pred(e.key)] or [0.0])
 
     fwd = range_ms(lambda k: k == "train/forward")
-    opt = range_ms(lambda k: k == "train/optimizer")
+    # the AdamW kernel is launched through ctypes, outside any aten op, so
+    # the profiler does not charge it to the host range: added by name
+    opt = range_ms(lambda k: k == "train/optimizer") + sum(
+        e.self_device_time_total for e in kernels
+        if "adamw_leaf" in e.key) / 1e3
     parts = {key: range_ms(lambda k, node=node: node in k)
              for key, node in plain_bwd.items()}
     bwd = busy_ms - fwd - opt          # the engine's thread runs it
@@ -3507,11 +3621,13 @@ def train_moe(mcfg, counted):
     L, S = mcfg.n_layers, TRAIN_STEPS
     # a layer a step: flash on the forward and its remat recompute;
     # dispatch and combine there too, and each once as the other's backward
+    leaves = adamw_leaves(mcfg)
     want = {"flash": 2 * L * S, "flash_wgmma": 2 * L * S,
             "flash_lse": 2 * L * S, "dispatch": 3 * L * S,
             "dispatch_walk": 3 * L * S, "combine": 3 * L * S,
             "dispatch_bwd": L * S, "combine_bwd": L * S,
-            "dgates_calls": L * S}
+            "dgates_calls": L * S, "adamw": leaves * S,
+            "adamw_vector": leaves * S}
     got = {"flash": flash_attention.launches,
            "flash_wgmma": flash_attention.launches_by_route["wgmma"],
            "flash_lse": flash_attention.lse_launches,
@@ -3520,7 +3636,9 @@ def train_moe(mcfg, counted):
            "combine": combine.launches,
            "dispatch_bwd": dispatch.bwd_launches,
            "combine_bwd": combine.bwd_launches,
-           "dgates_calls": combine.bwd_calls}
+           "dgates_calls": combine.bwd_calls,
+           "adamw": adamw.launches,
+           "adamw_vector": adamw.launches_by_route["vector"]}
     if got != want:
         _fail(f"{path}: launches {got}, not {want}")
     others = {fn.__name__: fn.launches for fn in counted
@@ -3592,12 +3710,17 @@ def train_family(cfg, counted, batch, sequences, positions=None):
         _fail(f"{path}: {train['params']} params trained, count_params "
               f"{counted_params}")
     n = 2 * (cfg.n_encoder_layers + cfg.n_layers) * TRAIN_STEPS
+    leaves = adamw_leaves(cfg)
     want = {"flash": n, "flash_wgmma": n, "flash_lse": n,
-            "flash_noncausal": 2 * cfg.n_encoder_layers * TRAIN_STEPS}
+            "flash_noncausal": 2 * cfg.n_encoder_layers * TRAIN_STEPS,
+            "adamw": leaves * TRAIN_STEPS,
+            "adamw_vector": leaves * TRAIN_STEPS}
     got = {"flash": flash_attention.launches,
            "flash_wgmma": flash_attention.launches_by_route["wgmma"],
            "flash_lse": flash_attention.lse_launches,
-           "flash_noncausal": flash_attention.noncausal_launches}
+           "flash_noncausal": flash_attention.noncausal_launches,
+           "adamw": adamw.launches,
+           "adamw_vector": adamw.launches_by_route["vector"]}
     if got != want:
         _fail(f"{path}: launches {got}, not {want}")
     others = {fn.__name__: fn.launches for fn in counted
@@ -3684,6 +3807,10 @@ def train_sharded(cfg, phase15, zero_counts, counted):
         if got != dict(flash=want, wgmma=want, lse=want) or others:
             _fail(f"{cfg.name}/train_sharded: flash {got}, not {want} on "
                   f"wgmma with lse; other kernels {others}")
+        # the DTensor leaves' local shards, one launch each a step
+        adamw_routes = check_adamw_path(f"{cfg.name}/train_sharded",
+                                        adamw_leaves(cfg), SHARDED_STEPS)
+        adamw_launches = adamw.launches
         ref = phase15["losses"][:SHARDED_STEPS]
         gaps = [abs(a - b) for a, b in zip(res.losses, ref)]
         if len(res.losses) != SHARDED_STEPS or not all(
@@ -3706,6 +3833,7 @@ def train_sharded(cfg, phase15, zero_counts, counted):
         steps=SHARDED_STEPS, losses=res.losses, phase15_losses=ref,
         max_loss_gap=max(gaps), bit_identical=res.losses == ref,
         launches=got["flash"], routes=routes, ms_per_step=warm_ms,
+        adamw_launches=adamw_launches, adamw_routes=adamw_routes,
         phase15_ms_per_step=phase15["ms_per_step"],
         dtensor_host_ms=warm_ms - phase15["ms_per_step"],
         idle_share=prof["idle_share_unprofiled"],
@@ -4029,6 +4157,8 @@ def examples_phase(counted, zero_counts):
     routes = check_example_path("examples/quickstart", counted,
                                 {"flash_attention": lse + cfg.n_layers},
                                 "wgmma", lse)
+    routes["adamw"] = check_adamw_path("examples/quickstart",
+                                       adamw_leaves(cfg), QUICKSTART_STEPS)
     if (res["restored_step"] != QUICKSTART_STEPS
             or not np.isfinite(res["losses"]).all()
             or not all(0 <= t < cfg.vocab for t in res["generated"])):
@@ -4047,6 +4177,8 @@ def examples_phase(counted, zero_counts):
     want = cfg.n_layers * TRAIN_100M_STEPS
     routes = check_example_path("examples/train_100m", counted,
                                 {"flash_attention": want}, "scalar", want)
+    routes["adamw"] = check_adamw_path("examples/train_100m",
+                                       adamw_leaves(cfg), TRAIN_100M_STEPS)
     half = TRAIN_100M_STEPS // 2
     if (res["crashed_at"] != half or res["restored_from"] != half
             or res["steps"] != TRAIN_100M_STEPS
@@ -4127,6 +4259,9 @@ def main():
     scan_train = check_scan_train(np.random.default_rng(29))
     log("scan_train", json.dumps(scan_train))
     next(k for k in kernels if k["name"] == "gla_scan")["train"] = scan_train
+    kernels.append(check_adamw())
+    log("adamw", json.dumps({k: v for k, v in kernels[-1].items()
+                             if k in ("shape", "served")}))
     lap("kernels")
     flash_build = flash_build_facts()
     log("flash_build", json.dumps(flash_build))
@@ -4185,8 +4320,9 @@ def main():
         for fn in (dispatch, combine):
             fn.bwd_launches = fn.bwd_calls = 0
         for fn in (flash_attention, gla_scan, diag_scan, dispatch,
-                   paged_attention):
+                   paged_attention, adamw):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+        adamw.launches = 0
 
     def free():
         free_cache()
@@ -4215,7 +4351,8 @@ def main():
         _fail(f"paged_attention: {paged_attention.launches} launches on the "
               f"{cfg.name} path, not {3 * cfg.n_layers}")
     launches = {"flash_attention": {cfg.name: flash_attention.launches},
-                "paged_attention": {cfg.name: paged_attention.launches}}
+                "paged_attention": {cfg.name: paged_attention.launches},
+                "adamw": {}}
     flash_routes = {cfg.name: dict(flash_attention.launches_by_route)}
     # phase 14 checkpoints these params and must give these first tokens
     qfirst = profile_steps(loop, prompts)
@@ -4353,6 +4490,9 @@ def main():
     zero_counts()
     train_res, train = train_run(cfg)
     path = f"{cfg.name}/train"
+    train["adamw_routes"] = check_adamw_path(path, adamw_leaves(cfg),
+                                             TRAIN_STEPS)
+    launches["adamw"][path] = adamw.launches
     want = 2 * cfg.n_layers * TRAIN_STEPS      # each forward and its remat
     if (flash_attention.launches != want
             or flash_attention.launches_by_route["wgmma"] != want
@@ -4479,6 +4619,9 @@ def main():
     zero_counts()
     train_res, train = train_run(rcfg)
     path = f"{rcfg.name}/train"
+    train["adamw_routes"] = check_adamw_path(path, adamw_leaves(rcfg),
+                                             TRAIN_STEPS)
+    launches["adamw"][path] = adamw.launches
     want = 2 * rcfg.n_layers * TRAIN_STEPS      # each forward and its remat
     if (gla_scan.launches != want or gla_scan.launches_by_route["fma"] != want
             or gla_scan.bwd_calls != rcfg.n_layers * TRAIN_STEPS):
@@ -4542,6 +4685,9 @@ def main():
     zero_counts()
     train_res, train = train_run(hcfg, batch=hbatch, sequences=4 * hbatch)
     path = f"{hcfg.name}/train"
+    train["adamw_routes"] = check_adamw_path(path, adamw_leaves(hcfg),
+                                             TRAIN_STEPS)
+    launches["adamw"][path] = adamw.launches
     # the superblock's scans run twice (the forward and its remat), the rem
     # layers' once; one backward launch each; flash twice a superblock
     want = {"diag": (2 * rec_super + n_rem) * TRAIN_STEPS,
@@ -4592,7 +4738,7 @@ def main():
     zero_counts()
     train = train_moe(mcfg, counted)
     for name, key in (("flash_attention", "flash"), ("dispatch", "dispatch"),
-                      ("combine", "combine")):
+                      ("combine", "combine"), ("adamw", "adamw")):
         launches[name][path] = train["launches"][key]
     flash_routes[path] = train["routes"]["flash_attention"]
     shuffle_routes[path] = train["routes"]["dispatch"]
@@ -4607,6 +4753,7 @@ def main():
     zero_counts()
     train = train_family(scfg, counted, TRAIN_BATCH, TRAIN_SEQUENCES)
     launches["flash_attention"][path] = train["launches"]["flash"]
+    launches["adamw"][path] = train["launches"]["adamw"]
     flash_routes[path] = train["routes"]
     lap(path)
     train.update(seconds=phase_s[path], card=smi)
@@ -4621,6 +4768,7 @@ def main():
                          positions=grid_positions(VLM_TRAIN_BATCH, 64,
                                                   (16, 16), 192))
     launches["flash_attention"][path] = train["launches"]["flash"]
+    launches["adamw"][path] = train["launches"]["adamw"]
     flash_routes[path] = train["routes"]
     lap(path)
     train.update(seconds=phase_s[path], card=smi,
@@ -4631,6 +4779,9 @@ def main():
     # phase 29, before the sharding phases: the cluster quickstart forks its
     # proc-backend nodes before any process group is up
     examples = examples_phase(counted, zero_counts)
+    for name in ("quickstart", "train_100m"):
+        launches["adamw"][f"examples/{name}"] = sum(
+            examples[name]["launches_by_route"]["adamw"].values())
     free()
     lap("examples")
     examples = dict(paths=examples, seconds=phase_s["examples"], card=smi)
@@ -4642,6 +4793,7 @@ def main():
     path = f"{cfg.name}/train_sharded"
     sharded = train_sharded(cfg, phase15, zero_counts, counted)
     launches["flash_attention"][path] = sharded["launches"]
+    launches["adamw"][path] = sharded["adamw_launches"]
     flash_routes[path] = sharded["routes"]
     free()
     lap(path)

@@ -10,7 +10,10 @@ as the reference's ``run_training`` donates the state to its jitted step
 (``donate_argnums=(0,)``): a 3 B-param fp32 state is 37 GB and its
 gradients 12 GB, so old state, gradients and new state do not fit one
 card together. Moments are kept in ``opt_state_dtype``; the arithmetic
-runs in fp32.
+runs in fp32. A leaf's arithmetic is ``kernels.adamw``'s: ``adamw_update``
+runs its plain version (``adamw_ref``), ``adamw_apply`` its wrapper, which
+on the card is one launch of a hand-written CUDA kernel a leaf with the
+plain version's bits.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..kernels.adamw import adamw, adamw_ref, bias_corrections
 from ..models.lm import torch_dtype, tree_map
 
 Pytree = Any
@@ -50,18 +54,6 @@ def adamw_init(params: Pytree, dtype: str = "float32") -> AdamWState:
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
-def _leaf_update(p, g, m, v, t, lr, b1, b2, eps, weight_decay):
-    """One leaf's new (param, m, v), at step ``t`` (fp32)."""
-    gf = g.float()
-    mf = b1 * m.float() + (1 - b1) * gf
-    vf = b2 * v.float() + (1 - b2) * gf * gf
-    update = (mf / (1.0 - b1 ** t)) / (torch.sqrt(vf / (1.0 - b2 ** t)) + eps)
-    if p.dim() >= 2:  # decay matrices only (standard practice)
-        update = update + weight_decay * p.float()
-    newp = p.float() - lr * update
-    return newp.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
-
-
 @torch.no_grad()
 def adamw_update(params: Pytree, grads: Pytree, state: AdamWState, *,
                  lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
@@ -71,7 +63,7 @@ def adamw_update(params: Pytree, grads: Pytree, state: AdamWState, *,
     new."""
     step = state.step + 1
     t = step.float()
-    out = [_leaf_update(p, g, m, v, t, lr, b1, b2, eps, weight_decay)
+    out = [adamw_ref(p, g, m, v, t, lr, b1, b2, eps, weight_decay)
            for p, g, m, v in zip(_leaves(params), _leaves(grads),
                                  _leaves(state.m), _leaves(state.v))]
     new_p = _unflatten_like(params, [o[0] for o in out])
@@ -88,14 +80,16 @@ def adamw_apply(params: Pytree, grads: list, state: AdamWState, *,
     values, bit for bit) are written into ``params``' and ``state``'s own
     tensors, which are returned with the new step. ``grads`` is a list of
     leaves in the params' leaf order; each entry is set to None once its
-    leaf is updated, so that the gradients are freed as the update goes."""
+    leaf is updated, so that the gradients are freed as the update goes.
+    Each leaf is one call of ``kernels.adamw.adamw`` (on the card one
+    kernel launch), the bias corrections computed once for all of them."""
     step = state.step + 1
     t = step.float()
+    bias = bias_corrections(t, b1, b2)
     for i, (p, m, v) in enumerate(zip(_leaves(params), _leaves(state.m),
                                       _leaves(state.v))):
         g, grads[i] = grads[i], None
-        for old, new in zip((p, m, v), _leaf_update(p, g, m, v, t, lr, b1,
-                                                    b2, eps, weight_decay)):
-            old.copy_(new)
+        adamw(p, g, m, v, t, bias, lr=lr, b1=b1, b2=b2, eps=eps,
+              weight_decay=weight_decay)
         del g
     return params, AdamWState(step=step, m=state.m, v=state.v)

@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.core import PagedKVCache
 from repro_torch.kernels import _build
+from repro_torch.kernels.adamw.ops import adamw
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_kernel, kernel_route, wgmma_tiles)
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -38,6 +39,8 @@ from repro_torch.models import blocks
 from repro_torch.models.lm import tree_map
 from repro_torch.models.model import build_model
 from repro_torch.models.moe_shardmap import moe_shardmap_apply
+from repro_torch.optim import (AdamWState, adamw_apply, adamw_update,
+                               make_train_state, make_train_step)
 
 torch.set_num_threads(2)
 
@@ -1472,3 +1475,97 @@ def test_serving_tier_proc_failover_after_cuda_init(cuda_device):
         report = cluster.close()
     assert report.ok, report
     assert rpc.pickle_fallbacks() == before
+
+
+# AdamW's kernel against the plain adamw_update on the card: each size as a
+# rank-1 and a rank-2 leaf (decay on the second only), 1 and 7 elements
+# (tails alone), 4097 and 4097 * 4099 (over 2**24), each a tail after whole
+# vectors
+ADAMW_SHAPES = {1: ((1,), (1, 1)), 7: ((7,), (7, 1)),
+                4097: ((4097,), (17, 241)),
+                4097 * 4099: ((4097 * 4099,), (4097, 4099))}
+# (param, gradient, moments): the param's or an fp32 (accumulated) gradient
+ADAMW_DTYPES = [("float32", "float32", "float32"),
+                ("float32", "float32", "bfloat16"),
+                ("bfloat16", "bfloat16", "float32"),
+                ("bfloat16", "bfloat16", "bfloat16"),
+                ("bfloat16", "float32", "float32"),
+                ("bfloat16", "float32", "bfloat16")]
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["aligned", "offset", "zero_grad"])
+@pytest.mark.parametrize("size", sorted(ADAMW_SHAPES))
+@pytest.mark.parametrize("rank", [1, 2])
+@pytest.mark.parametrize("dtypes", ADAMW_DTYPES, ids="-".join)
+def test_adamw_kernel_matches_plain_bit_for_bit(dtypes, rank, size, layout,
+                                                cuda_device):
+    """``adamw_apply`` (one kernel launch a leaf) writes the functional
+    ``adamw_update``'s values, bit for bit, into the leaf's own tensors at
+    steps 1, 2 and 3: every dtype the port trains with, rank 1 and 2,
+    tails, a leaf viewed one element past a 16-byte boundary (the scalar
+    route) and a broadcast zero gradient (an unused leaf's)."""
+    pdt, gdt, mdt = (getattr(torch, d) for d in dtypes)
+    shape = ADAMW_SHAPES[size][rank - 1]
+    skew = int(layout == "offset")
+    gen = torch.Generator(device=cuda_device).manual_seed(size + rank)
+
+    def leaf(dt, positive=False):
+        x = torch.randn((size,), generator=gen, device=cuda_device)
+        buf = torch.empty((size + skew,), dtype=dt, device=cuda_device)
+        buf[skew:] = (x.abs() * 1e-2 if positive else x).to(dt)
+        return buf[skew:].view(shape)
+
+    p, m, v = leaf(pdt), leaf(mdt), leaf(mdt, positive=True)
+    step0 = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    params, state = {"w": p}, AdamWState(step0, {"w": m}, {"w": v})
+    plain = ({"w": p.clone()},
+             AdamWState(step0.clone(), {"w": m.clone()}, {"w": v.clone()}))
+    route = "scalar" if layout == "offset" else "vector"
+    for step in (1, 2, 3):
+        g = torch.zeros((), dtype=gdt, device=cuda_device).expand(shape) \
+            if layout == "zero_grad" else leaf(gdt)
+        plain = adamw_update(plain[0], {"w": g}, plain[1], lr=1e-2)
+        on_route = adamw.launches_by_route[route]
+        params, state = adamw_apply(params, [g], state, lr=1e-2)
+        torch.cuda.synchronize()
+        assert adamw.launches_by_route[route] == on_route + 1
+        assert int(state.step) == int(plain[1].step) == step
+        for got, want in ((params["w"], plain[0]["w"]),
+                          (state.m["w"], plain[1].m["w"]),
+                          (state.v["w"], plain[1].v["w"])):
+            assert _same_bits(got, want), (step, int(
+                (got.float() != want.float()).sum()))
+    assert params["w"] is p and state.m["w"] is m and state.v["w"] is v
+
+
+@pytest.mark.cuda
+def test_adamw_deepseek_tree_is_one_vector_launch_a_leaf(cuda_device):
+    """Smoke deepseek-v2-lite-16b's 19 leaves (the 4-layer training cell's
+    tree, at smoke widths): exactly 19 AdamW launches a train step, all on
+    the vector route, and a finite loss that falls."""
+    cfg = smoke_config("deepseek-v2-lite-16b")
+    model = build_model(cfg, device=cuda_device)
+    state = make_train_state(model.init(
+        torch.Generator(device=cuda_device).manual_seed(0)))
+    flat = []
+    tree_map(flat.append, state.params)
+    assert len(flat) == 19
+    step = make_train_step(model.loss, lr=1e-2)
+    rng = np.random.default_rng(0)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (2, 33)),
+                        dtype=torch.int32, device=cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = adamw.launches, adamw.launches_by_route["vector"]
+    losses = []
+    for _ in range(3):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    assert adamw.launches - before[0] == 3 * 19
+    assert adamw.launches_by_route["vector"] - before[1] == 3 * 19
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

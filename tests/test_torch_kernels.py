@@ -20,6 +20,7 @@ from repro.kernels.paged_attention.ops import paged_attention as jax_paged
 from repro.kernels.paged_attention.ref import \
     paged_attention_ref as jax_paged_ref
 from repro_torch.kernels import _build
+from repro_torch.kernels.adamw import kernel as adamw_kernel
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import _pad_to, flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -387,7 +388,8 @@ def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
 
 
 def test_pointer_arguments_are_void_p():
-    for sig in (flash_kernel._SIGNATURES, paged_kernel._SIGNATURES):
+    for sig in (flash_kernel._SIGNATURES, paged_kernel._SIGNATURES,
+                adamw_kernel._SIGNATURES):
         for argtypes, restype in sig.values():
             assert restype is ctypes.c_int
             assert ctypes.c_void_p in argtypes

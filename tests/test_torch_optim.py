@@ -20,6 +20,8 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+from repro_torch.kernels.adamw import adamw, adamw_ref, bias_corrections
+from repro_torch.kernels.adamw import kernel as adamw_kernel
 from repro_torch.optim import (AdamWState, adamw_apply, adamw_init,
                                adamw_update,
                                compress_int8, compressed_allreduce,
@@ -286,6 +288,106 @@ def test_an_unused_leaf_gets_zeros_and_the_reference_bits(moments,
                 (name, key)
     assert not np.array_equal(_np(ts.params["embed"]), p["embed"])
     assert not ts.opt.m["embed"].any() and not ts.opt.v["embed"].any()
+
+
+# -- the update's wrapper (kernels/adamw) on the CPU ----------------------------------
+def _bits(t):
+    return t.detach().reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+@pytest.mark.parametrize("grad", ["dense", "zeros"])
+@pytest.mark.parametrize("shape", [(7,), (6, 5), (2, 3, 4)])
+@pytest.mark.parametrize("dtypes", [("float32", "float32"),
+                                    ("float32", "bfloat16"),
+                                    ("bfloat16", "float32"),
+                                    ("bfloat16", "bfloat16")])
+def test_adamw_wrapper_plain_route_is_the_plain_update(dtypes, shape, grad):
+    """On CPU tensors ``adamw`` writes ``adamw_ref``'s values, bit for bit,
+    into the leaf's own tensors, at steps 1 to 3 (rank 1 and rank >= 2; a
+    broadcast zero gradient as ``leaf_grads`` makes it), and never touches
+    the launch counters."""
+    pdt, mdt = (getattr(torch, d) for d in dtypes)
+    gen = torch.Generator().manual_seed(len(shape))
+    p = torch.randn(shape, generator=gen).to(pdt)
+    m = torch.randn(shape, generator=gen).to(mdt)
+    v = torch.rand(shape, generator=gen).to(mdt)
+    own = (p, m, v)
+    launches = adamw.launches, dict(adamw.launches_by_route)
+    for step in (1, 2, 3):
+        t = torch.tensor(float(step))
+        g = torch.randn(shape, generator=gen).to(pdt) if grad == "dense" \
+            else torch.zeros((), dtype=torch.float32).expand(shape)
+        want = adamw_ref(p, g, m, v, t, 1e-2, 0.9, 0.95, 1e-8, 0.1)
+        adamw(p, g, m, v, t, bias_corrections(t, 0.9, 0.95), lr=1e-2,
+              b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+        for got, ref in zip(own, want):
+            assert got.dtype == ref.dtype and _bits(got) == _bits(ref), step
+    assert (adamw.launches, adamw.launches_by_route) == launches
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_adamw_apply_off_the_card_launches_nothing(device):
+    """Off the card (the CPU, or ``meta`` as the dry-run's step) every leaf
+    takes the plain version: no launch is counted and nothing raises."""
+    grads = [torch.ones(8, 4, device=device), torch.ones(3, device=device)]
+    params = {"w": torch.zeros(8, 4, device=device),
+              "b": torch.zeros(3, device=device)}
+    launches = adamw.launches, dict(adamw.launches_by_route)
+    _, state = adamw_apply(params, grads, adamw_init(params))
+    assert grads == [None, None] and state.step.device.type == device
+    assert (adamw.launches, adamw.launches_by_route) == launches
+
+
+def _leaf(shape=(4, 8), pdt=torch.float32, gdt=None, mdt=torch.float32,
+          vdt=None):
+    return (torch.zeros(shape, dtype=pdt),
+            torch.zeros(shape, dtype=gdt or pdt),
+            torch.zeros(shape, dtype=mdt), torch.zeros(shape, dtype=vdt or mdt))
+
+
+@pytest.mark.parametrize("case,error", [
+    (dict(pdt=torch.float16), TypeError),
+    (dict(pdt=torch.float64), TypeError),
+    (dict(gdt=torch.float16), TypeError),
+    (dict(mdt=torch.float16), TypeError),
+    (dict(mdt=torch.bfloat16, vdt=torch.float32), TypeError),
+    (dict(mdt=torch.int32), TypeError),
+])
+def test_adamw_kernel_refuses_dtypes_it_does_not_take(case, error):
+    """The kernel's argument check, which every CUDA leaf passes before a
+    launch: a param, gradient or moment in another dtype than float32 or
+    bfloat16, or m and v apart, raises (here without a card)."""
+    with pytest.raises(error):
+        adamw_kernel.check_leaf(*_leaf(**case))
+
+
+def test_adamw_kernel_checks_layout_and_route():
+    """Shapes and layouts the kernel refuses, the ones it takes, and the
+    route each takes (by the addresses alone), on CPU tensors."""
+    p, g, m, v = _leaf((4, 8))
+    adamw_kernel.check_leaf(p, g, m, v)
+    assert adamw_kernel.kernel_route(p, g, m, v) == "vector"
+    zeros = torch.zeros((), dtype=torch.float32).expand(4, 8)
+    assert adamw_kernel.is_broadcast(zeros)
+    assert not adamw_kernel.is_broadcast(g)
+    adamw_kernel.check_leaf(p, zeros, m, v)
+    assert adamw_kernel.kernel_route(p, zeros[:, 1:], m, v) == "vector"
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw_kernel.check_leaf(p.t(), g.t(), m.t(), v.t())
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw_kernel.check_leaf(p, torch.zeros(8, 4).t(), m, v)
+    with pytest.raises(ValueError, match="shape|param's"):
+        adamw_kernel.check_leaf(p, torch.zeros(4, 7), m, v)
+    buf = torch.zeros(33)
+    off = buf[1:].view(4, 8)                      # 4 bytes past a boundary
+    adamw_kernel.check_leaf(off, g, m, v)
+    assert adamw_kernel.kernel_route(off, g, m, v) == "scalar"
+    assert adamw_kernel.kernel_route(p, g, m, off) == "scalar"
+    assert adamw_kernel.kernel_route(p, off, m, v) == "scalar"
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw_kernel.adamw_kernel(p, g, m, v, torch.ones(()), torch.ones(()),
+                                  lr=1e-2, b1=0.9, b2=0.95, eps=1e-8,
+                                  weight_decay=0.1)
 
 
 ALLREDUCE = r"""
