@@ -84,14 +84,73 @@ class ArchConfig:
     # --- applicability flags (DESIGN.md §Arch-applicability) ---
     subquadratic: bool = False   # may run long_500k
 
+    # --- settings only the port's own architectures take ---------------
+    # Class attributes, not fields: the ten configs mirrored from the JAX
+    # package keep its fields (and ``asdict``), and read these defaults;
+    # ``PortArchConfig`` makes each a field with the same default.
+    first_dense = 0              # leading dense layers (FFN of d_ff)
+    scoring = "softmax"          # router: softmax | sigmoid (with a bias)
+    n_group = 1                  # expert groups of the router
+    topk_group = 1               # groups a token may pick its experts from
+    routed_scaling = 1.0         # the routed gates' factor
+    bias_speed = 0.0             # gamma of the selection bias's update
+    balance_alpha = 0.0          # the sequence-wise balance loss's alpha
+    yarn_factor = 1.0            # YaRN: rope_scaling.factor (<= 1: plain)
+    yarn_original = 4096         # original_max_position_embeddings
+    yarn_beta_fast = 32.0
+    yarn_beta_slow = 1.0
+    yarn_mscale = 1.0
+    yarn_mscale_all_dim = 0.0
+    experts_held = 0             # routed experts held here (0: all)
+    first_held = 0               # the id of the first held expert
+
     @property
     def resolved_head_dim(self) -> int:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def held(self) -> int:
+        """The routed experts this chip holds (all where none is set)."""
+        return self.experts_held or self.n_experts
+
+    @property
+    def bias_layers(self) -> int:
+        """The expert layers whose router selects with a bias (sigmoid
+        scoring, DeepSeek-V3's): every layer after the leading dense ones,
+        or 0."""
+        if self.scoring != "sigmoid" or not self.n_experts:
+            return 0
+        return self.n_layers - self.first_dense
+
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+_A = ArchConfig
+
+
+@dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An ``ArchConfig`` of an architecture that only the port has, with
+    the port-only settings as fields (their meaning and defaults at
+    ``ArchConfig``)."""
+    first_dense: int = _A.first_dense
+    scoring: str = _A.scoring
+    n_group: int = _A.n_group
+    topk_group: int = _A.topk_group
+    routed_scaling: float = _A.routed_scaling
+    bias_speed: float = _A.bias_speed
+    balance_alpha: float = _A.balance_alpha
+    yarn_factor: float = _A.yarn_factor
+    yarn_original: int = _A.yarn_original
+    yarn_beta_fast: float = _A.yarn_beta_fast
+    yarn_beta_slow: float = _A.yarn_beta_slow
+    yarn_mscale: float = _A.yarn_mscale
+    yarn_mscale_all_dim: float = _A.yarn_mscale_all_dim
+    experts_held: int = _A.experts_held
+    first_held: int = _A.first_held
 
 
 @dataclass(frozen=True)

@@ -77,7 +77,9 @@ def state_to(state: TrainState, device: torch.device) -> TrainState:
     return TrainState(params=tree_map(move, state.params),
                       opt=AdamWState(step=move(opt.step),
                                      m=tree_map(move, opt.m),
-                                     v=tree_map(move, opt.v)))
+                                     v=tree_map(move, opt.v)),
+                      model_state=None if state.model_state is None
+                      else tree_map(move, state.model_state))
 
 
 def frames_generator(seed: int, step: int,
@@ -179,7 +181,7 @@ def run_training(cfg: ArchConfig, *, steps: int = 20, batch_size: int = 8,
         rules = sharding_rules(cfg, mesh)
         params = distribute(params, mesh,
                             param_shardings(model, cfg, mesh, rules))
-    state = make_train_state(params, cfg.opt_state_dtype)
+    state = make_train_state(params, cfg.opt_state_dtype, model.init_state())
     step_fn = make_train_step(model.loss, lr=lr, microbatches=microbatches)
 
     mgr = None

@@ -40,9 +40,11 @@ from ..kernels.shuffle_dispatch.ops import combine, compute_slots, dispatch
 from ..sharding import (constrain, constrain_seq, coordinate, is_sharded,
                         local_call, local_placements, partial_on,
                         sharded_axes)
+from .. import trace
 from .common import (_const, apply_mrope, apply_rope, dense_init, einsum,
                      gelu, gen_device, layer_norm, normal, param_dtype,
-                     rms_norm, sigmoid, silu, softplus)
+                     rms_norm, sigmoid, silu, softplus, yarn_freqs,
+                     yarn_mscale)
 
 
 def _ones(gen: torch.Generator, shape, dtype=None) -> torch.Tensor:
@@ -349,17 +351,25 @@ def pack_prefill_cache(cfg: ArchConfig, kv, max_len: int, dtype):
 # ---------------------------------------------------------------------------
 def mla_init(gen: torch.Generator, cfg: ArchConfig,
              lead: Tuple[int, ...] = (), dtype=None) -> Dict:
-    """The reference's params and layouts: wq [d, H, nope + rope], the
-    latent's down projection w_dkv [d, kv_lora] and its norm kv_norm
-    [kv_lora], the shared rope key's w_kr [d, rope], the up projections
-    w_uk [kv_lora, H, nope] and w_uv [kv_lora, H, v], wo [H, v, d] and the
-    block norm."""
+    """The reference's params and layouts: wq [d, H, nope + rope] (with
+    ``q_lora``: the query's down projection w_dq [d, q_lora], its norm
+    q_norm [q_lora] and up projection w_uq [q_lora, H, nope + rope]
+    instead), the latent's down projection w_dkv [d, kv_lora] and its norm
+    kv_norm [kv_lora], the shared rope key's w_kr [d, rope], the up
+    projections w_uk [kv_lora, H, nope] and w_uv [kv_lora, H, v], wo [H,
+    v, d] and the block norm."""
     d, H = cfg.d_model, cfg.n_heads
     nope, rope_d, vd, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim,
                               cfg.v_head_dim, cfg.kv_lora)
     wt = dtype or torch.float32
-    return {
-        "wq": dense_init(gen, d, (H, nope + rope_d), lead=lead, dtype=wt),
+    if cfg.q_lora:
+        q = {"w_dq": dense_init(gen, d, cfg.q_lora, lead=lead, dtype=wt),
+             "w_uq": dense_init(gen, cfg.q_lora, (H, nope + rope_d),
+                                lead=lead, dtype=wt)}
+    else:
+        q = {"wq": dense_init(gen, d, (H, nope + rope_d), lead=lead,
+                              dtype=wt)}
+    p = dict(q, **{
         "w_dkv": dense_init(gen, d, lora, lead=lead, dtype=wt),
         "w_kr": dense_init(gen, d, rope_d, lead=lead, dtype=wt),
         "w_uk": dense_init(gen, lora, (H, nope), lead=lead, dtype=wt),
@@ -367,22 +377,66 @@ def mla_init(gen: torch.Generator, cfg: ArchConfig,
         "wo": _normal(gen, (*lead, H, vd, d), 1.0 / math.sqrt(H * vd), wt),
         "norm": _norm_init(cfg, d, gen, lead, dtype),
         "kv_norm": _ones(gen, (*lead, lora), dtype),
-    }
+    })
+    if cfg.q_lora:
+        p["q_norm"] = _ones(gen, (*lead, cfg.q_lora), dtype)
+    return p
 
 
 def mla_axes(cfg: ArchConfig) -> Dict:
-    return {"wq": ("embed", "heads", None), "w_dkv": ("embed", "lora"),
-            "w_kr": ("embed", None), "w_uk": ("lora", "heads", None),
-            "w_uv": ("lora", "heads", None), "wo": ("heads", None, "embed"),
-            "norm": _norm_axes(cfg), "kv_norm": (None,)}
+    q = ({"w_dq": ("embed", "lora"), "w_uq": ("lora", "heads", None)}
+         if cfg.q_lora else {"wq": ("embed", "heads", None)})
+    a = dict(q, **{"w_dkv": ("embed", "lora"),
+                   "w_kr": ("embed", None), "w_uk": ("lora", "heads", None),
+                   "w_uv": ("lora", "heads", None),
+                   "wo": ("heads", None, "embed"),
+                   "norm": _norm_axes(cfg), "kv_norm": (None,)})
+    if cfg.q_lora:
+        a["q_norm"] = (None,)
+    return a
+
+
+def mla_rope(cfg: ArchConfig, x, positions):
+    """RoPE of MLA's rope part x [B, T, *, rope]: plain (bit for bit as
+    ``apply_rope``) at ``cfg.yarn_factor`` <= 1, else YaRN's frequencies
+    and its factor mscale(factor, mscale) / mscale(factor, mscale_all_dim)
+    on cos and sin."""
+    f = cfg.yarn_factor
+    if f <= 1:
+        return apply_rope(x, positions, cfg.rope_theta)
+    freqs = yarn_freqs(x.shape[-1], cfg.rope_theta, f, cfg.yarn_original,
+                       cfg.yarn_beta_fast, cfg.yarn_beta_slow, x.device)
+    m = (yarn_mscale(f, cfg.yarn_mscale)
+         / yarn_mscale(f, cfg.yarn_mscale_all_dim))
+    return apply_rope(x, positions, freqs=freqs, mscale=m)
+
+
+def mla_scale(cfg: ArchConfig) -> Optional[float]:
+    """MLA's softmax scale: (nope + rope)^-0.5, times YaRN's
+    mscale(factor, mscale_all_dim)^2 where ``cfg.yarn_factor`` > 1 and
+    ``yarn_mscale_all_dim`` is set; None (the attention's own default,
+    the same value) where plain."""
+    f, m = cfg.yarn_factor, cfg.yarn_mscale_all_dim
+    if f <= 1 or not m:
+        return None
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5 * yarn_mscale(f, m) ** 2
+
+
+def _mla_query(p, h, cfg: ArchConfig):
+    """Queries [B, T, H, nope + rope]: h wq, or with ``q_lora``
+    rms_norm(h w_dq) w_uq (the norm rounded back to h's dtype)."""
+    if not cfg.q_lora:
+        return einsum("btd,dhk->bthk", h, p["wq"])
+    c_q = rms_norm(einsum("btd,dl->btl", h, p["w_dq"]), p["q_norm"])
+    return einsum("btl,lhk->bthk", c_q, p["w_uq"])
 
 
 def _mla_latent(p, h, cfg: ArchConfig, positions):
     """The latent c_kv = rms_norm(h w_dkv) [B, T, kv_lora] (rounded back to
     h's dtype) and the rope key shared by all heads [B, T, 1, rope]."""
     c_kv = rms_norm(einsum("btd,dl->btl", h, p["w_dkv"]), p["kv_norm"])
-    k_rope = apply_rope(einsum("btd,dr->btr", h, p["w_kr"])[:, :, None],
-                        positions, cfg.rope_theta)
+    k_rope = mla_rope(cfg, einsum("btd,dr->btr", h, p["w_kr"])[:, :, None],
+                      positions)
     return c_kv, k_rope
 
 
@@ -406,18 +460,21 @@ def mla_apply(p, x, *, cfg: ArchConfig, positions,
     per-head cache {"k", "v"} by default, attended by ``attention_ref``; with
     ``absorbed`` the compressed {"c_kv", "k_rope"} cache, W_uk folded into
     q, fp32 scores over the latent masked to ``pos + t``, W_uv applied after.
-    The scale is (nope + rope)^-0.5 on both paths, as the reference's.
-    Full mode trains (flash's ``_FlashAttention`` at D = nope + rope, Dv =
+    The scale is (nope + rope)^-0.5 on both paths, as the reference's,
+    times YaRN's mscale^2 where the config scales RoPE (``mla_scale``);
+    ``q_lora`` takes the query through its low-rank path. Full mode
+    trains (flash's ``_FlashAttention`` at D = nope + rope, Dv =
     v_head_dim); the decode modes are serving only."""
     B, T, d = x.shape
     H = cfg.n_heads
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     x = constrain_seq(x)  # seq-parallel residual stream (fsdp_tp_sp only)
     h = apply_norm(cfg, p.get("norm"), x)
-    q = einsum("btd,dhk->bthk", h, p["wq"])             # [B, T, H, nope+rope]
+    q = _mla_query(p, h, cfg)                           # [B, T, H, nope+rope]
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = mla_rope(cfg, q_rope, positions)
     c_kv, k_rope = _mla_latent(p, h, cfg, positions)
+    scale = mla_scale(cfg)
 
     if absorbed and cache is not None:
         cc, ckr = cache["c_kv"], cache["k_rope"]        # [B, Tmax, l], [B, Tmax, r]
@@ -428,7 +485,7 @@ def mla_apply(p, x, *, cfg: ArchConfig, positions,
         q_lat = einsum("bthn,lhn->bthl", q_nope, p["w_uk"])
         s = (einsum("bthl,bsl->bhts", q_lat.float(), cc.float())
              + einsum("bthr,bsr->bhts", q_rope.float(), ckr.float()))
-        s = s * (nope + rope_d) ** -0.5
+        s = s * (scale or (nope + rope_d) ** -0.5)
         live = torch.arange(Tmax, device=x.device)[None, None, None, :] <= (
             int(pos) + torch.arange(T, device=x.device)[None, None, :, None])
         s = torch.where(live, s, torch.full_like(s, -1e30))
@@ -449,13 +506,14 @@ def mla_apply(p, x, *, cfg: ArchConfig, positions,
         cv[:, :, start:start + T] = vh.to(cv.dtype)
         new_cache = cache
         o = attend(attention_ref, qh, ck.to(qh.dtype), cv.to(qh.dtype),
-                   kv_axis="heads", causal=True, q_offset=int(pos))
+                   kv_axis="heads", causal=True, q_offset=int(pos),
+                   scale=scale)
     else:
         # contiguous head-major tensors; Dv != D; the expanded k/v have
         # every head
         o = attend(flash_attention, qh.contiguous(), kh.contiguous(),
                    vh.contiguous(), kv_axis="heads", causal=True,
-                   impl=attn_impl, block_k=cfg.attn_block_k)
+                   impl=attn_impl, block_k=cfg.attn_block_k, scale=scale)
     o = o.transpose(1, 2)                                # [B, T, H, v]
     y = einsum("bthv,hvd->btd", o[..., :vd], p["wo"])
     return x + y, new_cache
@@ -543,14 +601,16 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig,
              lead: Tuple[int, ...] = (), dtype=None) -> Dict:
     """The reference's params and layouts: router [d, E], experts' w1/w3
     [E, d, f] and w2 [E, f, d], the block norm, and (deepseek) the shared
-    experts as one SwiGLU FFN of n_shared_experts * f without its own norm."""
+    experts as one SwiGLU FFN of n_shared_experts * f without its own norm.
+    With an expert share (``cfg.experts_held``) the router keeps its E
+    outputs and the experts' leaves hold the ``cfg.held`` experts here."""
     d, E, f = cfg.d_model, cfg.n_experts, cfg.d_expert
     wt = dtype or torch.float32
     p = {
         "w_router": dense_init(gen, d, E, lead=lead, dtype=wt),
-        "w1": _normal(gen, (*lead, E, d, f), 1.0 / math.sqrt(d), wt),
-        "w3": _normal(gen, (*lead, E, d, f), 1.0 / math.sqrt(d), wt),
-        "w2": _normal(gen, (*lead, E, f, d), 1.0 / math.sqrt(f), wt),
+        "w1": _normal(gen, (*lead, cfg.held, d, f), 1.0 / math.sqrt(d), wt),
+        "w3": _normal(gen, (*lead, cfg.held, d, f), 1.0 / math.sqrt(d), wt),
+        "w2": _normal(gen, (*lead, cfg.held, f, d), 1.0 / math.sqrt(f), wt),
         "norm": _norm_init(cfg, d, gen, lead, dtype),
     }
     if cfg.n_shared_experts:
@@ -663,15 +723,16 @@ def _moe_shuffle(p, h, eid, gates, E: int, C: int):
     return y, kept
 
 
-def _rows_dispatch(h, eid, E: int, C: int):
-    """Slots counted per row, then the B rows flattened to N = B*T tokens
-    with row b's expert ids offset by b*E, so that B*E buffers hold each
-    row's experts. Returns (buffers [B, E, C, d], slots [B, T, K], the
-    kept pairs per (row, expert) in h's dtype)."""
+def _rows_dispatch(h, eid, E: int, C: int, slot=None):
+    """Slots counted per row (or ``slot`` as given), then the B rows
+    flattened to N = B*T tokens with row b's expert ids offset by b*E, so
+    that B*E buffers hold each row's experts. Returns (buffers [B, E, C,
+    d], slots [B, T, K], the kept pairs per (row, expert) in h's dtype)."""
     B, T, K = eid.shape
     d = h.shape[-1]
     N = B * T
-    slot = compute_slots(eid, E, C)
+    if slot is None:
+        slot = compute_slots(eid, E, C)
     flat_slot = slot.reshape(N, K)
     disp = dispatch(h.reshape(N, d), _flat_ids(eid, E), flat_slot, B * E, C,
                     impl="kernel")
@@ -696,6 +757,110 @@ def _rows_combine(eo, eid, slot, gates):
                 slot.reshape(B * T, K), gates.reshape(B * T, K), B * T,
                 impl="kernel")
     return y.reshape(B, T, d)
+
+
+def moe_route_grouped(w_router, h, cfg: ArchConfig, bias):
+    """DeepSeek-V3's router on fp32 scores s = sigmoid(h w_router) [B, T,
+    E]. Selection reads s + ``bias`` [E]: the ``topk_group`` of the
+    ``n_group`` groups whose two best biased scores sum highest, then the
+    top_k experts inside them (every other expert at -inf). The gates are
+    the chosen experts' unbiased s over their sum, times
+    ``routed_scaling``. Returns (s, gates [B, T, K], expert ids [B, T, K]
+    int64)."""
+    scores = torch.sigmoid(einsum("btd,de->bte", h, w_router).float())
+    B, T, E = scores.shape
+    G = cfg.n_group
+    biased = scores.detach() + bias
+    group = biased.view(B, T, G, E // G).topk(2, dim=-1).values.sum(-1)
+    picked = group.topk(cfg.topk_group, dim=-1).indices   # [B, T, groups]
+    live = torch.zeros_like(group, dtype=torch.bool).scatter_(-1, picked, True)
+    live = live[..., None].expand(B, T, G, E // G).reshape(B, T, E)
+    eid = biased.masked_fill(~live, float("-inf")).topk(
+        cfg.top_k, dim=-1).indices
+    w = scores.gather(-1, eid)
+    return scores, w / w.sum(-1, keepdim=True) * cfg.routed_scaling, eid
+
+
+def balance_loss(scores, eid, E: int):
+    """The sequence-wise balance loss of each row, averaged over rows:
+    sum_i f_i P_i with f_i = E / (K T) #{t: i chosen} (a constant) and P_i
+    = mean_t s_i / sum_j s_j, over all E routed-over experts, before
+    capacity (its alpha is the caller's)."""
+    B, T, K = eid.shape
+    chosen = torch.zeros((B, E), dtype=torch.float32, device=eid.device)
+    chosen.scatter_add_(1, eid.reshape(B, T * K),
+                        torch.ones((), device=eid.device).expand(B, T * K))
+    f = chosen * (E / (K * T))
+    P = (scores / scores.sum(-1, keepdim=True)).mean(1)
+    return (f * P).sum(-1).mean()
+
+
+def held_slots(eid, cfg: ArchConfig, C: int):
+    """The expert share's pairs: each pair's held expert id [B, T, K] (its
+    id less ``cfg.first_held``; 0 for a pair whose expert is not held
+    here) and its slot, counted per row over the held experts' pairs
+    (which is their count over all E, pair for pair), C for a pair
+    routed elsewhere, so that dispatch and combine drop it. Also whether
+    each pair's expert is held."""
+    local = eid - cfg.first_held
+    mine = (local >= 0) & (local < cfg.held)
+    slot = compute_slots(torch.where(mine, local, -1), cfg.held, C)
+    slot = torch.where(mine, slot, torch.full_like(slot, C))
+    return torch.where(mine, local, 0), slot, mine
+
+
+def count_share(mine, slot, lid, held: int, C: int) -> None:
+    """The counters of one expert layer's forward (``trace.count``):
+    moe.pairs_held, the pairs routed to held experts; moe.pairs_kept,
+    those under capacity; moe.load_ratio_sum and moe.load_ratio_n, the
+    most-loaded held expert's pairs over the mean held expert's, where the
+    held experts got any."""
+    loads = torch.zeros(held, dtype=torch.float32, device=lid.device)
+    loads.scatter_add_(0, lid.reshape(-1), mine.reshape(-1).float())
+    total = loads.sum()
+    some = total > 0
+    trace.count("moe.pairs_held", total)
+    trace.count("moe.pairs_kept", (slot < C).sum())   # C: routed elsewhere
+    trace.count("moe.load_ratio_sum", torch.where(
+        some, loads.max() / loads.mean().clamp_min(1e-9), 0.0))
+    trace.count("moe.load_ratio_n", some.float())
+
+
+def moe_apply_grouped(p, x, *, cfg: ArchConfig, bias, loads=None,
+                      count: bool = False, layer: Optional[int] = None):
+    """DeepSeek-V3's expert layer over a share of its experts: routed over
+    all E = ``cfg.n_experts`` (``moe_route_grouped`` with the selection
+    ``bias``), the pairs to the ``cfg.held`` experts from
+    ``cfg.first_held`` on dispatched to their buffers [B, held, C, d]
+    (C = ``_capacity``, counted over E) and combined back through the
+    shuffle kernels; pairs to other experts are dropped, as the absent
+    chips' part of the result. The shared expert runs whole. ``loads`` [E]
+    (or None): each expert's selections of this forward are added to it in
+    place, for the bias's update; ``count``: the share's counters
+    (``count_share``). Spans ``pangea.moe.route`` (attr ``layer``) and
+    ``pangea.moe.experts``. Returns (x + y, the balance loss)."""
+    B, T, d = x.shape
+    E = cfg.n_experts
+    C = _capacity(cfg, T)
+    h = apply_norm(cfg, p.get("norm"), x)
+    if is_sharded(h):
+        raise NotImplementedError("the expert share runs on one chip")
+    with trace.span("pangea.moe.route", layer=layer):
+        scores, gates, eid = moe_route_grouped(p["w_router"], h, cfg, bias)
+        aux = balance_loss(scores, eid, E)
+        lid, slot, mine = held_slots(eid, cfg, C)
+        if loads is not None:
+            # index_add_, not bincount: bincount sizes its output on the host
+            ids = eid.reshape(-1)
+            loads.index_add_(0, ids, torch.ones_like(ids, dtype=loads.dtype))
+        if count:
+            count_share(mine, slot, lid, cfg.held, C)
+    with trace.span("pangea.moe.experts"):
+        disp, slot, _ = _rows_dispatch(h, lid, cfg.held, C, slot)
+        y = _rows_combine(_experts(p, disp), lid, slot, gates.to(h.dtype))
+    if cfg.n_shared_experts:
+        y = y + shared_experts(p["shared"], h)
+    return x + y, aux
 
 
 def moe_apply(p, x, *, cfg: ArchConfig, impl: str = "xla"):

@@ -145,15 +145,63 @@ def rope_freqs(head_dim: int, theta: float = 10000.0,
                                          device=device) / head_dim))
 
 
+def yarn_correction_dim(rotations: float, dim: int, theta: float,
+                        original: int) -> float:
+    """The rope dim whose wavelength turns ``rotations`` times over the
+    ``original`` context: d ln(L0 / (2 pi rotations)) / (2 ln theta)."""
+    return (dim * math.log(original / (rotations * 2 * math.pi))
+            / (2 * math.log(theta)))
+
+
+def yarn_range(dim: int, theta: float, original: int, beta_fast: float,
+               beta_slow: float) -> Tuple[int, int]:
+    """YaRN's ramp (low, high): floor of beta_fast's correction dim, at
+    least 0, and ceil of beta_slow's, at most dim - 1."""
+    low = math.floor(yarn_correction_dim(beta_fast, dim, theta, original))
+    high = math.ceil(yarn_correction_dim(beta_slow, dim, theta, original))
+    return max(low, 0), min(high, dim - 1)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """0.1 mscale ln(factor) + 1, or 1 at ``factor`` <= 1."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_freqs(dim: int, theta: float, factor: float, original: int,
+               beta_fast: float, beta_slow: float,
+               device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies [dim/2], as DeepSeek's
+    ``DeepseekV3YarnRotaryEmbedding`` computes them: the plain ones below
+    the ramp's ``low``, the ones divided by ``factor`` from its ``high``
+    on, a linear blend between."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / (theta ** exps)
+    inter = 1.0 / (factor * theta ** exps)
+    low, high = yarn_range(dim, theta, original, beta_fast, beta_slow)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp                          # the extrapolated share
+    return inter * (1 - keep) + extra * keep
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """x: [..., T, H, D]; positions: broadcastable to [..., T]."""
+               theta: float = 10000.0, freqs: Optional[torch.Tensor] = None,
+               mscale: float = 1.0) -> torch.Tensor:
+    """x: [..., T, H, D]; positions: broadcastable to [..., T]. ``freqs``:
+    the D/2 inverse frequencies (default: plain RoPE's of ``theta``);
+    ``mscale``: a factor on cos and sin (YaRN's; 1 leaves them as they
+    are)."""
     D = x.shape[-1]
-    freqs = rope_freqs(D, theta, device=x.device)              # [D/2]
+    if freqs is None:
+        freqs = rope_freqs(D, theta, device=x.device)          # [D/2]
     positions = replicated_like(positions, x)
     angles = positions[..., None].float() * freqs              # [..., T, D/2]
     cos = torch.cos(angles)[..., None, :]                      # [..., T, 1, D/2]
     sin = torch.sin(angles)[..., None, :]
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -69,6 +69,10 @@ class EncDecLM:
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        """No state beside the params (``LM.init_state``'s empty case)."""
+        return {}
+
     def init(self, gen: Optional[torch.Generator],
              dtype: Optional[torch.dtype] = None) -> Pytree:
         """Random params drawn from ``gen`` (on the model's device), with

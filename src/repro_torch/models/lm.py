@@ -36,6 +36,23 @@ activations, and every kernel runs on each rank's shard through
 ``local_map``; a rematerialised layer carries the rules into its
 recompute (``sharding.carry_rules``), which runs on autograd's device
 thread. Outside ``use_rules`` none of this runs.
+
+DeepSeek-V3 (``cfg.first_dense`` leading dense layers, ``cfg.bias_layers``
+expert layers with a selection bias): the leading layers (MLA and a SwiGLU
+FFN of ``d_ff``) are stacked in ``dense_layers``, in front of the stacked
+expert layers in ``layers``, and applied and rematerialised as they are.
+Each expert layer's router selects with a bias [E] that no gradient
+touches. The biases are model state (``init_state``: ``router_bias``
+[expert layers, E], zeros at first, and ``router_loads``, the selections
+counted since the last update), which the train state carries beside the
+params and a checkpoint saves with them (``repro_torch.model_state``). A
+training forward adds its selections to the loads (its remat recompute,
+which is given the same bias, counts nothing) and names
+``update_router_bias`` as the step's update after the optimizer's: each
+bias moves by ``bias_speed`` times sign(mean load - load) and the loads
+are cleared. The loss adds ``balance_alpha`` times the layers'
+sequence-wise balance losses in place of the switch loss. The port trains
+it; serving it is not ported.
 """
 from __future__ import annotations
 
@@ -46,7 +63,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .. import trace
+from .. import model_state, trace
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from ..sharding import (carry_rules, constrain, gather_fsdp, get_mesh,
@@ -155,8 +172,23 @@ class LM:
         self.moe_impl = moe_impl
         self.mla_absorbed = mla_absorbed
         self.device = resolve_device(device)
+        # "train" or "eval" while ``forward`` runs (not in a recompute)
+        self._pass: Optional[str] = None
 
     # ------------------------------------------------------------------ init
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        """The model state that no gradient touches, as it starts: with
+        selection biases, ``router_bias`` [cfg.bias_layers, E] fp32 zeros
+        and ``router_loads`` [cfg.bias_layers, E] int64 zeros; else
+        empty."""
+        shape = (self.cfg.bias_layers, self.cfg.n_experts)
+        if not shape[0]:
+            return {}
+        return {"router_bias": torch.zeros(shape, dtype=torch.float32,
+                                           device=self.device),
+                "router_loads": torch.zeros(shape, dtype=torch.int64,
+                                            device=self.device)}
+
     def init(self, gen: Optional[torch.Generator],
              dtype: Optional[torch.dtype] = None) -> Pytree:
         """Random params drawn from ``gen``, which must live on the model's
@@ -198,6 +230,13 @@ class LM:
                                                          dtype=dtype)}
         else:
             attn_init = blocks.mla_init if cfg.kv_lora else blocks.attn_init
+            if cfg.first_dense:
+                Ld = cfg.first_dense
+                params["dense_layers"] = {
+                    "attn": attn_init(gen, cfg, lead=(Ld,), dtype=dtype),
+                    "ffn": blocks.ffn_init(gen, cfg, lead=(Ld,),
+                                           dtype=dtype)}
+                L -= Ld
             params["layers"] = {"attn": attn_init(gen, cfg, lead=(L,),
                                                   dtype=dtype)}
             if cfg.n_experts:
@@ -233,6 +272,9 @@ class LM:
         else:
             layer = {"attn": (blocks.mla_axes(cfg) if cfg.kv_lora
                               else blocks.attn_axes(cfg))}
+            if cfg.first_dense:
+                axes["dense_layers"] = stack_axes(
+                    {"attn": layer["attn"], "ffn": blocks.ffn_axes(cfg)})
             if cfg.n_experts:
                 layer["moe"] = (moe_shardmap_axes(cfg) if self._shardmap()
                                 else blocks.moe_axes(cfg))
@@ -312,12 +354,16 @@ class LM:
         return pos.expand(B, 3, T)
 
     def _layer_apply(self, p, x, positions, cache=None, pos=None,
-                     prefill: bool = False, layer: Optional[int] = None):
+                     prefill: bool = False, layer: Optional[int] = None,
+                     dense: bool = False, bias=None, loads=None):
         """One layer (``layer``: its index, the ``pangea.layer`` span's
-        attr). Returns (x, cache or RWKV6 state, aux): aux is the MoE
-        block's load-balance loss, 0.0 for the other families. As in the
-        reference, ``prefill`` takes ``blocks.moe_apply`` even under
-        ``expert_parallel_shardmap``, which ``forward`` and decode honour."""
+        attr; ``dense``: one of ``dense_layers``; ``bias`` and ``loads``:
+        an expert layer's selection bias and its loads, which only a
+        forward that is not a recompute adds to). Returns (x, cache or
+        RWKV6 state, aux): aux is the MoE block's load-balance loss, 0.0
+        for the other families. As in the reference, ``prefill`` takes
+        ``blocks.moe_apply`` even under ``expert_parallel_shardmap``, which
+        ``forward`` and decode honour."""
         with trace.span("pangea.layer", layer=layer):
             cfg = self.cfg
             p = self._fsdp(p, "layers")
@@ -334,8 +380,14 @@ class LM:
                 x, c = blocks.attn_apply(p["attn"], x, cfg=cfg,
                                          positions=positions, cache=cache,
                                          pos=pos, attn_impl=self.attn_impl)
-            if not cfg.n_experts:
+            if dense or not cfg.n_experts:
                 return blocks.ffn_apply(p["ffn"], x, cfg=cfg), c, 0.0
+            if cfg.bias_layers:
+                x, aux = blocks.moe_apply_grouped(
+                    p["moe"], x, cfg=cfg, bias=bias,
+                    loads=loads if self._pass == "train" else None,
+                    count=self._pass is not None, layer=layer)
+                return x, c, aux
             if self._shardmap() and not prefill:
                 x, aux = moe_shardmap_apply(p["moe"], x, cfg=cfg)
             else:
@@ -411,9 +463,35 @@ class LM:
         logits = blocks.project(x, params["unembed"], "btd,dv->btv", "vocab")
         return constrain(logits, ("batch", seq, "vocab"))
 
-    def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward. Returns (logits, aux_loss)."""
+    def _model_state(self, state):
+        """The model state a forward reads: ``state``, else the open train
+        step's (``model_state.current()``, whose update after the
+        optimizer's this forward names), completed from ``init_state``;
+        None for a model without state."""
+        if not self.cfg.bias_layers:
+            return None
+        step = model_state.current()
+        if state is None:
+            if step is None:
+                raise ValueError(
+                    f"{self.cfg.name}: the routers' selection biases are "
+                    "model state: pass the forward its state (init_state) "
+                    "or run it in a train step")
+            state = step.tree
+        if "router_bias" not in state:
+            state.update(self.init_state())
+        if step is not None and step.tree is state:
+            step.after_update("router_bias", self.update_router_bias)
+        return state
+
+    def forward(self, params, batch, state=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward. Returns (logits, aux_loss). ``state``:
+        the model state (``init_state``) of a model that has one, where no
+        train step gives it (a training forward adds its selections to the
+        loads)."""
         train = _requires_grad(params)
+        state = self._model_state(state)
         params = self._compute_cast(params)
         x = self._embed(params, batch)
         positions = self._positions(batch, x.shape[1])
@@ -430,29 +508,66 @@ class LM:
                     x, _ = self._superblock_apply(lp, x, positions, layer=i)
             x, _ = self._rem_apply(params, x, [None] * len(params["rem"]))
         else:
-            for i, lp in enumerate(_unstack(params["layers"],
-                                            self.cfg.n_layers)):
-                if remat:
-                    x, _, a = checkpoint(carry_rules(self._layer_apply), lp,
-                                         x, positions, layer=i,
-                                         use_reentrant=False)
-                else:
-                    x, _, a = self._layer_apply(lp, x, positions, layer=i)
-                aux = aux + a
+            Ld = self.cfg.first_dense
+            stacks = [(params["dense_layers"], Ld, True)] if Ld else []
+            stacks.append((params["layers"], self.cfg.n_layers - Ld, False))
+            layers = [(lp, dense) for tree, n, dense in stacks
+                      for lp in _unstack(tree, n)]
+            self._pass = "train" if train else "eval"
+            try:
+                for i, (lp, dense) in enumerate(layers):
+                    kw = dict(layer=i, dense=dense)
+                    if state is not None and not dense:
+                        j = i - Ld
+                        kw.update(bias=state["router_bias"][j],
+                                  loads=state["router_loads"][j])
+                    if remat:
+                        x, _, a = checkpoint(
+                            carry_rules(self._layer_apply), lp, x, positions,
+                            use_reentrant=False, **kw)
+                    else:
+                        x, _, a = self._layer_apply(lp, x, positions, **kw)
+                    aux = aux + a
+            finally:
+                # a remat recompute, in the backward, counts nothing
+                self._pass = None
         return self._logits(params, x), aux
 
-    def loss(self, params, batch) -> torch.Tensor:
+    def loss(self, params, batch, state=None) -> torch.Tensor:
         """Mean next-token CE over ``batch["labels"] != -100`` plus
-        ``AUX_COEF`` times the forward's aux loss, as the reference's."""
-        logits, aux = self.forward(params, batch)
+        ``AUX_COEF`` times the forward's aux loss, as the reference's
+        (with selection biases: ``balance_alpha`` times the layers'
+        balance losses). ``state``: as ``forward``'s."""
+        logits, aux = self.forward(params, batch, state)
         # under a mesh the vocab is gathered first: the labels' gather
         # along a sharded dim has no DTensor strategy
         logits = constrain(logits, ("batch", "seq", None))
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        return cross_entropy_loss(logits, labels) + AUX_COEF * aux
+        coef = (self.cfg.balance_alpha if self.cfg.bias_layers
+                else AUX_COEF)
+        return cross_entropy_loss(logits, labels) + coef * aux
+
+    @torch.no_grad()
+    def update_router_bias(self, state: Dict[str, torch.Tensor]) -> None:
+        """Move each expert layer's selection bias in ``state`` by
+        ``bias_speed`` times sign(mean load - load), from the selections
+        counted since the last update, and clear them; in place, on the
+        device, with no host sync."""
+        loads = state["router_loads"].float()
+        state["router_bias"].add_(torch.sign(loads.mean(-1, keepdim=True)
+                                             - loads),
+                                  alpha=self.cfg.bias_speed)
+        state["router_loads"].zero_()
 
     # ------------------------------------------------------------- serving
+    def _serves(self) -> None:
+        if self.cfg.first_dense:
+            raise NotImplementedError(
+                f"{self.cfg.name}: serving leading dense layers is not "
+                "ported; the port trains this architecture")
+
     def decode_cache_init(self, batch: int, max_len: int) -> Pytree:
+        self._serves()
         cfg = self.cfg
         if cfg.family == "hybrid":
             dt = torch_dtype(cfg.kv_cache_dtype)
@@ -491,6 +606,7 @@ class LM:
         Returns (logits [B, 1, V], cache). An attention cache is updated in
         place; RWKV6 and RG-LRU states come back new, as the reference's
         scan returns them."""
+        self._serves()
         params = self._compute_cast(params)
         x = self._embed(params, batch)
         positions = self._positions(batch, 1, offset=int(pos))
@@ -527,6 +643,7 @@ class LM:
         cache is recomputed from each layer's input after the layer ran
         (``blocks.mla_prefill_cache``), in ``decode_cache_init``'s form, as
         the reference does."""
+        self._serves()
         cfg = self.cfg
         params = self._compute_cast(params)
         x = self._embed(params, batch)

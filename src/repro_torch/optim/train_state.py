@@ -4,15 +4,20 @@ microbatches), as the JAX package's ``optim/train_state.py``.
 ``TrainState`` and ``AdamWState`` keep the reference's NamedTuple field
 names, so the checkpoint manager's flattened keys (``params/...``,
 ``opt/step``, ``opt/m/...``, ``opt/v/...``) are the same in both packages
-and a checkpoint of either restores in the other.
+and a checkpoint of either restores in the other. ``TrainState`` adds
+``model_state``, the model's state that no gradient touches
+(``repro_torch.model_state``; the port's own architectures'), saved under
+``model_state/...``; it is empty for every architecture both packages
+have, which then write the same keys.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import model_state as _model_state
 from .. import trace
 from .adamw import AdamWState, _leaves, _unflatten_like, adamw_apply, \
     adamw_init
@@ -23,10 +28,17 @@ Pytree = Any
 class TrainState(NamedTuple):
     params: Pytree
     opt: AdamWState
+    model_state: Optional[Dict[str, torch.Tensor]] = None
 
 
-def make_train_state(params: Pytree, opt_dtype: str = "float32") -> TrainState:
-    return TrainState(params=params, opt=adamw_init(params, opt_dtype))
+def make_train_state(params: Pytree, opt_dtype: str = "float32",
+                     model_state: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> TrainState:
+    """``model_state``: the model's (its ``init_state()``), which a
+    checkpoint's restore needs in its template; without it the first step
+    starts it."""
+    return TrainState(params=params, opt=adamw_init(params, opt_dtype),
+                      model_state=model_state)
 
 
 def leaf_grads(loss: torch.Tensor, leaves: list) -> list:
@@ -65,6 +77,13 @@ def make_train_step(loss_fn: Callable[[Pytree, Any], torch.Tensor], *,
     may not be read as the old state afterwards. Each call is the program
     span ``pangea.step`` around ``pangea.step.forward``, ``.backward``,
     ``.grad_norm`` and ``.update`` (``repro_torch.trace``).
+
+    The state's ``model_state`` (a new dict where it is None) is the
+    step's (``model_state.step``) for the forwards inside: a model that
+    has state reads it there, starts it where it is missing, and names its
+    update, which the step makes after the optimizer's, in ``.balance``
+    (DeepSeek-V3's routers' selection biases, ``LM.update_router_bias``).
+    The state returned carries it.
     """
 
     def grads_of(params, batch):
@@ -74,7 +93,9 @@ def make_train_step(loss_fn: Callable[[Pytree, Any], torch.Tensor], *,
         return loss.detach(), leaf_grads(loss, leaves)
 
     def train_step(state: TrainState, batch) -> tuple:
-        with trace.span("pangea.step", tokens=_label_count(batch)):
+        tree = {} if state.model_state is None else state.model_state
+        with trace.span("pangea.step", tokens=_label_count(batch)), \
+                _model_state.step(tree) as step_state:
             params = state.params
             if microbatches == 1:
                 loss, grads = grads_of(params, batch)
@@ -101,7 +122,11 @@ def make_train_step(loss_fn: Callable[[Pytree, Any], torch.Tensor], *,
                 new_params, new_opt = adamw_apply(
                     params, grads, state.opt, lr=lr,
                     weight_decay=weight_decay)
+            if step_state.updates:
+                with trace.span("pangea.step.balance"):
+                    step_state.update()
             metrics = {"loss": loss, "grad_norm": gnorm, "step": new_opt.step}
-            return TrainState(new_params, new_opt), metrics
+            return TrainState(new_params, new_opt,
+                              tree or state.model_state), metrics
 
     return train_step

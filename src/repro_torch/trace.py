@@ -31,7 +31,21 @@ The spans the port opens (all named ``pangea.*``):
   next batch from the pool; ``pangea.data.to_device``:
   ``launch.train.train_batch``, the batch's move to the device;
 - ``pangea.flash``, ``pangea.dispatch``, ``pangea.combine``: the kernel
-  entries ``flash_attention``, ``dispatch`` and ``combine``.
+  entries ``flash_attention``, ``dispatch`` and ``combine``;
+- ``pangea.moe.route`` (attr ``layer``) and ``pangea.moe.experts``: a
+  grouped-sigmoid expert layer's router (scores, selection, balance loss,
+  slots, counters) and its routed experts (dispatch, products, combine),
+  ``models.blocks.moe_apply_grouped``; ``pangea.step.balance``: the train
+  step's update of the routers' selection biases, after ``.update``.
+
+Counters are on always, apart from spans: ``count(name, value)`` adds a
+device tensor to a float64 device tensor of that name, with no host sync;
+``counters()`` reads them all (one sync) and ``reset_counters()`` drops
+them. The port counts, in each expert layer with a share of its experts
+(``models.blocks.count_share``), in each forward that is not a remat
+recompute: ``moe.pairs_held``, ``moe.pairs_kept``, ``moe.load_ratio_sum``
+and ``moe.load_ratio_n`` (the layers and forwards whose held experts got
+pairs).
 
 This module imports ``torch`` only, so that every part of the package can
 import it.
@@ -47,7 +61,8 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
-__all__ = ["Span", "enable", "span", "drain"]
+__all__ = ["Span", "count", "counters", "drain", "enable", "reset_counters",
+           "span"]
 
 
 class Span(NamedTuple):
@@ -119,3 +134,25 @@ class _Open:
                             threading.get_ident(), self.start, end,
                             self.attrs))
         return False
+
+
+_counters: Dict[str, torch.Tensor] = {}
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Add ``value`` (a 0-d tensor) to counter ``name``, on its device,
+    with no host sync."""
+    c = _counters.get(name)
+    if c is None:
+        _counters[name] = value.detach().to(torch.float64).clone()
+    else:
+        c.add_(value.detach())
+
+
+def counters() -> Dict[str, float]:
+    """Every counter's value (reading them syncs with their device)."""
+    return {k: float(v) for k, v in _counters.items()}
+
+
+def reset_counters() -> None:
+    _counters.clear()
